@@ -1,0 +1,118 @@
+"""Long-audio streaming segmentation (the cross-corpus broadcast use case).
+
+Counterpart of ``sm_hpss_mtl_tpu/eval/segment.py`` with the semantics of
+its plain Python loop over chunks:
+
+- :func:`interval_annotations_to_markers`: time-interval CSV rows
+  (tmin, dur, label) -> per-frame 0/1 markers, positions scaled by the
+  total annotated duration as the reference does.
+- :class:`StreamingSegmenter`: dense inference over a featuregram of any
+  length, in fixed chunks of shift-1 windows, giving per-window S and M
+  probability tracks from the MTL heads.
+- :func:`smooth_predictions`: median smoothing of a probability track.
+
+The featuregram stays on its device; windows are ``Tensor.unfold`` views
+of each chunk, and only the probability tracks come back to the host.
+"""
+
+from __future__ import annotations
+
+import csv
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+from scipy.signal import medfilt
+
+from ..ops.patches import standardize_rows
+
+
+def interval_annotations_to_markers(rows, n_frames: int,
+                                    audio_length: float | None = None
+                                    ) -> np.ndarray:
+    """``rows``: iterable of (tmin_seconds, duration_seconds, label);
+    returns a 0/1 marker of length ``n_frames`` set where label==1.
+    Positions are scaled by the total annotated duration (max tmin+dur
+    over rows unless ``audio_length`` is given)."""
+    rows = [(float(t), float(d), int(l)) for t, d, l in rows]
+    if audio_length is None:
+        audio_length = max((t + d for t, d, _ in rows), default=0.0)
+    marker = np.zeros(n_frames)
+    if audio_length <= 0:
+        return marker
+    for tmin, dur, label in rows:
+        if dur == 0.0 or label != 1:
+            continue
+        tmax = tmin + dur
+        start = max(0, int(np.floor(tmin / audio_length * n_frames)))
+        end = min(int(np.ceil(tmax / audio_length * n_frames)), n_frames - 1)
+        marker[start:end] = 1
+    return marker
+
+
+def read_interval_csv(path: str) -> list[tuple]:
+    """DAFx-style CSV: header row then (tmin, dur, label) rows."""
+    out = []
+    with open(path, newline="\n") as f:
+        for i, row in enumerate(csv.reader(f, delimiter=",", quotechar="|")):
+            if not row or i == 0:
+                continue
+            out.append((row[0], row[1], row[2]))
+    return out
+
+
+def smooth_predictions(prob: np.ndarray, win_size: int = 501
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Median-smooth a probability track and threshold at 0.5."""
+    if win_size % 2 == 0:
+        win_size += 1
+    sm = medfilt(prob, win_size)
+    return sm, (sm > 0.5).astype(int)
+
+
+@dataclass
+class StreamingSegmenter:
+    """Per-window S/M probabilities over an arbitrarily long featuregram.
+
+    Each chunk of ``chunk_frames`` windows is standardized on its own
+    (per row, and per HPSS half for two-part [H; P] features) over the
+    frames its windows cover, the true ragged tail included, then fed to
+    ``predict_fn`` as time-major ``(count, patch_size, D)`` patches."""
+    predict_fn: Callable[[torch.Tensor], dict]
+    patch_size: int = 68
+    chunk_frames: int = 10000
+    feat_name: str = "LogMelHarmPercSpec"
+
+    def _standardize_parts(self, seg: torch.Tensor) -> torch.Tensor:
+        if "HarmPerc" in self.feat_name:
+            return torch.cat([standardize_rows(h) for h in seg.chunk(2, 0)])
+        return standardize_rows(seg)
+
+    def frame_probabilities(self, fv: torch.Tensor) -> dict[str, np.ndarray]:
+        """``fv``: ``(D, T)`` featuregram -> dict of per-window tracks
+        (``T - patch_size + 1`` rows) as host arrays."""
+        W = self.patch_size
+        n_windows = fv.shape[1] - W + 1
+        if n_windows <= 0:
+            raise ValueError("featuregram shorter than one window")
+        tracks: dict[str, list] = {}
+        start = 0
+        while start < n_windows:
+            count = min(self.chunk_frames, n_windows - start)
+            seg = self._standardize_parts(fv[:, start:start + count + W - 1])
+            batch = seg.unfold(1, W, 1).permute(1, 2, 0)   # (count, W, D)
+            with torch.inference_mode():
+                out = self.predict_fn(batch.contiguous())
+            for k, v in out.items():
+                tracks.setdefault(k, []).append(v.float().cpu().numpy())
+            start += count
+        return {k: np.concatenate(v, axis=0) for k, v in tracks.items()}
+
+    def segment(self, fv: torch.Tensor, *, head: str = "S",
+                smooth_win: int = 501):
+        """Smoothed track, 0/1 labels and all raw tracks for one head."""
+        tracks = self.frame_probabilities(fv)
+        prob = tracks[head][:, 0] if tracks[head].ndim > 1 else tracks[head]
+        sm, labels = smooth_predictions(prob, smooth_win)
+        return sm, labels, tracks

@@ -1,0 +1,80 @@
+"""Temporal Convolutional Network (Lemaire et al., ISMIR 2019 config).
+
+Counterpart of ``sm_hpss_mtl_tpu/models/tcn.py`` (the keras-tcn residual
+block as the reference configures it): an initial conv to ``n_filters``
+channels, ``nb_stacks`` stacks over dilations ``1 .. 2^(Nd-1)``, each block
+dilated conv -> ReLU -> per-timestep channel max-abs normalisation ->
+spatial dropout -> 1x1 conv -> residual add, then a final ReLU.
+
+Layout: the trunk runs ``(B, C, T)`` internally, as ``nn.Conv1d`` wants;
+:class:`TCN` takes and returns time-major ``(B, T, C)`` like the JAX
+module.  Submodule names equal the flax names, so ``weights.from_flax``
+maps parameters by path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def channel_normalization(x: torch.Tensor) -> torch.Tensor:
+    """Per-timestep max-abs channel normalisation of ``(B, C, T)``
+    (keras-tcn 'norm_relu'): ``x / (max_c |x| + 1e-5)``."""
+    return x / (x.abs().amax(dim=1, keepdim=True) + 1e-5)
+
+
+class SpatialDropout1D(nn.Module):
+    """Drop whole channels of ``(B, C, T)`` (one mask across time), as
+    Keras SpatialDropout1D; the identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.bernoulli(torch.full(x.shape[:-1] + (1,), keep,
+                                          device=x.device, dtype=x.dtype))
+        return x * mask / keep
+
+
+class TCNResidualBlock(nn.Module):
+    def __init__(self, n_filters: int, kernel_size: int, dilation: int,
+                 dropout_rate: float):
+        super().__init__()
+        self.dilated_conv = nn.Conv1d(n_filters, n_filters, kernel_size,
+                                      dilation=dilation, padding="same")
+        self.dropout = SpatialDropout1D(dropout_rate)
+        self.conv_1x1 = nn.Conv1d(n_filters, n_filters, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = channel_normalization(torch.relu(self.dilated_conv(x)))
+        return x + self.conv_1x1(self.dropout(y))
+
+
+class TCN(nn.Module):
+    """Returns sequences: ``(B, T, D) -> (B, T, n_filters)``."""
+
+    def __init__(self, in_dim: int, n_filters: int = 32, kernel_size: int = 3,
+                 nb_stacks: int = 3,
+                 dilations: tuple = (1, 2, 4, 8, 16, 32, 64, 128),
+                 dropout_rate: float = 0.275):
+        super().__init__()
+        self.initial_conv = nn.Conv1d(in_dim, n_filters, kernel_size,
+                                      padding="same")
+        self.block_names = []
+        for s in range(nb_stacks):
+            for d in dilations:
+                name = f"stack{s}_dilation{d}"
+                self.add_module(name, TCNResidualBlock(
+                    n_filters, kernel_size, d, dropout_rate))
+                self.block_names.append(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.initial_conv(x.transpose(1, 2))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return torch.relu(x).transpose(1, 2)

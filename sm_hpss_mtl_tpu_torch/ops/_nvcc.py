@@ -1,0 +1,61 @@
+"""Build a CUDA source of ``csrc/`` into a shared library with ``nvcc``.
+
+Kernels have a plain C interface and are loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library lands in
+``build/torch_kernels/`` at the repository root, named by a hash of its
+source, so an edited source is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc at first use")
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library exists; return the
+    library's path.  The ptxas report (registers, shared memory, spills)
+    is kept beside it as ``<library>.log``."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out

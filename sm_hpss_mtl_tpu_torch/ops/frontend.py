@@ -1,0 +1,132 @@
+"""Fused audio -> mel-HPSS front end: kernel K1 and its plain version.
+
+Counterpart of ``sm_hpss_mtl_tpu/ops/frontend_pallas.py::stft_hpss_mel``.
+For a CUDA tensor, :func:`stft_hpss_mel` launches the hand-written kernel
+of ``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
+medians, soft masks and mel projection in one pass; the spectrogram never
+reaches device memory).  For a CPU tensor it runs
+:func:`stft_hpss_mel_plain`, the same chain in plain PyTorch.  A CUDA call
+never falls back: if the kernel cannot be built or launched, it raises.
+
+The kernel is built with ``nvcc`` at its first launch, not at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _nvcc
+from .hpss import hpss
+from .stft import n_frames, stft_mag
+
+#: (l_harm, l_perc) pairs the kernel is instantiated for: the serving
+#: preset and the Jang geometry.
+KERNEL_MEDIANS = ((21, 11), (11, 5))
+
+_SOURCE = "frontend.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                     p]
+    lib.k1_stft_hpss_mel.restype = i
+    lib.k1_error_string.argtypes = [i]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at the
+    first launch)."""
+    _library()
+
+
+def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
+                        n_fft: int = 400, win_length: int = 400,
+                        hop_length: int = 160, l_harm: int = 21,
+                        l_perc: int = 11, power: float = 2.0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """stft_mag -> hpss -> mel projection: ``(..., N)`` audio and an
+    ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps."""
+    S = stft_mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
+    H, P = hpss(S, l_harm=l_harm, l_perc=l_perc, power=power)
+    M = mel_basis.to(device=S.device, dtype=torch.float32)
+    return torch.matmul(M, H), torch.matmul(M, P)
+
+
+def _launch(y: torch.Tensor, M: torch.Tensor, *, n_fft, win_length,
+            hop_length, l_harm, l_perc):
+    if y.dtype != torch.float32 or M.dtype != torch.float32:
+        raise TypeError("stft_hpss_mel kernel takes float32 audio and basis")
+    if M.device != y.device:
+        raise ValueError("mel_basis must be on the audio's device")
+    F = 1 + n_fft // 2
+    if M.ndim != 2 or M.shape[1] != F:
+        raise ValueError(f"mel_basis must be (n_mels, {F}), got {tuple(M.shape)}")
+    if (l_harm, l_perc) not in KERNEL_MEDIANS:
+        raise ValueError(f"kernel supports (l_harm, l_perc) in "
+                         f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
+    if not win_length <= n_fft:
+        raise ValueError("win_length must not exceed n_fft")
+    lead, N = y.shape[:-1], y.shape[-1]
+    T = n_frames(N, n_fft, hop_length)
+    if T < 1:
+        raise ValueError(f"{N} samples are shorter than one frame of {n_fft}")
+    y2 = y.reshape(-1, N).contiguous()
+    M = M.contiguous()
+    B, n_mels = y2.shape[0], M.shape[0]
+    out_h = torch.empty((B, n_mels, T), dtype=torch.float32, device=y.device)
+    out_p = torch.empty_like(out_h)
+    if B == 0:
+        return out_h.reshape(lead + (n_mels, T)), out_p.reshape(lead + (n_mels, T))
+    lib = _library()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = lib.k1_stft_hpss_mel(
+            y2.data_ptr(), M.data_ptr(), out_h.data_ptr(), out_p.data_ptr(),
+            B, N, T, n_fft, win_length, hop_length, l_harm, l_perc, n_mels,
+            stream)
+    if err != 0:
+        raise RuntimeError("stft_hpss_mel kernel launch failed: "
+                           + lib.k1_error_string(err).decode())
+    stft_hpss_mel.launches += 1
+    return out_h.reshape(lead + (n_mels, T)), out_p.reshape(lead + (n_mels, T))
+
+
+def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
+                  n_fft: int = 400, win_length: int = 400,
+                  hop_length: int = 160, l_harm: int = 21, l_perc: int = 11,
+                  power: float = 2.0, dft_precision: str = "highest"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Audio ``(..., N)`` -> ``(mel(H), mel(P))``, each ``(..., n_mels, T)``.
+
+    ``mel_basis`` is ``(n_mels, F)``.  The kernel's DFT is full float32,
+    the JAX package's ``dft_precision='highest'``; ``'bf16x3'`` has no
+    counterpart yet and raises.  The kernel's masks are squared (``power``
+    2, what every feature family uses); another power raises.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (each launch
+    adds one to ``stft_hpss_mel.launches``)."""
+    if dft_precision != "highest":
+        raise NotImplementedError(
+            f"dft_precision={dft_precision!r}: only 'highest' (full float32) "
+            "is implemented")
+    if power != 2.0:
+        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
+    kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
+              l_harm=l_harm, l_perc=l_perc)
+    if y.device.type == "cpu":
+        return stft_hpss_mel_plain(y, mel_basis, **kw)
+    if y.device.type == "cuda":
+        return _launch(y, mel_basis, **kw)
+    raise ValueError(f"stft_hpss_mel: unsupported device {y.device}")
+
+
+#: Launches of the K1 kernel in this process (the plain version does not
+#: count).
+stft_hpss_mel.launches = 0

@@ -1,0 +1,54 @@
+"""Mel projection and librosa's ``power_to_db`` in plain PyTorch.
+
+Counterpart of ``sm_hpss_mtl_tpu/ops/mel.py``.  The HPSS feature branches
+build their mel bank at sr=22050 (librosa's default), a reference quirk
+kept on purpose (see ``ops/featuregram.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import reference as ref
+
+
+@functools.lru_cache(maxsize=32)
+def _mel_basis(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
+    return np.asarray(ref.mel_filterbank(sr, n_fft, n_mels), dtype=np.float32)
+
+
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, *,
+                   device: str | torch.device = "cpu") -> torch.Tensor:
+    """Slaney-norm mel filterbank ``(n_mels, 1 + n_fft//2)`` float32."""
+    return torch.as_tensor(_mel_basis(sr, n_fft, n_mels), device=device)
+
+
+def apply_mel(S: torch.Tensor, *, sr: int, n_mels: int) -> torch.Tensor:
+    """Project a spectrogram ``(..., F, T)`` onto ``n_mels`` bands; the FFT
+    size is inferred from F as librosa's ``melspectrogram(S=...)`` does."""
+    n_fft = 2 * (S.shape[-2] - 1)
+    return torch.matmul(mel_filterbank(sr, n_fft, n_mels, device=S.device), S)
+
+
+def power_to_db(S: torch.Tensor, *, ref_value: float = 1.0,
+                amin: float = 1e-10, top_db: float | None = 80.0,
+                valid_len=None) -> torch.Tensor:
+    """``librosa.core.power_to_db``.  The ``top_db`` clamp takes the max over
+    the last two axes (one spectrogram per leading index); ``valid_len``
+    (an int or a tensor broadcastable to ``(..., 1, 1)``) keeps padded
+    frames out of that max."""
+    log_spec = 10.0 * torch.log10(torch.clamp(S, min=amin))
+    log_spec = log_spec - 10.0 * float(np.log10(max(amin, ref_value)))
+    if top_db is None:
+        return log_spec
+    masked = log_spec
+    if valid_len is not None:
+        t = torch.arange(S.shape[-1], device=S.device)
+        valid = torch.as_tensor(valid_len, device=S.device)
+        masked = torch.where(t < valid, log_spec,
+                             torch.full_like(log_spec, -torch.inf))
+    peak = masked.amax(dim=(-2, -1), keepdim=True)
+    return torch.maximum(log_spec, peak - top_db)

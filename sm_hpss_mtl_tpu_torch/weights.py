@@ -1,0 +1,107 @@
+"""Model weights between the flax variable tree and a torch state_dict.
+
+The JAX package checkpoints ``{"params": ..., "batch_stats": ...}`` flax
+trees with orbax (``train/checkpoint.py``).  The port cannot read orbax, so
+its checkpoint is an ``.npz`` whose keys are the flat ``/``-joined flax
+paths (``params/tcn/initial_conv/kernel``,
+``batch_stats/heads/S_block/bn/mean``, ...).  The port's submodules carry
+the flax names, so a path maps to a state_dict key by its module path and
+a leaf rename:
+
+==========================  ===========================  ===============
+flax leaf                   torch key                    layout
+==========================  ===========================  ===============
+params/.../kernel (3-D)     ....weight                   (W,in,out) -> (out,in,W)
+params/.../kernel (2-D)     ....weight                   (in,out) -> (out,in)
+params/.../bias             ....bias
+params/.../bn/scale         ....bn.weight
+batch_stats/.../bn/mean     ....bn.running_mean
+batch_stats/.../bn/var      ....bn.running_var
+==========================  ===========================  ===============
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = np.asarray(v)
+    return flat
+
+
+def from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax ``{"params", "batch_stats"}`` tree of arrays -> state_dict."""
+    state = {}
+    for path, arr in _flatten(variables).items():
+        collection, mod, leaf = path[0], ".".join(path[1:-1]), path[-1]
+        if collection == "params":
+            if leaf == "kernel":
+                arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+                leaf = "weight"
+            elif leaf == "scale":
+                leaf = "weight"
+            elif leaf != "bias":
+                raise KeyError(f"unknown parameter {'/'.join(path)}")
+        elif collection == "batch_stats":
+            if leaf not in _STAT_NAMES:
+                raise KeyError(f"unknown statistic {'/'.join(path)}")
+            leaf = _STAT_NAMES[leaf]
+            state[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            raise KeyError(f"unknown collection {collection!r}")
+        state[f"{mod}.{leaf}"] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
+    return state
+
+
+def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """state_dict -> flax ``{"params", "batch_stats"}`` tree (numpy)."""
+    tree: dict = {}
+    stat_leaves = {v: k for k, v in _STAT_NAMES.items()}
+    for key, t in state_dict.items():
+        *mod, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf in stat_leaves:
+            collection, leaf = "batch_stats", stat_leaves[leaf]
+        else:
+            collection = "params"
+            if leaf == "weight" and mod[-1] == "bn":
+                leaf = "scale"
+            elif leaf == "weight":
+                arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+                leaf = "kernel"
+        node = tree.setdefault(collection, {})
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def save_npz(path: str, variables: dict) -> None:
+    """Write a flax variable tree as an ``.npz`` of ``/``-joined keys."""
+    np.savez(path, **{"/".join(k): v
+                      for k, v in _flatten(variables).items()})
+
+
+def load_npz(path: str) -> dict:
+    """Read an ``.npz`` written by :func:`save_npz` back into a tree."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            *mods, leaf = key.split("/")
+            node = tree
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = z[key]
+    return tree

@@ -1,0 +1,113 @@
+"""K1 port: the plain version of ``stft_hpss_mel`` against the JAX kernel.
+
+The JAX side is the Pallas kernel in interpret mode at
+``dft_precision='highest'`` (the port's kernel is full float32) and the
+jnp oracle chain for clips too short for the kernel's edge mirror.  The
+CUDA kernel itself is held to this plain version on the card by
+``chip_smoke.py``.  Tolerance rtol 2e-4, atol 2e-5, as
+``tests/test_frontend_pallas.py`` holds the Pallas kernel to its oracle.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sm_hpss_mtl_tpu.ops import frontend_pallas as fp
+from sm_hpss_mtl_tpu.ops import hpss_pallas
+from sm_hpss_mtl_tpu.ops import mel as jmel
+from sm_hpss_mtl_tpu_torch.ops import frontend as tfe
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def _mel(n_mels, n_fft):
+    return np.array(jmel.mel_filterbank(22050, n_fft, n_mels))
+
+
+@pytest.mark.parametrize("n_fft,n_samples,tile_t,l_harm,l_perc,n_mels,B", [
+    (400, 16_000, 48, 21, 11, 32, 2),   # T=98: thin last tile
+    (400, 8_000, 364, 21, 11, 32, 2),   # T=48: single tile wider than T
+    (400, 7_920, 24, 21, 11, 32, 2),    # T=48: exact tile multiple
+    (400, 9_520, 48, 21, 11, 32, 2),    # T=58: last tile exactly ht frames
+    (512, 12_000, 32, 11, 5, 24, 1),    # Jang geometry, J=4
+])
+def test_plain_matches_pallas_interpret(n_fft, n_samples, tile_t, l_harm,
+                                        l_perc, n_mels, B):
+    rng = np.random.default_rng(n_samples + n_fft)
+    y = rng.standard_normal((B, n_samples)).astype(np.float32)
+    M = _mel(n_mels, n_fft)
+    kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=l_harm,
+              l_perc=l_perc, power=2.0)
+    jh, jp = fp._frontend_pallas(jnp.asarray(y), jnp.asarray(M).T,
+                                 tile_t=tile_t, dft_precision="highest",
+                                 interpret=True, **kw)
+    th, tp = tfe.stft_hpss_mel_plain(torch.from_numpy(y),
+                                     torch.from_numpy(M), **kw)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 5, 19])
+def test_plain_matches_oracle_short_clips(T):
+    # Clips shorter than 2*(l_harm//2) frames: the symmetric time padding
+    # repeats (period 2T), which the JAX kernel leaves to its oracle.
+    rng = np.random.default_rng(T)
+    y = rng.standard_normal((2, 400 + (T - 1) * 160)).astype(np.float32)
+    M = _mel(40, 400)
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=21,
+              l_perc=11, power=2.0)
+    jh, jp = fp._oracle(jnp.asarray(y), jnp.asarray(M), **kw)
+    th, tp = tfe.stft_hpss_mel_plain(torch.from_numpy(y),
+                                     torch.from_numpy(M), **kw)
+    assert th.shape == (2, 40, T)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+def test_wrapper_sends_cpu_tensors_to_plain_version():
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.standard_normal((3, 1, 4_000)).astype(np.float32))
+    M = torch.from_numpy(_mel(16, 400))
+    before = tfe.stft_hpss_mel.launches
+    h, p = tfe.stft_hpss_mel(y, M)
+    assert tfe.stft_hpss_mel.launches == before
+    assert h.shape == p.shape == (3, 1, 16, 23)
+    h0, p0 = tfe.stft_hpss_mel_plain(y, M)
+    torch.testing.assert_close(h, h0, rtol=0, atol=0)
+    torch.testing.assert_close(p, p0, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="bf16x3"):
+        tfe.stft_hpss_mel(y, M, dft_precision="bf16x3")
+    with pytest.raises(NotImplementedError, match="power"):
+        tfe.stft_hpss_mel(y, M, power=1.0)
+
+
+def test_kernel_median_networks_match_jax():
+    # csrc/frontend.cu writes out the pruned Batcher networks of
+    # ops/hpss_pallas.py::median_network; each must be the same list.
+    src = (tfe._nvcc.CSRC / "frontend.cu").read_text()
+    for n in (5, 11, 21):
+        body = src.split(f"struct Median<{n}>")[1].split("return")[0]
+        pairs = tuple((int(i), int(j))
+                      for i, j in re.findall(r"CS\((\d+),(\d+)\)", body))
+        assert pairs == hpss_pallas.median_network(n), n
+    assert set(tfe.KERNEL_MEDIANS) == {(21, 11), (11, 5)}
+
+
+def test_import_needs_no_nvcc(tmp_path):
+    # The CPU test machines have no nvcc: importing the kernel module must
+    # not build or look for it.
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    code = ("import sm_hpss_mtl_tpu_torch.ops.frontend as f, "
+            "sm_hpss_mtl_tpu_torch.ops.featuregram; "
+            "assert f._library.cache_info().currsize == 0")
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=os.path.dirname(os.path.dirname(__file__)))

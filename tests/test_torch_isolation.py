@@ -1,0 +1,44 @@
+"""The port runs without JAX: no module of ``sm_hpss_mtl_tpu_torch``
+imports ``jax`` or the JAX package, and its entry points refuse to fall
+back to the CPU when CUDA was asked for and is absent."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "sm_hpss_mtl_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_neither_jax_nor_jax_package():
+    mods = list(_modules())
+    assert "sm_hpss_mtl_tpu_torch.cli.segment" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn', "
+        "'sm_hpss_mtl_tpu'))\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env={k: v for k, v in os.environ.items()
+                        if k != "PYTHONPATH"})
+
+
+def test_cli_without_device_cpu_raises_when_no_gpu(monkeypatch, tmp_path):
+    from sm_hpss_mtl_tpu_torch.cli import segment as tcli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main([str(tmp_path / "missing.wav"), "--weights",
+                   str(tmp_path / "missing.npz")])

@@ -1,0 +1,168 @@
+"""Serving path of the port against the JAX package: the streaming
+segmenter, the ``cli.segment`` entry point end to end, and the metrics."""
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+import jax
+import jax.numpy as jnp
+
+from sm_hpss_mtl_tpu.cli import segment as jcli
+from sm_hpss_mtl_tpu.eval import metrics as jmetrics
+from sm_hpss_mtl_tpu.eval import segment as jseg
+from sm_hpss_mtl_tpu.ops import featuregram as jfg
+from sm_hpss_mtl_tpu_torch.cli import segment as tcli
+from sm_hpss_mtl_tpu_torch.eval import metrics as tmetrics
+from sm_hpss_mtl_tpu_torch.eval import segment as tseg
+from sm_hpss_mtl_tpu_torch import weights
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def jax_constant_rows_fixed(monkeypatch):
+    """The JAX segmenter's standardization with constant rows centred to 0.
+
+    The serving features always hold rows pinned at the dB floor (the
+    empty low filters of the sr=22050 mel bank).  The JAX helper tests
+    the float32 std against 0, which misses them, and turns them into
+    +-1 noise that depends on summation order; the port centres them as
+    sklearn does (``test_torch_dsp``).  The JAX side is patched here, not
+    edited, so that both are held to the same rule."""
+    from sm_hpss_mtl_tpu.ops.patches import standardize_rows
+
+    def fixed(FV):
+        FV = np.asarray(FV)
+        out = np.array(standardize_rows(FV))
+        out[FV.max(axis=-1) == FV.min(axis=-1)] = 0.0
+        return out
+
+    monkeypatch.setattr(jseg, "standardize_rows", fixed)
+
+
+def _broadcast(seconds, seed):
+    """Tones, clicks and a speech-like burst, as 16 kHz float32."""
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 220 * t) * (t < seconds / 2)
+    burst = np.sin(2 * np.pi * 140 * t) * (np.sin(2 * np.pi * 4 * t) > 0)
+    x = x + 0.3 * burst * (t >= seconds / 2) + 0.02 * rng.standard_normal(n)
+    for k in range(0, n - 40, 3200):
+        x[k:k + 40] += 0.8 * np.hanning(40)
+    return x.astype(np.float32)
+
+
+def test_segmenter_matches_jax_plain_loop(jax_constant_rows_fixed):
+    x = _broadcast(2.0, 0)
+    fv = np.asarray(jfg.featuregram(jnp.asarray(x),
+                                    feat_name="LogMelHarmPercSpec", n_mels=40))
+    W, chunk = 16, 50                 # 183 windows: chunks 50,50,50,33
+
+    def jpredict(b):                  # (B, W, D)
+        s = 3.0 * jnp.mean(b[:, :, :8], axis=(1, 2))
+        return {"S": jax.nn.sigmoid(s)[:, None],
+                "M": jax.nn.sigmoid(jnp.mean(b[:, :, 40:48], axis=(1, 2))
+                                    * 3.0)[:, None]}
+
+    def tpredict(b):
+        s = 3.0 * b[:, :, :8].mean(dim=(1, 2))
+        return {"S": torch.sigmoid(s)[:, None],
+                "M": torch.sigmoid(b[:, :, 40:48].mean(dim=(1, 2))
+                                   * 3.0)[:, None]}
+
+    want = jseg.StreamingSegmenter(predict_fn=jpredict, patch_size=W,
+                                   chunk_frames=chunk)
+    got = tseg.StreamingSegmenter(predict_fn=tpredict, patch_size=W,
+                                  chunk_frames=chunk)
+    for head in ("S", "M"):
+        sm0, lab0, tr0 = want.segment(fv, head=head, smooth_win=9)
+        sm1, lab1, tr1 = got.segment(torch.tensor(fv), head=head,
+                                     smooth_win=9)
+        assert tr1[head].shape == tr0[head].shape == (fv.shape[1] - W + 1, 1)
+        np.testing.assert_allclose(tr1[head], tr0[head], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(sm1, sm0, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(lab1, lab0)
+        assert 0 < lab1.sum() < len(lab1)
+
+
+def test_cli_segment_matches_jax_cli(tmp_path, jax_constant_rows_fixed):
+    from sm_hpss_mtl_tpu.models import get_model
+    from sm_hpss_mtl_tpu.train import TrainState, for_model
+    from sm_hpss_mtl_tpu.train.checkpoint import save_checkpoint
+
+    # 1.4 s: 138 frames, below the JAX CLI's multi-device and slab
+    # thresholds, so both take the bucketed whole-signal path.
+    wav = str(tmp_path / "b.wav")
+    wavfile.write(wav, 16000,
+                  (_broadcast(1.4, 1) * 32767).astype(np.int16))
+    annot = tmp_path / "a.csv"
+    annot.write_text("tmin,dur,label\n0.0,0.7,0\n0.7,0.7,1\n")
+
+    spec = get_model("Lemaire_et_al_MTL", n_mels=120)
+    opt, _ = for_model("Lemaire_et_al_MTL", tr_steps=1)
+    state = TrainState.create(spec.module, opt, jnp.zeros((2, 68, 240)),
+                              jax.random.PRNGKey(4))
+    ckpt = str(tmp_path / "ckpt")
+    save_checkpoint(ckpt, state)
+    npz = str(tmp_path / "w.npz")
+    weights.save_npz(npz, jax.tree_util.tree_map(
+        np.asarray, {"params": state.params,
+                     "batch_stats": state.batch_stats}))
+
+    common = [wav, "--head", "M", "--chunk-frames", "32", "--smooth-win",
+              "11", "--annot", str(annot)]
+    jprob, jlab = jcli.main(common + ["--ckpt", ckpt,
+                                      "--out", str(tmp_path / "j.npz")])
+    tprob, tlab = tcli.main(common + ["--weights", npz, "--device", "cpu",
+                                      "--out", str(tmp_path / "t.npz")])
+    assert tprob.shape == jprob.shape == (138 - 67,)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tlab, jlab)
+    # The featuregrams differ by up to ~2e-3 dB (float32 summation order),
+    # which moves the unbounded R head (values ~2) by up to ~3e-5.
+    with np.load(tmp_path / "j.npz") as j, np.load(tmp_path / "t.npz") as t:
+        for k in ("track_S", "track_M", "track_R", "track_3C"):
+            np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-4)
+
+
+def test_cli_featurize_long_broadcast_takes_slabs(monkeypatch):
+    monkeypatch.setattr(tcli, "SLAB_THRESHOLD_FRAMES", 64)
+    seen = {}
+    orig = tcli.featuregram_slabbed
+
+    def spy(y, **kw):
+        seen["slabbed"] = True
+        return orig(y, slab_frames=64, **kw)
+
+    monkeypatch.setattr(tcli, "featuregram_slabbed", spy)
+    x = _broadcast(2.0, 2)
+    preset = {"feat_name": "LogMelHarmPercSpec", "n_fft": 400, "n_mels": 24}
+    got = tcli._featurize_broadcast(x, preset, torch.device("cpu"))
+    assert seen.get("slabbed")
+    want = np.asarray(jfg.featuregram_slabbed(x, slab_frames=64, **preset))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("labels", [[0, 1], [0, 1, 2]])
+def test_get_performance_matches_sklearn(labels):
+    rng = np.random.default_rng(len(labels))
+    truth = rng.integers(0, 2, 300)
+    pred = rng.integers(0, len(labels), 300)
+    want = jmetrics.get_performance(pred, truth, labels)
+    got = tmetrics.get_performance(pred, truth, labels)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert tmetrics.accuracy(got[0]) == jmetrics.accuracy(want[0])
+
+
+def test_interval_markers_match_jax(tmp_path):
+    path = tmp_path / "a.csv"
+    path.write_text("tmin,dur,label\n0,10,1\n10,5,0\n15,12.5,1\n")
+    rows = tseg.read_interval_csv(str(path))
+    assert rows == jseg.read_interval_csv(str(path))
+    np.testing.assert_array_equal(
+        tseg.interval_annotations_to_markers(rows, 97),
+        jseg.interval_annotations_to_markers(rows, 97))
