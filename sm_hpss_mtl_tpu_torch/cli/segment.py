@@ -1,12 +1,14 @@
 """Streaming segmentation entry point: long-audio speech/music detection.
 
 Counterpart of ``python -m sm_hpss_mtl_tpu.cli.segment``: featurize a
-broadcast on the GPU (kernel K1 for the Mel-HPSS features), run shift-1
-windows of Lemaire-MTL over it in chunks, median-smooth the S or M track,
-optionally score against an interval CSV, and write per-frame labels.
+broadcast on the GPU (kernel K1 for Lemaire-MTL's Mel-HPSS features,
+kernel K2 for Jang-MTL's full-resolution ones), run shift-1 windows of the
+model over it in chunks, median-smooth the S or M track, optionally score
+against an interval CSV, and write per-frame labels.
 
     python -m sm_hpss_mtl_tpu_torch.cli.segment broadcast.wav \\
-        --weights W.npz [--head S] [--annot labels.csv] [--out labels.npz]
+        --weights W.npz [--model Jang_et_al_MTL] [--head S] \\
+        [--annot labels.csv] [--out labels.npz]
 
 ``--weights`` is the port's checkpoint: the flax variable tree as an
 ``.npz`` of ``/``-joined keys (``sm_hpss_mtl_tpu_torch.weights``).
@@ -27,13 +29,18 @@ from ..eval.metrics import get_performance
 from ..eval.segment import (StreamingSegmenter,
                             interval_annotations_to_markers,
                             read_interval_csv)
-from ..models.zoo import get_model
+from ..models.zoo import INPUT_KIND, get_model
 from ..ops.featuregram import featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
-from ..train.config import MODEL_PRESETS
+from ..train.config import MODEL_PRESETS, preset_n_mels
 from ..weights import from_flax, load_npz
 
-MODEL = "Lemaire_et_al_MTL"
+#: Models this entry point serves.
+MODELS = ("Lemaire_et_al_MTL", "Jang_et_al_MTL")
+
+#: Windows per model call for 'image' models: a whole 10000-window chunk
+#: of Jang-MTL holds ~21 GB in its first conv block alone.
+IMAGE_BATCH_WINDOWS = 1024
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -44,7 +51,7 @@ def _featurize_broadcast(x: np.ndarray, preset: dict,
                          device: torch.device) -> torch.Tensor:
     """Featuregram ``(D, T)`` of a whole broadcast, on ``device``."""
     kw = dict(feat_name=preset["feat_name"], n_fft=preset["n_fft"],
-              n_mels=preset["n_mels"])
+              n_mels=preset_n_mels(preset))
     true_t = n_frames(len(x), preset["n_fft"], 160)
     if true_t > SLAB_THRESHOLD_FRAMES:
         return featuregram_slabbed(
@@ -57,13 +64,37 @@ def _featurize_broadcast(x: np.ndarray, preset: dict,
     return fv[:, :true_t]
 
 
-def load_model(weights: str, device: torch.device,
+def check_model(name: str) -> None:
+    """Raise unless ``name`` is a model this entry point serves, naming
+    the item of ROADMAP §1 where it waits."""
+    if name not in MODELS:
+        item = 3 if name == "Papakostas_et_al_MTL" else 7
+        raise NotImplementedError(
+            f"--model {name}: not ported to cli.segment yet (ROADMAP §1, "
+            f"item {item}); ported: {', '.join(MODELS)}")
+
+
+def load_model(weights: str, device: torch.device, model: str = MODELS[0],
                patch_size: int = 68) -> torch.nn.Module:
-    """Lemaire-MTL in eval mode on ``device`` with weights from an npz."""
-    model = get_model(MODEL, n_mels=MODEL_PRESETS[MODEL]["n_mels"],
-                      patch_size=patch_size)
-    model.load_state_dict(from_flax(load_npz(weights)))
-    return model.to(device).eval()
+    """The named model in eval mode on ``device`` with weights from an
+    npz."""
+    net = get_model(model, n_mels=preset_n_mels(MODEL_PRESETS[model]),
+                    patch_size=patch_size)
+    net.load_state_dict(from_flax(load_npz(weights)))
+    return net.to(device).eval()
+
+
+def segmenter(model: str, predict_fn, *, patch_size: int = 68,
+              chunk_frames: int = 10000) -> StreamingSegmenter:
+    """The streaming segmenter that serves ``model``: its input kind, its
+    preset's feature name, and model calls of at most
+    ``IMAGE_BATCH_WINDOWS`` windows for 'image' models."""
+    kind = INPUT_KIND[model]
+    return StreamingSegmenter(
+        predict_fn=predict_fn, patch_size=patch_size,
+        chunk_frames=chunk_frames, input_kind=kind,
+        feat_name=MODEL_PRESETS[model]["feat_name"],
+        batch_windows=IMAGE_BATCH_WINDOWS if kind == "image" else None)
 
 
 def main(argv=None):
@@ -74,7 +105,9 @@ def main(argv=None):
                    help="treat the input as a precomputed (D, T) "
                         "featuregram .npy")
     p.add_argument("--weights", required=True,
-                   help="Lemaire-MTL weights .npz (flax keys)")
+                   help="the model's weights .npz (flax keys)")
+    p.add_argument("--model", default=MODELS[0],
+                   help=f"one of {', '.join(MODELS)}")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--head", default="S", choices=["S", "M"])
@@ -86,8 +119,9 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="save labels npz here")
     args = p.parse_args(argv)
 
+    check_model(args.model)
     device = resolve_device(args.device)
-    preset = MODEL_PRESETS[MODEL]
+    preset = MODEL_PRESETS[args.model]
     if args.spec:
         fv = torch.as_tensor(np.load(args.audio, allow_pickle=False),
                              dtype=torch.float32, device=device)
@@ -95,10 +129,9 @@ def main(argv=None):
         x, _ = read_wav(args.audio)
         fv = _featurize_broadcast(x, preset, device)
 
-    model = load_model(args.weights, device, args.patch_size)
-    seg = StreamingSegmenter(predict_fn=model, patch_size=args.patch_size,
-                             chunk_frames=args.chunk_frames,
-                             feat_name=preset["feat_name"])
+    model = load_model(args.weights, device, args.model, args.patch_size)
+    seg = segmenter(args.model, model, patch_size=args.patch_size,
+                    chunk_frames=args.chunk_frames)
     prob, labels, tracks = seg.segment(fv, head=args.head,
                                        smooth_win=args.smooth_win)
     frac = labels.mean() if len(labels) else 0.0

@@ -1,23 +1,31 @@
-// K1 on Hopper: fused STFT magnitude -> HPSS medians and Wiener masks -> mel
-// projection, from raw audio to both mel-HPSS feature maps in one launch.
+// K1 and K2 on Hopper: fused STFT magnitude -> HPSS medians and Wiener
+// masks -> (K1) mel projection, from raw audio to both HPSS feature maps in
+// one launch.
 //
-// Replaces the TPU kernel ops/frontend_pallas.py::_frontend_kernel (with its
-// body _tile_masks) of the JAX package.  Same function: for every frame t of
-// a (B, N) batch of audio, the Hann-windowed rDFT magnitude S (center=False),
-// a 21-frame harmonic median across time and an 11-bin percussive median
-// across frequency (both with numpy mode='symmetric' edges), librosa's
-// softmask (power 2, split_zeros=False), and the mel projections of S*mask_h
-// and S*mask_p, written as two (B, n_mels, T) maps.
+// Replaces the TPU kernels of ops/frontend_pallas.py in the JAX package:
+// K1 is _frontend_kernel (mel output), K2 is _frontend_kernel_mag
+// (full-resolution output); both share the body _tile_masks and are launched
+// by _frontend_pallas.  Same function: for every frame t of a (B, N) batch of
+// audio, the Hann-windowed rDFT magnitude S (center=False), an l_harm-frame
+// harmonic median across time and an l_perc-bin percussive median across
+// frequency (both with numpy mode='symmetric' edges), librosa's softmask
+// (power 2, split_zeros=False), then
+//   K1: the mel projections of S*mask_h and S*mask_p, two (B, n_mels, T) maps;
+//   K2: S*mask_h and S*mask_p themselves, two (B, F, T) maps.
+// One template, frontend_kernel<LH, LP, FULLRES>; FULLRES selects the
+// epilogue and nothing else, so K1's arithmetic is K2's up to the masks.
 //
-// What bounds it on an H100: operations.  The function needs ~63k f32 FLOPs
-// per output frame (a real FFT ~2.5*n_fft*log2(n_fft) ~ 8.6k, the median
-// comparators ~49k, window, magnitude, masks and sparse mel ~4.5k) against 1,600
-// bytes of audio in and features out, ~39 FLOP/byte, above the f32 CUDA-core
-// ridge (~20).  This kernel computes the DFT directly, 2*n_fft*2F ~ 321,600
-// FLOPs per frame: five times the function's floor, taken for a simple,
-// exact loop with no FFT plan (an FFT or tensor-core DFT is later work).
-// The design keeps every intermediate on chip and spends its effort on the
-// DFT's inner loop:
+// What bounds them on an H100: operations.  K1 needs ~63k f32 FLOPs per
+// output frame at n_fft 400 (a real FFT ~2.5*n_fft*log2(n_fft) ~ 8.6k, the
+// median comparators ~49k, window, magnitude, masks and sparse mel ~4.5k)
+// against 1,600 bytes of audio in and features out, ~39 FLOP/byte, above the
+// f32 CUDA-core ridge (~20).  K2 drops the mel projection but writes 2F
+// floats per frame (2,056 bytes at n_fft 512), ~30 FLOP/byte: operations
+// still bound it.  The kernels compute the DFT directly, 2*n_fft*2F FLOPs per
+// frame (~526k at n_fft 512): several times the function's floor, taken for
+// a simple, exact loop with no FFT plan (an FFT or tensor-core DFT is later
+// work).  The design keeps every intermediate on chip and spends its effort
+// on the DFT's inner loop:
 //   - One block per (32-frame time tile, batch item).  Blocks are independent;
 //     nothing carries between them.  A tile recomputes its 2*ht halo frames
 //     (x1.6 DFT work at ht=10), the price of having no inter-block traffic.
@@ -29,10 +37,15 @@
 //     (n*k) mod n_fft, kept exact (no recurrence); each thread accumulates
 //     one bin for 8 frames in registers, 16 FMAs per table read.
 //   - Medians run in registers through the pruned Batcher networks of
-//     ops/hpss_pallas.py::median_network (91 comparators for 21 wires, 32 for
-//     11, 8 for 5), written out below.
-//   - The mel projection reads the (n_mels, F) basis from global memory,
+//     median.cuh (those of ops/hpss_pallas.py::median_network).
+//   - K1: the mel projection reads the (n_mels, F) basis from global memory,
 //     where it stays in L1/L2, and the masked tiles from shared memory.
+//   - K2: the masked magnitudes go straight from registers to global memory;
+//     the 32 lanes of a warp take the 32 frames of one bin, so each store of
+//     a warp is one contiguous run of a (B, F, T) row.
+// Shared memory per block: (3*n_fft + NFP*n_fft + NF*F) floats, 136 KB at
+// n_fft 400 and 170 KB at n_fft 512 with l_harm 21 (under the 227 KB a block
+// may take after cudaFuncSetAttribute), so one block runs per SM.
 // The DFT is full f32 on the CUDA cores (the dft_precision='highest'
 // contract); a split-precision tensor-core mode is later work.
 //
@@ -41,7 +54,8 @@
 // C interface, loaded with ctypes by sm_hpss_mtl_tpu_torch/ops/frontend.py.
 
 #include <cuda_runtime.h>
-#include <float.h>
+
+#include "median.cuh"
 
 namespace {
 
@@ -50,64 +64,8 @@ constexpr int FR = 8;        // frames per thread in the DFT loop
 constexpr int THREADS = 256;
 constexpr int MPT = 4;       // mel bands per thread in the projection
 
-// numpy mode='symmetric' index rule, repeated with period 2n.
-__device__ __forceinline__ int sym(int i, int n) {
-  const int p = 2 * n;
-  int r = i % p;
-  if (r < 0) r += p;
-  return r < n ? r : p - 1 - r;
-}
-
-#define CS(i, j)                          \
-  {                                       \
-    const float a_ = v[i], b_ = v[j];     \
-    v[i] = fminf(a_, b_);                 \
-    v[j] = fmaxf(a_, b_);                 \
-  }
-
-template <int L>
-struct Median;
-
-template <>
-struct Median<5> {
-  __device__ __forceinline__ static float run(float* v) {
-    CS(0,1); CS(2,3); CS(0,2); CS(1,3); CS(1,2); CS(0,4); CS(2,4); CS(1,2);
-    return v[2];
-  }
-};
-
-template <>
-struct Median<11> {
-  __device__ __forceinline__ static float run(float* v) {
-    CS(0,1); CS(2,3); CS(4,5); CS(6,7); CS(8,9); CS(0,2); CS(1,3); CS(4,6);
-    CS(5,7); CS(8,10); CS(1,2); CS(5,6); CS(9,10); CS(0,4); CS(1,5); CS(2,6);
-    CS(3,7); CS(2,4); CS(3,5); CS(1,2); CS(3,4); CS(5,6); CS(9,10); CS(0,8);
-    CS(1,9); CS(2,10); CS(4,8); CS(5,9); CS(6,10); CS(3,5); CS(6,8); CS(5,6);
-    return v[5];
-  }
-};
-
-template <>
-struct Median<21> {
-  __device__ __forceinline__ static float run(float* v) {
-    CS(0,1); CS(2,3); CS(4,5); CS(6,7); CS(8,9); CS(10,11); CS(12,13);
-    CS(14,15); CS(16,17); CS(18,19); CS(0,2); CS(1,3); CS(4,6); CS(5,7);
-    CS(8,10); CS(9,11); CS(12,14); CS(13,15); CS(16,18); CS(17,19); CS(1,2);
-    CS(5,6); CS(9,10); CS(13,14); CS(17,18); CS(0,4); CS(1,5); CS(2,6);
-    CS(3,7); CS(8,12); CS(9,13); CS(10,14); CS(11,15); CS(16,20); CS(2,4);
-    CS(3,5); CS(10,12); CS(11,13); CS(18,20); CS(1,2); CS(3,4); CS(5,6);
-    CS(9,10); CS(11,12); CS(13,14); CS(17,18); CS(19,20); CS(0,8); CS(1,9);
-    CS(2,10); CS(3,11); CS(4,12); CS(5,13); CS(6,14); CS(7,15); CS(4,8);
-    CS(5,9); CS(6,10); CS(7,11); CS(2,4); CS(3,5); CS(6,8); CS(7,9);
-    CS(10,12); CS(11,13); CS(18,20); CS(1,2); CS(3,4); CS(5,6); CS(7,8);
-    CS(9,10); CS(11,12); CS(17,18); CS(19,20); CS(0,16); CS(1,17); CS(2,18);
-    CS(3,19); CS(4,20); CS(8,16); CS(9,17); CS(10,18); CS(11,19); CS(12,20);
-    CS(5,9); CS(6,10); CS(7,11); CS(12,16); CS(7,9); CS(10,12); CS(9,10);
-    return v[10];
-  }
-};
-
-#undef CS
+using hpss_median::Median;
+using hpss_median::sym;
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -123,8 +81,8 @@ struct Geometry {
 // Shared-memory layout, in floats:
 //   tab  [n_fft] float2   (cos, sin) of 2*pi*i/n_fft
 //   win  [n_fft]          Hann window, zero-padded to n_fft
-//   xw   [n_fft][NFP]     windowed frames; reused as the H and P tiles
-//                         ([TILE][F] each) once the DFT is done
+//   xw   [n_fft][NFP]     windowed frames; K1 reuses it for the H and P
+//                         tiles ([TILE][F] each) once the DFT is done
 //   mag  [NF][F]          magnitudes, frames in mirrored order
 __host__ __device__ inline int xw_offset(int n_fft) {
   return round_up(3 * n_fft, 4);
@@ -137,7 +95,7 @@ __host__ __device__ inline int xw_floats(int n_fft) {
   return a > b ? a : b;
 }
 
-template <int LH, int LP>
+template <int LH, int LP, bool FULLRES>
 __global__ void __launch_bounds__(THREADS)
 frontend_kernel(const float* __restrict__ y, const float* __restrict__ mel,
                 float* __restrict__ out_h, float* __restrict__ out_p, int N,
@@ -225,12 +183,20 @@ frontend_kernel(const float* __restrict__ y, const float* __restrict__ mel,
   }
   __syncthreads();
 
-  // Medians and soft masks; the masked tiles overwrite the frame buffer.
+  // Medians and soft masks.  K1: the masked tiles overwrite the frame
+  // buffer, [frame][bin].  K2: lane = frame, each warp writes one bin's
+  // 32 frames to the (B, F, T) outputs.
   float* hs = xw;
   float* ps = xw + TILE * F;
   for (int idx = threadIdx.x; idx < TILE * F; idx += THREADS) {
-    const int i = idx / F;
-    const int k = idx - i * F;
+    int i, k;
+    if constexpr (FULLRES) {
+      k = idx / TILE;
+      i = idx - k * TILE;
+    } else {
+      i = idx / F;
+      k = idx - i * F;
+    }
     float v[LH];
 #pragma unroll
     for (int j = 0; j < LH; ++j) v[j] = mag[(i + j) * F + k];
@@ -240,16 +206,20 @@ frontend_kernel(const float* __restrict__ y, const float* __restrict__ mel,
     for (int j = 0; j < LP; ++j) u[j] = mag[(i + HT) * F + sym(k + j - HP, F)];
     const float perc = Median<LP>::run(u);
     const float s = mag[(i + HT) * F + k];
-    const float z = fmaxf(harm, perc);
-    const bool bad = z < FLT_MIN;
-    const float zn = bad ? 1.f : z;
-    const float rh = harm / zn, rp = perc / zn;
-    const float hn = rh * rh;  // power 2, the only power the wrapper takes
-    const float pn = rp * rp;
-    const float den = bad ? 1.f : hn + pn;
-    hs[idx] = s * (bad ? 0.f : hn / den);
-    ps[idx] = s * (bad ? 0.f : pn / den);
+    float mh, mp;
+    hpss_median::soft_masks(harm, perc, &mh, &mp);
+    if constexpr (FULLRES) {
+      if (t0 + i < T) {
+        const size_t o = ((size_t)b * F + k) * T + t0 + i;
+        out_h[o] = s * mh;
+        out_p[o] = s * mp;
+      }
+    } else {
+      hs[idx] = s * mh;
+      ps[idx] = s * mp;
+    }
   }
+  if constexpr (FULLRES) return;
   __syncthreads();
 
   // Mel projection: lane = frame of the tile, MPT bands per thread.
@@ -287,7 +257,7 @@ frontend_kernel(const float* __restrict__ y, const float* __restrict__ mel,
   }
 }
 
-template <int LH, int LP>
+template <int LH, int LP, bool FULLRES>
 cudaError_t launch(const float* y, const float* mel, float* out_h,
                    float* out_p, int B, int N, int T, int n_fft,
                    int win_length, int hop, int n_mels, cudaStream_t stream) {
@@ -296,13 +266,31 @@ cudaError_t launch(const float* y, const float* mel, float* out_h,
                         (size_t)Geometry<LH>::NF * F;
   const size_t bytes = floats * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      frontend_kernel<LH, LP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      frontend_kernel<LH, LP, FULLRES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((T + TILE - 1) / TILE, B);
-  frontend_kernel<LH, LP><<<grid, THREADS, bytes, stream>>>(
+  frontend_kernel<LH, LP, FULLRES><<<grid, THREADS, bytes, stream>>>(
       y, mel, out_h, out_p, N, T, n_fft, win_length, hop, n_mels);
   return cudaGetLastError();
+}
+
+template <bool FULLRES>
+int dispatch(const void* y, const void* mel, void* out_h, void* out_p, int B,
+             int N, int T, int n_fft, int win_length, int hop, int l_harm,
+             int l_perc, int n_mels, void* stream) {
+  const float* yy = static_cast<const float*>(y);
+  const float* mm = static_cast<const float*>(mel);
+  float* oh = static_cast<float*>(out_h);
+  float* op = static_cast<float*>(out_p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l_harm == 21 && l_perc == 11)
+    return launch<21, 11, FULLRES>(yy, mm, oh, op, B, N, T, n_fft, win_length,
+                                   hop, n_mels, st);
+  if (l_harm == 11 && l_perc == 5)
+    return launch<11, 5, FULLRES>(yy, mm, oh, op, B, N, T, n_fft, win_length,
+                                  hop, n_mels, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -316,18 +304,17 @@ extern "C" {
 int k1_stft_hpss_mel(const void* y, const void* mel, void* out_h, void* out_p,
                      int B, int N, int T, int n_fft, int win_length, int hop,
                      int l_harm, int l_perc, int n_mels, void* stream) {
-  const float* yy = static_cast<const float*>(y);
-  const float* mm = static_cast<const float*>(mel);
-  float* oh = static_cast<float*>(out_h);
-  float* op = static_cast<float*>(out_p);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l_harm == 21 && l_perc == 11)
-    return launch<21, 11>(yy, mm, oh, op, B, N, T, n_fft, win_length, hop,
-                          n_mels, st);
-  if (l_harm == 11 && l_perc == 5)
-    return launch<11, 5>(yy, mm, oh, op, B, N, T, n_fft, win_length, hop,
-                         n_mels, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(y, mel, out_h, out_p, B, N, T, n_fft, win_length,
+                         hop, l_harm, l_perc, n_mels, stream);
+}
+
+// Launches K2 on `stream`.  y: (B, N) f32; out_h, out_p: (B, n_fft/2+1, T)
+// f32, T = 1 + (N - n_fft) / hop >= 1.  Returns as k1_stft_hpss_mel does.
+int k2_stft_hpss(const void* y, void* out_h, void* out_p, int B, int N, int T,
+                 int n_fft, int win_length, int hop, int l_harm, int l_perc,
+                 void* stream) {
+  return dispatch<true>(y, nullptr, out_h, out_p, B, N, T, n_fft, win_length,
+                        hop, l_harm, l_perc, 0, stream);
 }
 
 const char* k1_error_string(int err) {

@@ -1,12 +1,14 @@
-"""WAV input at 16 kHz mono (counterpart of ``read_wav`` in
-``sm_hpss_mtl_tpu/data/audio.py``).
+"""WAV input at 16 kHz mono and WAV output (counterpart of ``read_wav``,
+``read_audio`` and ``write_wav`` in ``sm_hpss_mtl_tpu/data/audio.py``).
 
 Files are read with ``scipy.io.wavfile`` and resampled with polyphase
 filtering when their rate differs from 16 kHz.  mp3 input needs the codec
-module, which is not ported yet.
+module (``data/codecs.py``), which is not ported yet.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from scipy.io import wavfile
@@ -40,3 +42,20 @@ def read_wav(path: str, target_sr: int = TARGET_SR) -> tuple[np.ndarray, int]:
     else:
         x = x.astype(np.float32)
     return _to_mono_sr(x, sr, target_sr)
+
+
+def read_audio(path: str, target_sr: int = TARGET_SR
+               ) -> tuple[np.ndarray, int]:
+    """Load an audio file as float32 mono at ``target_sr``: wav only.
+    mp3 raises until the codec module is ported (ROADMAP §1, item 4)."""
+    if os.path.splitext(path)[1].lower() == ".mp3":
+        raise NotImplementedError(
+            f"{path}: mp3 input needs data/codecs.py, not yet ported "
+            "(ROADMAP §1, item 4); convert the file to wav")
+    return read_wav(path, target_sr)
+
+
+def write_wav(path: str, x: np.ndarray, sr: int = TARGET_SR) -> None:
+    """Write ``x`` (float, nominally in [-1, 1]) as 16-bit PCM, clipped."""
+    x = np.clip(x, -1.0, 1.0)
+    wavfile.write(path, sr, (x * 32767.0).astype(np.int16))

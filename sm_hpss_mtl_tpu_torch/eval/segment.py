@@ -78,11 +78,20 @@ class StreamingSegmenter:
     Each chunk of ``chunk_frames`` windows is standardized on its own
     (per row, and per HPSS half for two-part [H; P] features) over the
     frames its windows cover, the true ragged tail included, then fed to
-    ``predict_fn`` as time-major ``(count, patch_size, D)`` patches."""
+    ``predict_fn`` as time-major ``(count, patch_size, D)`` patches
+    (``input_kind='time_mel'``) or as ``(count, D, patch_size, 1)``
+    images (``'image'``).  ``batch_windows`` splits a chunk into model
+    calls of at most that many windows, for models whose activations
+    outgrow the device at a whole chunk (Jang's first conv block holds
+    ~2 MB per window); the standardization stays per chunk, so the tracks
+    do not depend on it.  A model returning one tensor gives the track
+    ``'3C'``."""
     predict_fn: Callable[[torch.Tensor], dict]
     patch_size: int = 68
     chunk_frames: int = 10000
+    input_kind: str = "time_mel"
     feat_name: str = "LogMelHarmPercSpec"
+    batch_windows: int | None = None
 
     def _standardize_parts(self, seg: torch.Tensor) -> torch.Tensor:
         if "HarmPerc" in self.feat_name:
@@ -101,11 +110,21 @@ class StreamingSegmenter:
         while start < n_windows:
             count = min(self.chunk_frames, n_windows - start)
             seg = self._standardize_parts(fv[:, start:start + count + W - 1])
-            batch = seg.unfold(1, W, 1).permute(1, 2, 0)   # (count, W, D)
-            with torch.inference_mode():
-                out = self.predict_fn(batch.contiguous())
-            for k, v in out.items():
-                tracks.setdefault(k, []).append(v.float().cpu().numpy())
+            wins = seg.unfold(1, W, 1)                     # (D, count, W)
+            if self.input_kind == "time_mel":
+                batch = wins.permute(1, 2, 0)              # (count, W, D)
+            elif self.input_kind == "image":
+                batch = wins.permute(1, 0, 2)[..., None]   # (count, D, W, 1)
+            else:
+                raise ValueError(f"unknown input_kind {self.input_kind!r}")
+            step = self.batch_windows or count
+            for b0 in range(0, count, step):
+                with torch.inference_mode():
+                    out = self.predict_fn(batch[b0:b0 + step].contiguous())
+                if not isinstance(out, dict):
+                    out = {"3C": out}
+                for k, v in out.items():
+                    tracks.setdefault(k, []).append(v.float().cpu().numpy())
             start += count
         return {k: np.concatenate(v, axis=0) for k, v in tracks.items()}
 

@@ -1,8 +1,10 @@
-"""Multi-task heads S (speech), M (music), R (SMR regression) and 3C.
+"""Multi-task heads S (speech), M (music), R (SMR regression) and 3C, and
+the Keras dense layers the models build from.
 
 Counterpart of ``sm_hpss_mtl_tpu/models/heads.py`` (``MTLHeads`` with one
-Dense-16 block per head, the reference's effective wiring).  Keras
-BatchNorm has eps 1e-3 and momentum 0.99, which torch writes as 0.01.
+Dense-16 block per head, the reference's effective wiring; ``KDense``).
+Keras BatchNorm has eps 1e-3 and momentum 0.99, which torch writes as
+0.01.  Keras's glorot-uniform initialisation is ``lemaire.init_weights``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,14 @@ import torch
 from torch import nn
 
 BN_KW = dict(eps=1e-3, momentum=0.01)
+
+
+def dense_with_bn(in_features: int, width: int
+                  ) -> tuple[nn.Linear, nn.BatchNorm1d]:
+    """A Keras Dense layer and a Keras BatchNorm over its ``width``
+    outputs, as two modules, so that each keeps its own flax name (Jang's
+    ``fc1`` and ``fc1_bn``)."""
+    return nn.Linear(in_features, width), nn.BatchNorm1d(width, **BN_KW)
 
 
 class HeadBlock(nn.Module):

@@ -35,12 +35,13 @@ class LemaireMTL(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Keras initialisation from ``generator``: glorot-uniform kernels,
-    zero biases, BatchNorm at scale 1 and shift 0."""
+    zero biases, BatchNorm at scale 1 and shift 0.  Other parameters (the
+    mel-scale kernels of Jang's model) keep their constructor's values."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv1d, nn.Linear)):
+            if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 nn.init.xavier_uniform_(mod.weight, generator=generator)
                 nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.BatchNorm1d):
+            elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 mod.reset_parameters()
     return model

@@ -1,27 +1,43 @@
 """Model registry (counterpart of ``sm_hpss_mtl_tpu/models/zoo.py``).
-Only the paper's proposed model, ``Lemaire_et_al_MTL``, is ported."""
+Ported: the paper's proposed model ``Lemaire_et_al_MTL`` and Jang's
+mel-scale CNN, ``Jang_et_al`` and ``Jang_et_al_MTL``."""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..ops.featuregram import feature_dim
 from ..train.config import MODEL_PRESETS
+from .jang import JangCNN
 from .lemaire import LemaireMTL
+
+#: ``input_kind`` of each ported model, as the JAX ``ModelSpec`` names it:
+#: 'time_mel' takes ``(B, T, D)`` patches, 'image' takes ``(B, D, T, 1)``.
+INPUT_KIND = {"Lemaire_et_al_MTL": "time_mel", "Jang_et_al": "image",
+              "Jang_et_al_MTL": "image"}
 
 
 def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
               patch_size: int = 68, dropout_rate: float = 0.275
-              ) -> LemaireMTL:
-    """Build a model by its reference name, sized for its preset's
-    features (``D = 2 * n_mels`` for LogMelHarmPercSpec)."""
-    if name != "Lemaire_et_al_MTL":
+              ) -> nn.Module:
+    """Build a model by its reference name.  Lemaire-MTL is sized for its
+    preset's features (``D = 2 * n_mels`` for LogMelHarmPercSpec); for
+    Jang-MTL ``n_mels`` is the mel-scale layer's band count (the JAX zoo
+    builds the single-task Jang model with 64 bands whatever it is
+    given)."""
+    if name not in INPUT_KIND:
         raise ValueError(f"model {name!r} is not ported")
     # The reference computes in float32 (train/config.py compute_dtype).
     # cuDNN convolutions default to TF32 on the GPU, which keeps ~3 decimal
     # digits, so both TF32 switches are turned off where a model is built.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if name == "Jang_et_al":
+        return JangCNN(n_classes=n_classes, n_mels=64, patch_size=patch_size)
+    if name == "Jang_et_al_MTL":
+        return JangCNN(n_classes=n_classes, mtl=True, n_mels=n_mels,
+                       patch_size=patch_size)
     in_dim = feature_dim(MODEL_PRESETS[name]["feat_name"], n_mels=n_mels)
     return LemaireMTL(in_dim, patch_size=patch_size, n_classes=n_classes,
                       dropout_rate=dropout_rate)

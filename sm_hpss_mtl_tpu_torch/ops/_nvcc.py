@@ -3,7 +3,8 @@
 Kernels have a plain C interface and are loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of its
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the ``csrc/`` headers it includes, so an edited source or
+header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time.
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,11 +35,31 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[Path]:
+    """``csrc/<source>`` and every ``csrc/`` file it includes with
+    ``#include "..."``, transitively, each once."""
+    seen: list[Path] = []
+    todo = [CSRC / source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(CSRC / name.decode()
+                    for name in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    """Where the library built from ``csrc/<source>`` lives: named by a
+    hash of the source and of the headers it includes."""
+    digest = hashlib.sha256()
+    for path in _sources(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:12]}.so"
 
 
 def build(source: str) -> Path:

@@ -5,10 +5,11 @@ values match it (see that module's table).  Devices:
 
 - On the CPU every family runs in plain PyTorch.
 - On CUDA the Mel-HPSS families (``MelHarmSpec`` ... ``LogMelHarmPercSpec``)
-  go through kernel K1 (``ops.frontend.stft_hpss_mel``).  The plain STFT,
-  Spec and Mel families are plain PyTorch there too, as XLA computed them
-  outside Pallas in the JAX package.  The full-resolution HarmSpec and
-  PercSpec families need kernel K2, not yet ported, and raise.
+  go through kernel K1 (``ops.frontend.stft_hpss_mel``), the
+  full-resolution HPSS families (``HarmSpec`` ... ``LogHarmPercSpec``)
+  through kernel K2 (``ops.frontend.stft_hpss``).  The plain STFT, Spec
+  and Mel families are plain PyTorch there too, as XLA computed them
+  outside Pallas in the JAX package.
 
 The "sr=22050 quirk": the reference builds the mel bank for HPSS branches
 with librosa's default sampling rate instead of 16 kHz.  Kept for parity.
@@ -19,7 +20,6 @@ from __future__ import annotations
 import torch
 
 from . import frontend
-from . import hpss as hpss_mod
 from . import mel as mel_mod
 from . import stft as stft_mod
 
@@ -88,14 +88,9 @@ def featuregram(y: torch.Tensor, *, feat_name: str, sr: int = 16000,
                                    device=y.device)
         H, P = frontend.stft_hpss_mel(y.to(torch.float32), M, l_harm=l_harm,
                                       l_perc=l_perc, **stft_kw)
-    elif y.device.type == "cuda":
-        raise NotImplementedError(
-            f"{feat_name} on CUDA needs kernel K2 "
-            "(frontend_pallas._frontend_kernel_mag, full-resolution masked "
-            "magnitudes), which is not yet ported")
     else:
-        S = stft_mod.stft_mag(y, **stft_kw)
-        H, P = hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc)
+        H, P = frontend.stft_hpss(y.to(torch.float32), l_harm=l_harm,
+                                  l_perc=l_perc, **stft_kw)
 
     # power_to_db runs per component, so each part is clamped by its own max.
     parts = [c for c, on in ((H, harm), (P, perc)) if on]

@@ -1,12 +1,15 @@
-"""Fused audio -> mel-HPSS front end: kernel K1 and its plain version.
+"""Fused audio -> HPSS front end: kernels K1 and K2 and their plain versions.
 
-Counterpart of ``sm_hpss_mtl_tpu/ops/frontend_pallas.py::stft_hpss_mel``.
-For a CUDA tensor, :func:`stft_hpss_mel` launches the hand-written kernel
-of ``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
-medians, soft masks and mel projection in one pass; the spectrogram never
-reaches device memory).  For a CPU tensor it runs
-:func:`stft_hpss_mel_plain`, the same chain in plain PyTorch.  A CUDA call
-never falls back: if the kernel cannot be built or launched, it raises.
+Counterpart of ``sm_hpss_mtl_tpu/ops/frontend_pallas.py::stft_hpss_mel``
+(K1) and ``::stft_hpss`` (K2).  For a CUDA tensor, :func:`stft_hpss_mel`
+and :func:`stft_hpss` launch the hand-written kernel of
+``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
+medians and soft masks in one pass, then the mel projection for K1 or the
+full-resolution masked magnitudes for K2; the spectrogram never reaches
+device memory).  For a CPU tensor they run :func:`stft_hpss_mel_plain` /
+:func:`stft_hpss_plain`, the same chain in plain PyTorch, which call the
+plain HPSS (``hpss.hpss_plain``) on every device.  A CUDA call never
+falls back: if the kernel cannot be built or launched, it raises.
 
 The kernel is built with ``nvcc`` at its first launch, not at import.
 """
@@ -19,12 +22,8 @@ import functools
 import torch
 
 from . import _nvcc
-from .hpss import hpss
+from .hpss import KERNEL_MEDIANS, hpss_plain
 from .stft import n_frames, stft_mag
-
-#: (l_harm, l_perc) pairs the kernel is instantiated for: the serving
-#: preset and the Jang geometry.
-KERNEL_MEDIANS = ((21, 11), (11, 5))
 
 _SOURCE = "frontend.cu"
 
@@ -36,6 +35,8 @@ def _library() -> ctypes.CDLL:
     lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
                                      p]
     lib.k1_stft_hpss_mel.restype = i
+    lib.k2_stft_hpss.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.k2_stft_hpss.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib
@@ -54,21 +55,36 @@ def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """stft_mag -> hpss -> mel projection: ``(..., N)`` audio and an
     ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps."""
-    S = stft_mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
-    H, P = hpss(S, l_harm=l_harm, l_perc=l_perc, power=power)
-    M = mel_basis.to(device=S.device, dtype=torch.float32)
+    H, P = stft_hpss_plain(y, n_fft=n_fft, win_length=win_length,
+                           hop_length=hop_length, l_harm=l_harm,
+                           l_perc=l_perc, power=power)
+    M = mel_basis.to(device=H.device, dtype=torch.float32)
     return torch.matmul(M, H), torch.matmul(M, P)
 
 
-def _launch(y: torch.Tensor, M: torch.Tensor, *, n_fft, win_length,
+def stft_hpss_plain(y: torch.Tensor, *, n_fft: int = 400,
+                    win_length: int = 400, hop_length: int = 160,
+                    l_harm: int = 21, l_perc: int = 11, power: float = 2.0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """stft_mag -> hpss: ``(..., N)`` audio -> two ``(..., F, T)`` maps."""
+    S = stft_mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
+    return hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
+
+
+def _launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft, win_length,
             hop_length, l_harm, l_perc):
-    if y.dtype != torch.float32 or M.dtype != torch.float32:
-        raise TypeError("stft_hpss_mel kernel takes float32 audio and basis")
-    if M.device != y.device:
-        raise ValueError("mel_basis must be on the audio's device")
+    """K1 with a mel basis ``M``; K2 (full resolution) with ``M=None``."""
     F = 1 + n_fft // 2
-    if M.ndim != 2 or M.shape[1] != F:
-        raise ValueError(f"mel_basis must be (n_mels, {F}), got {tuple(M.shape)}")
+    if y.dtype != torch.float32:
+        raise TypeError("frontend kernel takes float32 audio")
+    if M is not None:
+        if M.dtype != torch.float32:
+            raise TypeError("stft_hpss_mel kernel takes a float32 basis")
+        if M.device != y.device:
+            raise ValueError("mel_basis must be on the audio's device")
+        if M.ndim != 2 or M.shape[1] != F:
+            raise ValueError(f"mel_basis must be (n_mels, {F}), "
+                             f"got {tuple(M.shape)}")
     if (l_harm, l_perc) not in KERNEL_MEDIANS:
         raise ValueError(f"kernel supports (l_harm, l_perc) in "
                          f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
@@ -79,24 +95,41 @@ def _launch(y: torch.Tensor, M: torch.Tensor, *, n_fft, win_length,
     if T < 1:
         raise ValueError(f"{N} samples are shorter than one frame of {n_fft}")
     y2 = y.reshape(-1, N).contiguous()
-    M = M.contiguous()
-    B, n_mels = y2.shape[0], M.shape[0]
-    out_h = torch.empty((B, n_mels, T), dtype=torch.float32, device=y.device)
+    B = y2.shape[0]
+    rows = F if M is None else M.shape[0]
+    out_h = torch.empty((B, rows, T), dtype=torch.float32, device=y.device)
     out_p = torch.empty_like(out_h)
+    shape = lead + (rows, T)
     if B == 0:
-        return out_h.reshape(lead + (n_mels, T)), out_p.reshape(lead + (n_mels, T))
+        return out_h.reshape(shape), out_p.reshape(shape)
     lib = _library()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.k1_stft_hpss_mel(
-            y2.data_ptr(), M.data_ptr(), out_h.data_ptr(), out_p.data_ptr(),
-            B, N, T, n_fft, win_length, hop_length, l_harm, l_perc, n_mels,
-            stream)
+        if M is None:
+            err = lib.k2_stft_hpss(
+                y2.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N, T,
+                n_fft, win_length, hop_length, l_harm, l_perc, stream)
+        else:
+            M = M.contiguous()
+            err = lib.k1_stft_hpss_mel(
+                y2.data_ptr(), M.data_ptr(), out_h.data_ptr(),
+                out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
+                l_harm, l_perc, rows, stream)
+    name = "stft_hpss" if M is None else "stft_hpss_mel"
     if err != 0:
-        raise RuntimeError("stft_hpss_mel kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.k1_error_string(err).decode())
-    stft_hpss_mel.launches += 1
-    return out_h.reshape(lead + (n_mels, T)), out_p.reshape(lead + (n_mels, T))
+    (stft_hpss if M is None else stft_hpss_mel).launches += 1
+    return out_h.reshape(shape), out_p.reshape(shape)
+
+
+def _check_modes(power: float, dft_precision: str) -> None:
+    if dft_precision != "highest":
+        raise NotImplementedError(
+            f"dft_precision={dft_precision!r}: only 'highest' (full float32) "
+            "is implemented")
+    if power != 2.0:
+        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
 
 
 def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
@@ -112,12 +145,7 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     2, what every feature family uses); another power raises.  CPU tensors
     take the plain version; CUDA tensors launch the kernel (each launch
     adds one to ``stft_hpss_mel.launches``)."""
-    if dft_precision != "highest":
-        raise NotImplementedError(
-            f"dft_precision={dft_precision!r}: only 'highest' (full float32) "
-            "is implemented")
-    if power != 2.0:
-        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
+    _check_modes(power, dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
               l_harm=l_harm, l_perc=l_perc)
     if y.device.type == "cpu":
@@ -127,6 +155,27 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     raise ValueError(f"stft_hpss_mel: unsupported device {y.device}")
 
 
-#: Launches of the K1 kernel in this process (the plain version does not
-#: count).
+def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
+              hop_length: int = 160, l_harm: int = 21, l_perc: int = 11,
+              power: float = 2.0, dft_precision: str = "highest"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Audio ``(..., N)`` -> full-resolution ``(H, P)`` masked magnitudes,
+    each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
+
+    Modes as in :func:`stft_hpss_mel`.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (each launch adds one to
+    ``stft_hpss.launches``)."""
+    _check_modes(power, dft_precision)
+    kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
+              l_harm=l_harm, l_perc=l_perc)
+    if y.device.type == "cpu":
+        return stft_hpss_plain(y, **kw)
+    if y.device.type == "cuda":
+        return _launch(y, None, **kw)
+    raise ValueError(f"stft_hpss: unsupported device {y.device}")
+
+
+#: Launches of the K1 and K2 kernels in this process (the plain versions
+#: do not count).
 stft_hpss_mel.launches = 0
+stft_hpss.launches = 0

@@ -1,9 +1,12 @@
-"""Magnitude STFT (center=False) in plain PyTorch.
+"""STFT (center=False) and its inverse in plain PyTorch.
 
 Counterpart of ``sm_hpss_mtl_tpu/ops/stft.py``: frames are strided views
 (``Tensor.unfold``) hit with one windowed real-DFT basis matmul, so the
-STFT stays in real arithmetic.  Geometry defaults to the reference's:
-16 kHz audio, 400-sample window, hop 160, n_fft 400 (512 for Jang).
+STFT stays in real arithmetic until :func:`stft` pairs the halves into a
+complex tensor.  :func:`istft` is the windowed overlap-add inverse.  The
+JAX package computes all of this outside Pallas, so none of it is a
+kernel here.  Geometry defaults to the reference's: 16 kHz audio,
+400-sample window, hop 160, n_fft 400 (512 for Jang).
 """
 
 from __future__ import annotations
@@ -40,12 +43,55 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
     return basis.astype(np.float32)
 
 
-def stft_mag(y: torch.Tensor, *, n_fft: int, win_length: int,
-             hop_length: int) -> torch.Tensor:
-    """``(..., n_samples)`` -> magnitude ``(..., F, T)`` float32."""
+def _stft_reim(y: torch.Tensor, n_fft: int, win_length: int,
+               hop_length: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real and imaginary parts, each ``(..., T, F)``."""
     F = 1 + n_fft // 2
     frames = y.to(torch.float32).unfold(-1, n_fft, hop_length)  # (..., T, n)
     basis = torch.as_tensor(_dft_basis(n_fft, win_length), device=y.device)
     reim = torch.matmul(frames, basis)                          # (..., T, 2F)
-    re, im = reim[..., :F], reim[..., F:]
+    return reim[..., :F], reim[..., F:]
+
+
+def stft_mag(y: torch.Tensor, *, n_fft: int, win_length: int,
+             hop_length: int) -> torch.Tensor:
+    """``(..., n_samples)`` -> magnitude ``(..., F, T)`` float32."""
+    re, im = _stft_reim(y, n_fft, win_length, hop_length)
     return torch.sqrt(re * re + im * im).transpose(-1, -2)
+
+
+def stft(y: torch.Tensor, *, n_fft: int, win_length: int,
+         hop_length: int) -> torch.Tensor:
+    """Complex STFT of the last axis: ``(..., n_samples)`` ->
+    ``(..., F, T)`` complex64 (frequency, time)."""
+    re, im = _stft_reim(y, n_fft, win_length, hop_length)
+    return torch.complex(re, im).transpose(-1, -2)
+
+
+def istft(S: torch.Tensor, *, n_fft: int, win_length: int, hop_length: int,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`stft`: ``(..., F, T)`` complex -> ``(..., n)``.
+
+    Each frame is ``irfft`` times the window; the frames are overlap-added
+    (``F.fold``) and divided by the overlap-added squared window where
+    that exceeds 1e-10.  The result is ``n_fft + hop*(T-1)`` samples,
+    trimmed or zero-padded to ``length`` when given."""
+    window = hann_window(win_length, n_fft, device=S.device)
+    frames = torch.fft.irfft(S.transpose(-1, -2), n=n_fft, dim=-1) * window
+    lead, T = frames.shape[:-2], frames.shape[-2]
+    out_len = n_fft + hop_length * (T - 1)
+
+    def overlap_add(x):                      # (B, T, n_fft) -> (B, out_len)
+        return torch.nn.functional.fold(
+            x.transpose(1, 2), output_size=(1, out_len),
+            kernel_size=(1, n_fft), stride=(1, hop_length))[:, 0, 0]
+
+    y = overlap_add(frames.reshape(-1, T, n_fft)).reshape(lead + (out_len,))
+    wsum = overlap_add((window ** 2).expand(1, T, n_fft))[0]
+    y = y / torch.where(wsum > 1e-10, wsum, torch.ones_like(wsum))
+    if length is not None:
+        if length <= out_len:
+            y = y[..., :length]
+        else:
+            y = torch.nn.functional.pad(y, (0, length - out_len))
+    return y

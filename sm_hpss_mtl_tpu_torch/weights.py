@@ -8,16 +8,24 @@ paths (``params/tcn/initial_conv/kernel``,
 the flax names, so a path maps to a state_dict key by its module path and
 a leaf rename:
 
-==========================  ===========================  ===============
-flax leaf                   torch key                    layout
-==========================  ===========================  ===============
-params/.../kernel (3-D)     ....weight                   (W,in,out) -> (out,in,W)
-params/.../kernel (2-D)     ....weight                   (in,out) -> (out,in)
-params/.../bias             ....bias
-params/.../bn/scale         ....bn.weight
-batch_stats/.../bn/mean     ....bn.running_mean
-batch_stats/.../bn/var      ....bn.running_var
-==========================  ===========================  ===============
+===============================  ======================  ==========================
+flax leaf                        torch key               layout
+===============================  ======================  ==========================
+params/.../kernel (Conv, 2-D)    ....weight              (kh,kw,in,out) -> (out,in,kh,kw)
+params/.../kernel (Conv, 1-D)    ....weight              (W,in,out) -> (out,in,W)
+params/.../kernel (Dense)        ....weight              (in,out) -> (out,in)
+params/melCl*/kernel             melCl*.kernel           kept (Jang's mel-scale layer)
+params/.../bias                  ....bias
+params/<bn>/scale                <bn>.weight
+batch_stats/<bn>/mean            <bn>.running_mean
+batch_stats/<bn>/var             <bn>.running_var
+===============================  ======================  ==========================
+
+A kernel is mapped by its module: the mel-scale layers (``melCl``,
+``melCl_H``, ``melCl_P``) own a 4-D ``kernel`` that is no convolution
+kernel and keeps its layout under the same name; every other kernel is a
+convolution's or a dense layer's ``weight``.  A BatchNorm is any module
+with running statistics, whatever its name (``bn``, Jang's ``fc1_bn``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,12 @@ import numpy as np
 import torch
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+#: Modules whose ``kernel`` keeps its flax layout and name.
+_KEPT_KERNELS = ("melCl", "melCl_H", "melCl_P")
+#: flax kernel -> torch weight, by number of dimensions (Dense, Conv1D,
+#: Conv2D), and back.
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -45,8 +59,9 @@ def from_flax(variables: dict) -> dict[str, torch.Tensor]:
         collection, mod, leaf = path[0], ".".join(path[1:-1]), path[-1]
         if collection == "params":
             if leaf == "kernel":
-                arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
-                leaf = "weight"
+                if path[-2] not in _KEPT_KERNELS:
+                    arr = arr.transpose(_TO_TORCH[arr.ndim])
+                    leaf = "weight"
             elif leaf == "scale":
                 leaf = "weight"
             elif leaf != "bias":
@@ -67,6 +82,8 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
     """state_dict -> flax ``{"params", "batch_stats"}`` tree (numpy)."""
     tree: dict = {}
     stat_leaves = {v: k for k, v in _STAT_NAMES.items()}
+    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
+                  if k.endswith(".running_mean")}
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
         if leaf == "num_batches_tracked":
@@ -76,10 +93,10 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
             collection, leaf = "batch_stats", stat_leaves[leaf]
         else:
             collection = "params"
-            if leaf == "weight" and mod[-1] == "bn":
+            if leaf == "weight" and ".".join(mod) in bn_modules:
                 leaf = "scale"
             elif leaf == "weight":
-                arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+                arr = arr.transpose(_TO_FLAX[arr.ndim])
                 leaf = "kernel"
         node = tree.setdefault(collection, {})
         for m in mod:

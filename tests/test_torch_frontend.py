@@ -1,9 +1,10 @@
-"""K1 port: the plain version of ``stft_hpss_mel`` against the JAX kernel.
+"""K1 and K2 ports: the plain versions of ``stft_hpss_mel`` and
+``stft_hpss`` against the JAX kernels.
 
 The JAX side is the Pallas kernel in interpret mode at
-``dft_precision='highest'`` (the port's kernel is full float32) and the
+``dft_precision='highest'`` (the port's kernels are full float32) and the
 jnp oracle chain for clips too short for the kernel's edge mirror.  The
-CUDA kernel itself is held to this plain version on the card by
+CUDA kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py``.  Tolerance rtol 2e-4, atol 2e-5, as
 ``tests/test_frontend_pallas.py`` holds the Pallas kernel to its oracle.
 """
@@ -91,9 +92,12 @@ def test_wrapper_sends_cpu_tensors_to_plain_version():
 
 
 def test_kernel_median_networks_match_jax():
-    # csrc/frontend.cu writes out the pruned Batcher networks of
-    # ops/hpss_pallas.py::median_network; each must be the same list.
-    src = (tfe._nvcc.CSRC / "frontend.cu").read_text()
+    # csrc/median.cuh, which frontend.cu includes, writes out the pruned
+    # Batcher networks of ops/hpss_pallas.py::median_network; each must be
+    # the same list.
+    src = (tfe._nvcc.CSRC / "median.cuh").read_text()
+    assert '#include "median.cuh"' in (tfe._nvcc.CSRC
+                                       / "frontend.cu").read_text()
     for n in (5, 11, 21):
         body = src.split(f"struct Median<{n}>")[1].split("return")[0]
         pairs = tuple((int(i), int(j))
@@ -111,3 +115,63 @@ def test_import_needs_no_nvcc(tmp_path):
             "assert f._library.cache_info().currsize == 0")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
+
+
+@pytest.mark.parametrize("n_fft,n_samples,tile_t,l_harm,l_perc,B", [
+    (400, 16_000, 48, 21, 11, 2),   # thin last tile
+    (512, 12_000, 32, 21, 11, 2),   # Jang geometry, J=4
+    (512, 12_000, 32, 11, 5, 1),    # the kernel's narrow median pair
+])
+def test_fullres_plain_matches_pallas_interpret(n_fft, n_samples, tile_t,
+                                                l_harm, l_perc, B):
+    # K2: full-resolution masked magnitudes, the HarmSpec/PercSpec family,
+    # at the geometries of test_frontend_pallas.py::
+    # test_frontend_fullres_parity.
+    rng = np.random.default_rng(n_samples + n_fft + l_harm)
+    y = rng.standard_normal((B, n_samples)).astype(np.float32)
+    kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=l_harm,
+              l_perc=l_perc, power=2.0)
+    jh, jp = fp.stft_hpss(jnp.asarray(y), tile_t=tile_t,
+                          dft_precision="highest", interpret=True, **kw)
+    th, tp = tfe.stft_hpss_plain(torch.from_numpy(y), **kw)
+    assert th.shape == (B, 1 + n_fft // 2, 1 + (n_samples - n_fft) // 160)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+def test_fullres_wrapper_sends_cpu_tensors_to_plain_version():
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy(rng.standard_normal((3, 1, 4_000)).astype(np.float32))
+    before = (tfe.stft_hpss.launches, tfe.stft_hpss_mel.launches)
+    h, p = tfe.stft_hpss(y, n_fft=512)
+    assert (tfe.stft_hpss.launches, tfe.stft_hpss_mel.launches) == before
+    assert h.shape == p.shape == (3, 1, 257, 22)
+    h0, p0 = tfe.stft_hpss_plain(y, n_fft=512)
+    torch.testing.assert_close(h, h0, rtol=0, atol=0)
+    torch.testing.assert_close(p, p0, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="bf16x3"):
+        tfe.stft_hpss(y, dft_precision="bf16x3")
+    with pytest.raises(NotImplementedError, match="power"):
+        tfe.stft_hpss(y, power=1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfe.stft_hpss(y.to("meta"))
+
+
+def test_plain_versions_never_route_into_k3(monkeypatch):
+    # chip_smoke.py holds K1 and K2 to these plain versions on the card: if
+    # they called the dispatching ops.hpss.hpss, a CUDA tensor would take
+    # K3 and the kernels would be compared with another kernel.
+    from sm_hpss_mtl_tpu_torch.ops import featuregram as tfg
+    from sm_hpss_mtl_tpu_torch.ops import hpss as thpss
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached the K3 dispatcher")
+
+    monkeypatch.setattr(thpss, "_dispatch", refuse)
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.standard_normal((1, 4_000)).astype(np.float32))
+    M = torch.from_numpy(_mel(16, 400))
+    tfe.stft_hpss_plain(y)
+    tfe.stft_hpss_mel_plain(y, M)
+    tfg.featuregram(y, feat_name="LogHarmPercSpec", n_fft=512)
+    tfg.featuregram(y, feat_name="LogMelHarmPercSpec", n_mels=16)

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,9 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_jax_package():
     mods = list(_modules())
-    assert "sm_hpss_mtl_tpu_torch.cli.segment" in mods
+    for new in ("cli.segment", "cli.hpss_resynth", "models.jang",
+                "models.pool", "ops.mixing", "ops.hpss"):
+        assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -42,3 +45,23 @@ def test_cli_without_device_cpu_raises_when_no_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main([str(tmp_path / "missing.wav"), "--weights",
                    str(tmp_path / "missing.npz")])
+
+
+def test_hpss_resynth_without_device_cpu_raises_when_no_gpu(monkeypatch,
+                                                            tmp_path):
+    from sm_hpss_mtl_tpu_torch.cli import hpss_resynth as tcli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main([str(tmp_path / "missing.wav")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.resynthesize(np.zeros(1600, np.float32))
+
+
+def test_jang_cli_without_device_cpu_raises_when_no_gpu(monkeypatch,
+                                                        tmp_path):
+    from sm_hpss_mtl_tpu_torch.cli import segment as tcli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main([str(tmp_path / "missing.wav"), "--weights",
+                   str(tmp_path / "missing.npz"), "--model",
+                   "Jang_et_al_MTL"])

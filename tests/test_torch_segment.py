@@ -16,6 +16,7 @@ from sm_hpss_mtl_tpu.ops import featuregram as jfg
 from sm_hpss_mtl_tpu_torch.cli import segment as tcli
 from sm_hpss_mtl_tpu_torch.eval import metrics as tmetrics
 from sm_hpss_mtl_tpu_torch.eval import segment as tseg
+from sm_hpss_mtl_tpu_torch.ops import featuregram as tfg
 from sm_hpss_mtl_tpu_torch import weights
 
 torch.set_num_threads(1)
@@ -166,3 +167,115 @@ def test_interval_markers_match_jax(tmp_path):
     np.testing.assert_array_equal(
         tseg.interval_annotations_to_markers(rows, 97),
         jseg.interval_annotations_to_markers(rows, 97))
+
+
+def _jax_checkpoint(tmp_path, name, sample_shape, seed):
+    """A JAX train state for ``name`` saved as the JAX CLI's checkpoint
+    and as the port's npz."""
+    from sm_hpss_mtl_tpu.models import get_model
+    from sm_hpss_mtl_tpu.train import TrainState, for_model
+    from sm_hpss_mtl_tpu.train.checkpoint import save_checkpoint
+
+    spec = get_model(name, n_mels=120)
+    opt, _ = for_model(name, tr_steps=1)
+    state = TrainState.create(spec.module, opt, jnp.zeros(sample_shape),
+                              jax.random.PRNGKey(seed))
+    ckpt = str(tmp_path / "ckpt")
+    save_checkpoint(ckpt, state)
+    npz = str(tmp_path / "w.npz")
+    weights.save_npz(npz, jax.tree_util.tree_map(
+        np.asarray, {"params": state.params,
+                     "batch_stats": state.batch_stats}))
+    return ckpt, npz
+
+
+def test_cli_segment_jang_mtl_matches_jax_cli(tmp_path,
+                                              jax_constant_rows_fixed,
+                                              monkeypatch):
+    # Jang-MTL: LogHarmPercSpec at n_fft 512 (514 rows), 'image' windows.
+    # 1.4 s: 137 frames at n_fft 512, 70 windows, chunks of 32 in model
+    # calls of at most 20 windows.
+    wav = str(tmp_path / "b.wav")
+    wavfile.write(wav, 16000,
+                  (_broadcast(1.4, 3) * 32767).astype(np.int16))
+    ckpt, npz = _jax_checkpoint(tmp_path, "Jang_et_al_MTL",
+                                (2, 514, 68, 1), 6)
+    monkeypatch.setattr(tcli, "IMAGE_BATCH_WINDOWS", 20)
+    common = [wav, "--model", "Jang_et_al_MTL", "--head", "S",
+              "--chunk-frames", "32", "--smooth-win", "11"]
+    jprob, jlab = jcli.main(common + ["--ckpt", ckpt,
+                                      "--out", str(tmp_path / "j.npz")])
+    tprob, tlab = tcli.main(common + ["--weights", npz, "--device", "cpu",
+                                      "--out", str(tmp_path / "t.npz")])
+    assert tprob.shape == jprob.shape == (137 - 67,)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tlab, jlab)
+    with np.load(tmp_path / "j.npz") as j, np.load(tmp_path / "t.npz") as t:
+        for k in ("track_S", "track_M", "track_R", "track_3C"):
+            assert t[k].shape == j[k].shape
+            np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-4)
+
+
+def test_jang_featurize_slabbed_matches_whole_and_jax(monkeypatch):
+    # The slabbed full-resolution featurizer (K2's serving path on the
+    # GPU): every frame equals the whole-signal featuregram's, and the
+    # JAX slabbed featurizer's.
+    monkeypatch.setattr(tcli, "SLAB_THRESHOLD_FRAMES", 64)
+    orig = tcli.featuregram_slabbed
+    monkeypatch.setattr(tcli, "featuregram_slabbed",
+                        lambda y, **kw: orig(y, slab_frames=64, **kw))
+    x = _broadcast(2.5, 4)                         # 247 frames at n_fft 512
+    preset = tcli.MODEL_PRESETS["Jang_et_al_MTL"]
+    got = tcli._featurize_broadcast(x, preset, torch.device("cpu"))
+    assert got.shape == (514, 247)
+    whole = tfg.featuregram(torch.from_numpy(x), feat_name="LogHarmPercSpec",
+                            n_fft=512).numpy()
+    np.testing.assert_allclose(got.numpy(), whole, rtol=0, atol=1e-3)
+    want = np.asarray(jfg.featuregram_slabbed(
+        x, slab_frames=64, feat_name="LogHarmPercSpec", n_fft=512))
+    # At full resolution a few bins differ by up to ~2.5 mdB between any
+    # two float32 programs (a last-ulp DFT difference flips a close pair
+    # inside the harmonic median); the JAX package allows its own slabbed
+    # and whole programs 5 mdB for it (tests/test_dsp_parity.py).
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-3)
+
+
+def test_segmenter_image_windows_match_jax(jax_constant_rows_fixed):
+    x = _broadcast(1.2, 5)
+    fv = np.asarray(jfg.featuregram(jnp.asarray(x),
+                                    feat_name="LogHarmPercSpec", n_fft=512))
+    W, chunk = 12, 40
+
+    def jpredict(b):                  # (B, D, W, 1)
+        return 0.5 + 0.1 * jnp.tanh(b[:, 3:9, :, 0].mean(axis=(1, 2)))[:, None]
+
+    def tpredict(b):
+        assert b.shape[1:] == (514, W, 1) and b.shape[0] <= 7
+        return 0.5 + 0.1 * torch.tanh(b[:, 3:9, :, 0].mean(dim=(1, 2)))[:, None]
+
+    want = jseg.StreamingSegmenter(predict_fn=jpredict, patch_size=W,
+                                   chunk_frames=chunk, input_kind="image",
+                                   feat_name="LogHarmPercSpec")
+    got = tseg.StreamingSegmenter(predict_fn=tpredict, patch_size=W,
+                                  chunk_frames=chunk, input_kind="image",
+                                  feat_name="LogHarmPercSpec",
+                                  batch_windows=7)
+    t0 = want.frame_probabilities(fv)
+    t1 = got.frame_probabilities(torch.tensor(fv))
+    assert set(t1) == set(t0) == {"3C"}
+    assert t1["3C"].shape == (fv.shape[1] - W + 1, 1)
+    np.testing.assert_allclose(t1["3C"], t0["3C"], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="input_kind"):
+        tseg.StreamingSegmenter(predict_fn=tpredict, patch_size=W,
+                                input_kind="dual").frame_probabilities(
+                                    torch.tensor(fv))
+
+
+@pytest.mark.parametrize("model,item", [("Papakostas_et_al_MTL", 3),
+                                        ("Doukhan_et_al_MTL", 7),
+                                        ("Jang_et_al", 7)])
+def test_cli_segment_names_the_queue_of_other_models(tmp_path, model, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tcli.main([str(tmp_path / "b.wav"), "--weights",
+                   str(tmp_path / "w.npz"), "--model", model,
+                   "--device", "cpu"])
