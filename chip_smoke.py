@@ -8,9 +8,10 @@ Phases, each of which must pass:
 1. card: the GPU's name and power limit (nvidia-smi);
 2. build: the CUDA sources of ``sm_hpss_mtl_tpu_torch/csrc`` with nvcc, one
    process per source, all started together;
-3. kernels: K1 (``stft_hpss_mel``), K2 (``stft_hpss``) and K3 (``hpss``,
-   ``hpss_masks``) against their plain PyTorch versions on the card, at
-   every launch shape of the paths below and at edge geometries;
+3. kernels: K1 and K2 (``frontend.launch``, the fused kernel at any
+   length), K3 (``hpss``, ``hpss_masks``) and K4 (``hpss_mel``) against
+   their plain PyTorch versions on the card, at every launch shape of the
+   paths below and at edge geometries;
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -24,14 +25,21 @@ Phases, each of which must pass:
    K2 against the plain version (<= 0.02 dB);
 8. HPSS resynthesis: ``cli.hpss_resynth.main`` on the 60 s broadcast on
    the card (masks through K3) and on the CPU;
-9. checks on the launch counts, and that every launch shape of phases 4-8
+9. file-wise evaluation: on a MUSAN-shaped toy corpus (3-30 s files and
+   clips of 0.12-0.2 s), ``FileWiseTester.test_model`` and ``smr_sweep``
+   with Lemaire-MTL through ``Featurizer(bucket=False)`` (K1, and K4 for
+   items under 20 frames) on the card and on the CPU (predictions within
+   1e-3, labels and confusion matrices equal but for near-ties);
+   ``Classifier.classify_file`` on the 60 s broadcast on both; one Jang-MTL
+   ``test_model`` on the card (K2, and K3 for short items);
+10. checks on the launch counts, and that every launch shape of phases 4-9
    was checked in phase 3.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Prints a ``{"kernels": [...]}`` line, a serving-times line, a
-resynthesis line, the card line, and last ``{"ok": true, "device":
-{...}}``.  Exits non-zero, and prints no result, if any phase fails or no
-GPU is present.  Imports nothing of JAX.
+resynthesis line, an evaluation line, the card line, and last ``{"ok":
+true, "device": {...}}``.  Exits non-zero, and prints no result, if any
+phase fails or no GPU is present.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -52,13 +61,23 @@ SEED = 0
 #: K1 and K2 tolerance against their plain version, as the JAX package
 #: holds its Pallas kernel to the jnp oracle (tests/test_frontend_pallas.py).
 RTOL, ATOL = 2e-4, 2e-5
-#: K3 tolerance against its plain version, as tests/test_hpss_pallas.py
-#: holds the spectral Pallas kernel.
+#: K3 and K4 tolerance against their plain versions, as
+#: tests/test_hpss_pallas.py holds the spectral Pallas kernels.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 #: Feature fidelity bar of the serving path (BASELINE.md).
 FEATURE_DB_TOL = 0.02
-#: Probability tracks, GPU run against the CPU run of the same CLI.
+#: Probability tracks, GPU run against the CPU run of the same CLI; also
+#: the evaluation's predictions and the Classifier's probabilities.
 TRACK_TOL = 1e-3
+#: A patch whose CPU top two 3C probabilities lie this close may take
+#: another label on the card.
+TIE_TOL = 1e-3
+#: Evaluation corpus: files per class of 3-30 s, short clips per class,
+#: and the sweep's SMR levels (the reference's).
+EVAL_FILES, EVAL_SHORT = 6, 3
+SMR_LEVELS = (-5, 0, 5, 10, 15, 20)
+#: Clips under this many frames take the short-clip kernels (K4, K3).
+SHORT_FRAMES = 2 * (21 // 2)
 #: Resynthesized signals, GPU run against the CPU run: max |delta| over the
 #: CPU signal's peak, both weighted by min(1, overlap-added squared window)
 #: (see ``resynth_delta``).  The two runs differ by float32 summation
@@ -132,18 +151,49 @@ def write_broadcast(tmp: str, name: str, seconds: float, seed: int
     return path, (x * 32767).astype(np.int16).astype(np.float32) / 32768.0
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, batches: int = 7
+            ) -> tuple[float, float, float]:
+    """ms per call of ``fn``: the median over ``batches`` batches of
+    ``reps`` back-to-back calls, each timed by CUDA events, after a warm-up
+    batch; also the fastest and slowest batch.  A call that takes less than
+    its host-side enqueue is timed at the enqueue rate."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
     for _ in range(reps):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def device_ms(fn, kernel: str, reps: int = 50) -> float | None:
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, from ``torch.profiler`` over ``reps`` calls of ``fn``; None
+    where the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0))
+            count += ev.count
+    return total / count / 1e3 if count else None
 
 
 def _bound(nbytes: float, flops: float, card: str) -> tuple[float, str]:
@@ -189,6 +239,18 @@ def k3_bound_ms(B: int, F: int, T: int, l_harm: int, l_perc: int,
     return _bound(4 * 3 * B * F * T, ops * B * F * T, card)
 
 
+def k4_bound_ms(B: int, F: int, T: int, n_mels: int, mel_nnz: int,
+                l_harm: int, l_perc: int, card: str) -> tuple[float, str]:
+    """Least time for K4's function: one (B, F, T) magnitude and the
+    (n_mels, F) basis read, two (B, n_mels, T) maps written, against both
+    median networks and the masks per bin and the mel sums over the
+    basis's nonzeros (two outputs, one FMA each)."""
+    ops = (((COMPARATORS[l_harm] + COMPARATORS[l_perc]) * 2 + MASK_OPS)
+           * B * F * T + 2 * 2 * mel_nnz * B * T)
+    nbytes = 4 * (B * F * T + n_mels * F + 2 * B * n_mels * T)
+    return _bound(nbytes, ops, card)
+
+
 def compare(tag: str, got, want, rtol: float, atol: float) -> float:
     """Both outputs of a kernel against its plain version; max |delta|."""
     import torch
@@ -205,39 +267,48 @@ def compare(tag: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def phase_kernels(card: str) -> tuple[list[dict], dict]:
-    """K1, K2 and K3 against their plain versions on the card, at edge
+def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
+    """K1, K2, K3 and K4 against their plain versions on the card, at edge
     geometries and at every launch shape of the paths: K1 at the 60 s
-    Lemaire broadcast bucketed to 6024 frames and the 10-minute slabs
-    (16394 and 16404 frames); K2 at n_fft 512 at the bucketed 10 s (1081)
-    and 60 s (6023) Jang broadcasts and the same slabs; K3 at the 60 s
-    resynthesis (201 bins, 5998 frames).
-    Returns the kernel entries (launches still None) and, per kernel, the
-    launch shapes checked."""
+    Lemaire broadcast bucketed to 6024 frames, the 10-minute slabs (16394
+    and 16404 frames) and each evaluated file's length; K2 at n_fft 512 at
+    the bucketed 10 s (1081) and 60 s (6023) Jang broadcasts, the same
+    slabs and each evaluated file's length; K3 at the 60 s resynthesis
+    (201 bins, 5998 frames) and at 257 bins, every T under 20 (Jang's short
+    items); K4 at 201 bins, every T under 20 (Lemaire's short items).
+    K1 and K2 run through ``frontend.launch``, which launches the fused
+    kernel at every length (the dispatchers send T < 20 to K4 and K3).
+    ``eval_frames`` holds the evaluation's frame counts per kernel and the
+    most frequent K4 length.  Returns the kernel entries (launches still
+    None) and, per kernel, the launch shapes checked."""
     import torch
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    checked = {"K1": set(), "K2": set(), "K3": set()}
+    checked = {"K1": set(), "K2": set(), "K3": set(), "K4": set()}
 
     def audio(n_fft, B, T):
         return torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
                            device="cuda")
 
+    def bank(n_fft):
+        return mel_filterbank(22050, n_fft, 120, device="cuda")
+
     k1_cases = [(400, 21, 11, 2, T) for T in (1, 7, 19, 21, 48, 58, 98)]
     k1_cases += [(512, 11, 5, 2, 71)]
     k1_cases += [(512, 21, 11, 2, T) for T in (1, 19, 98)]
-    k1_cases += [(400, 21, 11, 1, T) for T in (6024, 16384, 16394, 16404)]
+    k1_cases += [(400, 21, 11, 1, T) for T in sorted(
+        {6024, 16384, 16394, 16404} | eval_frames["K1"])]
     k1_err = 0.0
     for n_fft, lh, lp, B, T in k1_cases:
         y = audio(n_fft, B, T)
-        M = mel_filterbank(22050, n_fft, 120, device="cuda")
+        M = bank(n_fft)
         kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=lh,
                   l_perc=lp)
         k1_err = max(k1_err, compare(
             f"K1 n_fft={n_fft} l=({lh},{lp}) B={B} T={T}",
-            frontend.stft_hpss_mel(y, M, **kw),
+            frontend.launch(y, M, **kw),
             frontend.stft_hpss_mel_plain(y, M, **kw), RTOL, ATOL))
         checked["K1"].add((n_fft, lh, lp, B, T))
     print(f"kernel K1 stft_hpss_mel: {len(k1_cases)} shapes ok, "
@@ -246,7 +317,8 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
     k2_cases = [(n_fft, lh, lp, 2, T) for n_fft in (400, 512)
                 for lh, lp in ((21, 11), (11, 5))
                 for T in (1, 7, 19, 21, 48, 98)]
-    k2_cases += [(512, 21, 11, 1, T) for T in (1081, 6023, 16394, 16404)]
+    k2_cases += [(512, 21, 11, 1, T) for T in sorted(
+        {1081, 6023, 16394, 16404} | eval_frames["K2"])]
     k2_err = 0.0
     for n_fft, lh, lp, B, T in k2_cases:
         y = audio(n_fft, B, T)
@@ -254,7 +326,8 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
                   l_perc=lp)
         k2_err = max(k2_err, compare(
             f"K2 n_fft={n_fft} l=({lh},{lp}) B={B} T={T}",
-            frontend.stft_hpss(y, **kw), frontend.stft_hpss_plain(y, **kw),
+            frontend.launch(y, None, **kw),
+            frontend.stft_hpss_plain(y, **kw),
             RTOL, ATOL))
         checked["K2"].add((n_fft, lh, lp, B, T))
     print(f"kernel K2 stft_hpss: {len(k2_cases)} shapes ok, "
@@ -263,6 +336,7 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
     k3_cases = [(mo, 21, 11, 2, 201, T) for mo in (False, True)
                 for T in (1, 19, 364, 365)]
     k3_cases += [(mo, 21, 11, 1, 201, 5998) for mo in (False, True)]
+    k3_cases += [(False, 21, 11, 1, 257, T) for T in range(1, SHORT_FRAMES)]
     k3_err = 0.0
     for mo, lh, lp, B, F, T in k3_cases:
         S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
@@ -276,10 +350,40 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
     print(f"kernel K3 hpss: {len(k3_cases)} shapes ok, "
           f"max |delta| {k3_err:.3e}", flush=True)
 
+    # K4: the short-clip domain (B = 1, F = 201, every T under 20), edge
+    # lengths at B = 2, the narrow medians, and F = 257.
+    k4_cases = [(21, 11, 1, 201, T) for T in range(1, SHORT_FRAMES)]
+    k4_cases += [(21, 11, 2, 201, T) for T in (1, 7, 19, 32, 33, 5998)]
+    k4_cases += [(11, 5, 2, 201, T) for T in (1, 9, 40)]
+    k4_cases += [(21, 11, 2, 257, T) for T in (1, 19, 300)]
+    k4_err = 0.0
+    for lh, lp, B, F, T in k4_cases:
+        S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
+        M = bank(2 * (F - 1))
+        got = hpss.hpss_mel(S, M, l_harm=lh, l_perc=lp)
+        k4_err = max(k4_err, compare(
+            f"K4 l=({lh},{lp}) B={B} F={F} T={T}", got,
+            hpss.hpss_mel_plain(S, M, l_harm=lh, l_perc=lp),
+            K3_RTOL, K3_ATOL))
+        empty = (M == 0).all(dim=1)
+        check(all(bool((g[:, empty] == 0).all()) for g in got),
+              f"K4 F={F} T={T}: empty mel rows are not exact zeros")
+        checked["K4"].add((lh, lp, B, F, T))
+    refused = False
+    try:
+        hpss.hpss_mel(torch.rand((1, 600, 5), device="cuda"),
+                      torch.rand((8, 600), device="cuda"))
+    except RuntimeError:
+        refused = True
+    check(refused, "K4 launched at F=600, whose tile does not fit")
+    print(f"kernel K4 hpss_mel: {len(k4_cases)} shapes ok, "
+          f"max |delta| {k4_err:.3e}; F=600 refused", flush=True)
+
     # Times at each kernel's dominant launch on its path: an interior slab
     # of the slabbed featurizer (16384 frames plus a 10-frame margin on
     # each side) for K1 (Lemaire, n_fft 400) and K2 (Jang, n_fft 512); the
-    # 60 s resynthesis for K3.
+    # 60 s resynthesis for K3; the evaluation's most frequent short clip
+    # for K4, and K4 at the 60 s length, where it is more than latency.
     entries = []
     T = 16384 + 2 * 10
     for name, n_fft, err in (("stft_hpss_mel", 400, k1_err),
@@ -287,7 +391,7 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
         y = audio(n_fft, 1, T)
         kw = dict(n_fft=n_fft)
         if name == "stft_hpss_mel":
-            M = mel_filterbank(22050, n_fft, 120, device="cuda")
+            M = bank(n_fft)
             run = lambda: frontend.stft_hpss_mel(y, M, **kw)  # noqa: E731
             plain = lambda: frontend.stft_hpss_mel_plain(y, M, **kw)  # noqa
             mel = dict(n_mels=120, mel_nnz=int((M != 0).sum()))
@@ -299,24 +403,58 @@ def phase_kernels(card: str) -> tuple[list[dict], dict]:
             replaces = "sm_hpss_mtl_tpu/ops/frontend_pallas.py:219"
         bound, by, direct = frontend_bound_ms(T, y.shape[-1], n_fft, 21, 11,
                                               card, **mel)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain, reps=5, batches=3)
         entries.append({
             "name": name, "route": "cuda",
             "source": "sm_hpss_mtl_tpu_torch/csrc/frontend.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, reps=5),
+            "ms": ms[0], "plain_ms": plain_ms[0],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "ms_spread": ms[1:], "plain_ms_spread": plain_ms[1:],
             "bound_direct_dft_ms": direct, "timed_shape": list(y.shape)})
     S = torch.rand((1, 201, 5998), generator=gen, device="cuda")
     bound, by = k3_bound_ms(1, 201, 5998, 21, 11, card)
+    ms = cuda_ms(lambda: hpss.hpss_masks(S), reps=100)
+    plain_ms = cuda_ms(lambda: hpss.hpss_masks_plain(S), reps=5, batches=3)
     entries.append({
         "name": "hpss", "route": "cuda",
         "source": "sm_hpss_mtl_tpu_torch/csrc/hpss.cu",
         "replaces": "sm_hpss_mtl_tpu/ops/hpss_pallas.py:146",
         "launches": None, "max_abs_err": k3_err,
-        "ms": cuda_ms(lambda: hpss.hpss_masks(S)),
-        "plain_ms": cuda_ms(lambda: hpss.hpss_masks_plain(S), reps=5),
+        "ms": ms[0], "plain_ms": plain_ms[0],
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "ms_spread": ms[1:], "plain_ms_spread": plain_ms[1:],
+        "device_ms": device_ms(lambda: hpss.hpss_masks(S), "hpss_kernel"),
         "timed_shape": list(S.shape), "timed_mode": "mask_only"})
+    M = bank(400)
+    nnz = int((M != 0).sum())
+    k4 = {}
+    for T in (eval_frames["K4_T"], 5998):
+        S = torch.rand((1, 201, T), generator=gen, device="cuda") ** 3
+        ms = cuda_ms(lambda: hpss.hpss_mel(S, M), reps=100)
+        plain_ms = cuda_ms(lambda: hpss.hpss_mel_plain(S, M), reps=5,
+                           batches=3)
+        k4[T] = dict(ms=ms, plain_ms=plain_ms,
+                     bound=k4_bound_ms(1, 201, T, 120, nnz, 21, 11, card),
+                     device_ms=device_ms(lambda: hpss.hpss_mel(S, M),
+                                         "hpss_mel_kernel"))
+    short, full = k4[eval_frames["K4_T"]], k4[5998]
+    entries.append({
+        "name": "hpss_mel", "route": "cuda",
+        "source": "sm_hpss_mtl_tpu_torch/csrc/hpss.cu",
+        "replaces": "sm_hpss_mtl_tpu/ops/hpss_pallas.py:125",
+        "launches": None, "max_abs_err": k4_err,
+        "ms": short["ms"][0], "plain_ms": short["plain_ms"][0],
+        "bound_ms": short["bound"][0], "bound_by": short["bound"][1],
+        "library_ms": None,
+        "ms_spread": short["ms"][1:], "plain_ms_spread":
+        short["plain_ms"][1:], "device_ms": short["device_ms"],
+        "timed_shape": [1, 201, eval_frames["K4_T"]],
+        "ms_at_5998": full["ms"][0], "ms_at_5998_spread": full["ms"][1:],
+        "plain_ms_at_5998": full["plain_ms"][0],
+        "bound_ms_at_5998": full["bound"][0],
+        "bound_by_at_5998": full["bound"][1],
+        "device_ms_at_5998": full["device_ms"]})
     return entries, checked
 
 
@@ -325,9 +463,10 @@ def recorded():
     """Counts every kernel launch of the code run inside, and the shape of
     each: the launch counts are set to 0 on entry and read on exit."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
-    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set()},
+    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
            "launches": {}}
-    f_launch, h_launch = frontend._launch, hpss._launch
+    f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
+                                    hpss._launch_mel)
 
     def f_rec(y, M, **kw):
         rec["shapes"]["K2" if M is None else "K1"].add(
@@ -342,9 +481,15 @@ def recorded():
                                  kw["l_perc"], S.numel() // (F * T), F, T))
         return h_launch(S, **kw)
 
+    def m_rec(S, M, **kw):
+        F, T = S.shape[-2:]
+        rec["shapes"]["K4"].add((kw["l_harm"], kw["l_perc"],
+                                 S.numel() // (F * T), F, T))
+        return m_launch(S, M, **kw)
+
     counters = (frontend.stft_hpss_mel, frontend.stft_hpss, hpss.hpss,
-                hpss.hpss_masks)
-    frontend._launch, hpss._launch = f_rec, h_rec
+                hpss.hpss_masks, hpss.hpss_mel)
+    frontend.launch, hpss._launch, hpss._launch_mel = f_rec, h_rec, m_rec
     try:
         for fn in counters:
             fn.launches = 0
@@ -352,9 +497,11 @@ def recorded():
         rec["launches"] = {
             "K1": frontend.stft_hpss_mel.launches,
             "K2": frontend.stft_hpss.launches,
-            "K3": hpss.hpss.launches + hpss.hpss_masks.launches}
+            "K3": hpss.hpss.launches + hpss.hpss_masks.launches,
+            "K4": hpss.hpss_mel.launches}
     finally:
-        frontend._launch, hpss._launch = f_launch, h_launch
+        frontend.launch, hpss._launch, hpss._launch_mel = (
+            f_launch, h_launch, m_launch)
 
 
 def serve(model: str, wav: str, weights: str, out: str, device: str,
@@ -497,6 +644,147 @@ def resynth_delta(got: np.ndarray, want: np.ndarray, n_fft: int = 400,
                  / np.abs(want * weight).max())
 
 
+def make_eval_corpus(root: str) -> dict:
+    """The evaluation corpus: ``make_toy_musan`` music and speech of 3-30 s,
+    and ``EVAL_SHORT`` clips of 0.12-0.2 s per class beside them with their
+    annotation rows (stratum 'short', so fold 0 holds one of each).
+    Returns the corpus root, fold 0's test files, and each test file's
+    length in samples after the loader's chain (silence removal may
+    shorten a file), from which every launch shape of the phase follows."""
+    from sm_hpss_mtl_tpu_torch.data import audio
+    from sm_hpss_mtl_tpu_torch.data.folds import (create_cv_folds,
+                                                  get_train_test_files)
+    from sm_hpss_mtl_tpu_torch.ops.mixing import normalize_signal_np
+    audio.make_toy_musan(root, n_per_class=EVAL_FILES,
+                         duration_s=(3.0, 30.0), seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    for cls, synth in (("music", audio._synth_music),
+                       ("speech", audio._synth_speech)):
+        with open(os.path.join(root, "annotations", cls + ".csv"), "a") as f:
+            for i in range(EVAL_SHORT):
+                name = f"{cls}-short-{i:04d}"
+                n = int(rng.uniform(0.12, 0.2) * SR)
+                audio.write_wav(os.path.join(root, cls, name + ".wav"),
+                                normalize_signal_np(synth(rng, n, SR)))
+                f.write(f"{name},short\n")
+    _, test = get_train_test_files(create_cv_folds(root, seed=SEED), 0)
+    samples = {os.path.join(root, c, f): len(
+        audio.load_and_preprocess_signal(os.path.join(root, c, f))[0])
+        for c in ("music", "speech") for f in test[c]}
+    return {"root": root, "test": test, "samples": samples}
+
+
+def eval_item_frames(corpus: dict, n_fft: int, sweep: bool) -> list[int]:
+    """Frames of every item the tester featurizes, in order: test_model's
+    single files and pairs (a mixture takes its speech file's length),
+    then, with ``sweep``, the pairs again at each SMR level."""
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
+    root, test, samples = corpus["root"], corpus["test"], corpus["samples"]
+    singles = [samples[os.path.join(root, c, f)]
+               for c in ("music", "speech") for f in test[c]]
+    pairs = [samples[os.path.join(root, "speech", p["speech"])]
+             for p in test["speech+music"]]
+    items = singles + pairs + (pairs * len(SMR_LEVELS) if sweep else [])
+    return [n_frames(n, n_fft, 160) for n in items]
+
+
+def evaluate(model: str, corpus: dict, weights: str, device: str,
+             sweep: bool) -> dict:
+    """``FileWiseTester.test_model`` (and ``smr_sweep``) of ``model`` on
+    fold 0 of the corpus through ``Featurizer(bucket=False)`` on
+    ``device``; the host clock around each, the time inside the
+    featurizer, and the frames of each featurized item."""
+    from sm_hpss_mtl_tpu_torch.cli import segment as cli
+    from sm_hpss_mtl_tpu_torch.data.featurize import (FeatureConfig,
+                                                      Featurizer)
+    from sm_hpss_mtl_tpu_torch.device import resolve_device
+    from sm_hpss_mtl_tpu_torch.eval.tester import FileWiseTester
+    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND, load_model
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
+
+    preset = cli.MODEL_PRESETS[model]
+    cfg = FeatureConfig(feat_name=preset["feat_name"], n_fft=preset["n_fft"],
+                        n_mels=preset["n_mels"])
+    feat = Featurizer(cfg, bucket=False, device=device)
+    seen = {"frames": [], "samples": 0, "featurize_s": 0.0}
+    compute, featuregram = feat._compute, feat.featuregram
+
+    def counted(audio):
+        seen["frames"].append(n_frames(len(audio), cfg.n_fft,
+                                       cfg.hop_length))
+        seen["samples"] += len(audio)
+        return compute(audio)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        fv = featuregram(*args, **kw)
+        seen["featurize_s"] += time.perf_counter() - t0
+        return fv
+
+    feat._compute, feat.featuregram = counted, timed
+    net = load_model(weights, resolve_device(device), model)
+    tester = FileWiseTester(featurizer=feat, predict_fn=net,
+                            folder=corpus["root"], feat_name=cfg.feat_name,
+                            input_kind=INPUT_KIND[model])
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        res = tester.test_model(corpus["test"])
+        t1 = time.perf_counter()
+        swept = (tester.smr_sweep(corpus["test"], levels=SMR_LEVELS)
+                 if sweep else {})
+        t2 = time.perf_counter()
+    for r in [res] + [swept[db] for db in SMR_LEVELS if db in swept]:
+        p = r["Predictions"]
+        check(p.ndim == 2 and p.shape[1] == 3 and len(p) == len(
+            r["PtdLabels"]) == len(r["GroundTruth"]), "prediction shapes")
+        check(bool(np.isfinite(p).all()), "predictions not finite")
+        check(bool((np.abs(p.sum(axis=1) - 1) < 1e-4).all()),
+              "3C probabilities do not sum to 1")
+    want = eval_item_frames(corpus, cfg.n_fft, sweep)
+    check(sorted(seen["frames"]) == sorted(want),
+          f"{model}: featurized frames {sorted(seen['frames'])}, planned "
+          f"{sorted(want)}")
+    return {"result": res, "sweep": swept, "launches": rec["launches"],
+            "shapes": rec["shapes"], "test_model_s": t1 - t0,
+            "sweep_s": t2 - t1, **seen}
+
+
+def same_labels(tag: str, got: dict, want: dict) -> tuple[float, list]:
+    """The card's results against the CPU's: predictions within
+    ``TRACK_TOL``; labels equal but at near-ties (the CPU's top two 3C
+    probabilities within ``TIE_TOL``), which are returned; confusion
+    matrices equal where no label differs."""
+    d = float(np.abs(got["Predictions"] - want["Predictions"]).max())
+    check(d <= TRACK_TOL, f"{tag}: predictions GPU vs CPU max |delta| "
+                          f"{d:.3e}")
+    top2 = np.sort(want["Predictions"], axis=1)[:, -2:]
+    differ = np.flatnonzero(got["PtdLabels"] != want["PtdLabels"])
+    ties = [(tag, int(i), top2[i].tolist()) for i in differ
+            if top2[i, 1] - top2[i, 0] <= TIE_TOL]
+    check(len(ties) == len(differ), f"{tag}: labels differ at patches "
+          f"{differ.tolist()}, not all near-ties")
+    if not len(differ):
+        check(np.array_equal(got["ConfMat"], want["ConfMat"]),
+              f"{tag}: confusion matrices differ")
+    return d, ties
+
+
+def classify(wav: str, weights: str, device: str) -> dict:
+    """``Classifier.classify_file`` of Lemaire-MTL on one wav (bucketed
+    featurizer, as the JAX entry point)."""
+    from sm_hpss_mtl_tpu_torch.infer import Classifier
+    clf = Classifier.from_weights(weights, device=device)
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        out = clf.classify_file(wav)
+        total_s = time.perf_counter() - t0
+    check(out["probabilities"].shape == (3,)
+          and bool(np.isfinite(out["probabilities"]).all()),
+          "classifier probabilities")
+    return {"out": out, "launches": rec["launches"], "shapes": rec["shapes"],
+            "total_s": total_s}
+
+
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source at once, one nvcc process each; load the
     libraries.  Returns the wall time and the ptxas reports."""
@@ -522,18 +810,40 @@ def run() -> None:
     for log in logs:
         print(log, flush=True)
 
-    entries, checked = phase_kernels(card)
-    print("[3 kernels] ok; " + "; ".join(
-        f"{e['name']} {e['ms']:.4f} ms at {e['timed_shape']}"
-        for e in entries), flush=True)
-
     from sm_hpss_mtl_tpu_torch import weights
+    from sm_hpss_mtl_tpu_torch.data.audio import load_and_preprocess_signal
+    from sm_hpss_mtl_tpu_torch.data.featurize import bucket_length
     from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
     from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         def out(name):
             return os.path.join(tmp, name)
+
+        # The evaluation's inputs come first: phase 3 checks each kernel at
+        # the shapes they give it.
+        wav60, x60 = write_broadcast(tmp, "b60.wav", 60.0, SEED)
+        wav600, x600 = write_broadcast(tmp, "b600.wav", 600.0, SEED + 1)
+        wav10, x10 = write_broadcast(tmp, "b10.wav", 10.0, SEED + 2)
+        corpus = make_eval_corpus(out("corpus"))
+        lem_frames = eval_item_frames(corpus, 400, sweep=True)
+        jang_frames = eval_item_frames(corpus, 512, sweep=False)
+        n60 = len(load_and_preprocess_signal(wav60)[0])
+        short = Counter(T for T in lem_frames if T < SHORT_FRAMES)
+        check(short and any(T < SHORT_FRAMES for T in jang_frames),
+              "the evaluation corpus has no short item")
+        eval_frames = {
+            "K1": {T for T in lem_frames if T >= SHORT_FRAMES}
+            | {n_frames(bucket_length(n60), 400, 160)},
+            "K2": {T for T in jang_frames if T >= SHORT_FRAMES},
+            "K4_T": short.most_common(1)[0][0]}
+
+        entries, checked = phase_kernels(card, eval_frames)
+        print("[3 kernels] ok; " + "; ".join(
+            f"{e['name']} {e['ms']:.4f} ms [{e['ms_spread'][0]:.4f}, "
+            f"{e['ms_spread'][1]:.4f}] at {e['timed_shape']}"
+            for e in entries), flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL"):
@@ -542,10 +852,6 @@ def run() -> None:
                                torch.Generator().manual_seed(SEED))
             weights.save_npz(wpath[model], weights.to_flax(net.state_dict()))
             del net
-
-        wav60, x60 = write_broadcast(tmp, "b60.wav", 60.0, SEED)
-        wav600, x600 = write_broadcast(tmp, "b600.wav", 600.0, SEED + 1)
-        wav10, x10 = write_broadcast(tmp, "b10.wav", 10.0, SEED + 2)
 
         lem = "Lemaire_et_al_MTL"
         runs["lemaire_60"] = whole = serve(lem, wav60, wpath[lem],
@@ -606,6 +912,45 @@ def run() -> None:
         print(f"[8 resynth] {rs['launches']['K3']} K3 launches, GPU vs CPU "
               f"{rs_delta:.3e} of the peak", flush=True)
 
+        lem_eval = evaluate(lem, corpus, wpath[lem], "cuda", sweep=True)
+        runs["eval_lemaire"] = lem_eval
+        lem_eval_cpu = evaluate(lem, corpus, wpath[lem], "cpu", sweep=True)
+        n_short = sum(T < SHORT_FRAMES for T in lem_eval["frames"])
+        check(lem_eval["launches"]["K4"] == n_short,
+              f"K4 launched {lem_eval['launches']['K4']} times for "
+              f"{n_short} items under {SHORT_FRAMES} frames")
+        check(lem_eval["launches"]["K1"]
+              == len(lem_eval["frames"]) - n_short,
+              "K1 did not launch once per item of 20 frames or more")
+        eval_delta, ties = same_labels("test_model", lem_eval["result"],
+                                       lem_eval_cpu["result"])
+        for level in SMR_LEVELS:
+            d, t = same_labels(f"sweep {level} dB", lem_eval["sweep"][level],
+                               lem_eval_cpu["sweep"][level])
+            eval_delta, ties = max(eval_delta, d), ties + t
+        for tie in ties:
+            print(f"near-tie, label differs: {tie}", flush=True)
+        runs["classify_60"] = clf = classify(wav60, wpath[lem], "cuda")
+        clf_cpu = classify(wav60, wpath[lem], "cpu")
+        clf_delta = float(np.abs(clf["out"]["probabilities"]
+                                 - clf_cpu["out"]["probabilities"]).max())
+        check(clf_delta <= TRACK_TOL,
+              f"Classifier GPU vs CPU max |delta| {clf_delta:.3e}")
+        runs["eval_jang"] = jang_eval = evaluate(jang, corpus, jw, "cuda",
+                                                 sweep=False)
+        j_short = sum(T < SHORT_FRAMES for T in jang_eval["frames"])
+        check(jang_eval["launches"]["K3"] == j_short
+              and jang_eval["launches"]["K2"] == len(jang_eval["frames"])
+              - j_short, f"Jang evaluation launches {jang_eval['launches']}"
+                         f" for {j_short} short of "
+                         f"{len(jang_eval['frames'])} items")
+        print(f"[9 evaluation] Lemaire {len(lem_eval['frames'])} items "
+              f"({n_short} under {SHORT_FRAMES} frames), launches "
+              f"{lem_eval['launches']}; predictions GPU vs CPU max |delta| "
+              f"{eval_delta:.3e}, {len(ties)} near-ties; classifier 60 s "
+              f"{clf_delta:.3e}; Jang {len(jang_eval['frames'])} items, "
+              f"launches {jang_eval['launches']}", flush=True)
+
         lem_t = {"whole_60s": time_legs(lem, x60, wav60, wpath[lem],
                                         out("t60.npz"), whole["total_s"]),
                  "slabbed_600s": time_legs(lem, x600, wav600, wpath[lem],
@@ -617,9 +962,11 @@ def run() -> None:
                                             out("u600.npz"),
                                             j600["total_s"])}
 
-    paths = {"K1": ("lemaire_60", "lemaire_600"),
-             "K2": ("jang_60", "jang_600", "jang_10"),
-             "K3": ("resynth_60",)}
+    paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
+                    "classify_60"),
+             "K2": ("jang_60", "jang_600", "jang_10", "eval_jang"),
+             "K3": ("resynth_60", "eval_jang"),
+             "K4": ("eval_lemaire",)}
     for entry, (kernel, names) in zip(entries, paths.items()):
         entry["launches"] = sum(runs[n]["launches"][kernel] for n in names)
         check(entry["launches"] > 0, f"{kernel} never launched on its path")
@@ -630,7 +977,7 @@ def run() -> None:
         others = [n for n in runs if n not in names
                   and runs[n]["launches"][kernel]]
         check(not others, f"{kernel} launched on another path: {others}")
-    print("[9 checks] ok", flush=True)
+    print("[10 checks] ok", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"serving": {
         "card": card, "lemaire_mtl": lem_t, "jang_mtl": jang_t,
@@ -644,6 +991,28 @@ def run() -> None:
         "total_ms": 1e3 * rs_warm["total_s"],
         "cpu_total_ms": 1e3 * rs_cpu["total_s"],
         "gpu_vs_cpu_peak_rel": rs_delta}}))
+    print(json.dumps({"evaluation": {
+        "card": card, "model": lem, "items": len(lem_eval["frames"]),
+        "short_items": n_short, "audio_s": lem_eval["samples"] / SR,
+        "test_model_ms": 1e3 * lem_eval["test_model_s"],
+        "sweep_ms": 1e3 * lem_eval["sweep_s"],
+        "featurize_ms": 1e3 * lem_eval["featurize_s"],
+        "featurize_share": lem_eval["featurize_s"]
+        / (lem_eval["test_model_s"] + lem_eval["sweep_s"]),
+        "launches": lem_eval["launches"],
+        "cpu_test_model_ms": 1e3 * lem_eval_cpu["test_model_s"],
+        "cpu_sweep_ms": 1e3 * lem_eval_cpu["sweep_s"],
+        "predictions_max_abs_delta_vs_cpu": eval_delta,
+        "near_ties": len(ties),
+        "classify_60s": {"total_ms": 1e3 * clf["total_s"],
+                         "cpu_total_ms": 1e3 * clf_cpu["total_s"],
+                         "launches": clf["launches"],
+                         "probabilities_max_abs_delta_vs_cpu": clf_delta},
+        "jang_mtl": {"items": len(jang_eval["frames"]), "short_items":
+                     j_short, "audio_s": jang_eval["samples"] / SR,
+                     "test_model_ms": 1e3 * jang_eval["test_model_s"],
+                     "featurize_ms": 1e3 * jang_eval["featurize_s"],
+                     "launches": jang_eval["launches"]}}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

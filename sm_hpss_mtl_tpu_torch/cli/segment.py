@@ -29,18 +29,13 @@ from ..eval.metrics import get_performance
 from ..eval.segment import (StreamingSegmenter,
                             interval_annotations_to_markers,
                             read_interval_csv)
-from ..models.zoo import INPUT_KIND, get_model
+from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, load_model
 from ..ops.featuregram import featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
 from ..train.config import MODEL_PRESETS, preset_n_mels
-from ..weights import from_flax, load_npz
 
 #: Models this entry point serves.
 MODELS = ("Lemaire_et_al_MTL", "Jang_et_al_MTL")
-
-#: Windows per model call for 'image' models: a whole 10000-window chunk
-#: of Jang-MTL holds ~21 GB in its first conv block alone.
-IMAGE_BATCH_WINDOWS = 1024
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -72,16 +67,6 @@ def check_model(name: str) -> None:
         raise NotImplementedError(
             f"--model {name}: not ported to cli.segment yet (ROADMAP §1, "
             f"item {item}); ported: {', '.join(MODELS)}")
-
-
-def load_model(weights: str, device: torch.device, model: str = MODELS[0],
-               patch_size: int = 68) -> torch.nn.Module:
-    """The named model in eval mode on ``device`` with weights from an
-    npz."""
-    net = get_model(model, n_mels=preset_n_mels(MODEL_PRESETS[model]),
-                    patch_size=patch_size)
-    net.load_state_dict(from_flax(load_npz(weights)))
-    return net.to(device).eval()
 
 
 def segmenter(model: str, predict_fn, *, patch_size: int = 68,

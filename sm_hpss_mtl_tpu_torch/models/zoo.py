@@ -8,7 +8,8 @@ import torch
 from torch import nn
 
 from ..ops.featuregram import feature_dim
-from ..train.config import MODEL_PRESETS
+from ..train.config import MODEL_PRESETS, preset_n_mels
+from ..weights import from_flax, load_npz
 from .jang import JangCNN
 from .lemaire import LemaireMTL
 
@@ -16,6 +17,10 @@ from .lemaire import LemaireMTL
 #: 'time_mel' takes ``(B, T, D)`` patches, 'image' takes ``(B, D, T, 1)``.
 INPUT_KIND = {"Lemaire_et_al_MTL": "time_mel", "Jang_et_al": "image",
               "Jang_et_al_MTL": "image"}
+
+#: Windows per model call for 'image' models: a whole 10000-window chunk
+#: of Jang-MTL holds ~21 GB in its first conv block alone (~2 MB a window).
+IMAGE_BATCH_WINDOWS = 1024
 
 
 def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
@@ -41,3 +46,13 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
     in_dim = feature_dim(MODEL_PRESETS[name]["feat_name"], n_mels=n_mels)
     return LemaireMTL(in_dim, patch_size=patch_size, n_classes=n_classes,
                       dropout_rate=dropout_rate)
+
+
+def load_model(weights: str, device: torch.device, model: str,
+               patch_size: int = 68) -> nn.Module:
+    """The named model, sized by its preset, in eval mode on ``device``
+    with weights from an npz (flax keys)."""
+    net = get_model(model, n_mels=preset_n_mels(MODEL_PRESETS[model]),
+                    patch_size=patch_size)
+    net.load_state_dict(from_flax(load_npz(weights)))
+    return net.to(device).eval()

@@ -63,13 +63,16 @@ def featuregram(y: torch.Tensor, *, feat_name: str, sr: int = 16000,
                 n_fft: int = 400, win_length: int = 400,
                 hop_length: int = 160, n_mels: int = 120, l_harm: int = 21,
                 l_perc: int = 11, valid_frames=None,
+                dft_precision: str = "highest",
                 top_db: float | None = 80.0) -> torch.Tensor:
     """Audio ``(..., n_samples)`` -> ``(..., D, T)`` on the audio's device.
 
     ``valid_frames`` (int or tensor broadcastable to ``(..., 1, 1)``)
     limits the ``power_to_db`` clamp to real frames when the audio was
-    length-padded.  ``top_db=None`` skips the clamp, which makes the log
-    map elementwise (``featuregram_slabbed`` clamps once at the end)."""
+    length-padded.  ``dft_precision`` reaches the fused front end of the
+    HPSS families, where only ``'highest'`` is implemented.
+    ``top_db=None`` skips the clamp, which makes the log map elementwise
+    (``featuregram_slabbed`` clamps once at the end)."""
     log, mel, harm, perc = _parse(feat_name)
     stft_kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length)
 
@@ -87,10 +90,12 @@ def featuregram(y: torch.Tensor, *, feat_name: str, sr: int = 16000,
         M = mel_mod.mel_filterbank(_MEL_SR_QUIRK, n_fft, n_mels,
                                    device=y.device)
         H, P = frontend.stft_hpss_mel(y.to(torch.float32), M, l_harm=l_harm,
-                                      l_perc=l_perc, **stft_kw)
+                                      l_perc=l_perc,
+                                      dft_precision=dft_precision, **stft_kw)
     else:
         H, P = frontend.stft_hpss(y.to(torch.float32), l_harm=l_harm,
-                                  l_perc=l_perc, **stft_kw)
+                                  l_perc=l_perc, dft_precision=dft_precision,
+                                  **stft_kw)
 
     # power_to_db runs per component, so each part is clamped by its own max.
     parts = [c for c, on in ((H, harm), (P, perc)) if on]

@@ -6,10 +6,16 @@ and :func:`stft_hpss` launch the hand-written kernel of
 ``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
 medians and soft masks in one pass, then the mel projection for K1 or the
 full-resolution masked magnitudes for K2; the spectrogram never reaches
-device memory).  For a CPU tensor they run :func:`stft_hpss_mel_plain` /
-:func:`stft_hpss_plain`, the same chain in plain PyTorch, which call the
-plain HPSS (``hpss.hpss_plain``) on every device.  A CUDA call never
-falls back: if the kernel cannot be built or launched, it raises.
+device memory).  Clips shorter than ``2*(l_harm//2)`` frames take the
+JAX package's short-clip branch (``frontend_pallas._dispatch``) instead:
+the plain ``stft_mag``, then the spectral kernel K4 (``hpss.hpss_mel``)
+or K3 (``hpss.hpss``).  For a CPU tensor they run
+:func:`stft_hpss_mel_plain` / :func:`stft_hpss_plain`, the same chain in
+plain PyTorch, which call the plain HPSS (``hpss.hpss_plain``) on every
+device.  A CUDA call never falls back: if a kernel cannot be built or
+launched, it raises.  :func:`launch` runs K1 or K2 at any length, without
+the short-clip branch (``chip_smoke.py`` holds the kernels to their plain
+versions through it).
 
 The kernel is built with ``nvcc`` at its first launch, not at import.
 """
@@ -22,6 +28,7 @@ import functools
 import torch
 
 from . import _nvcc
+from . import hpss as hpss_mod
 from .hpss import KERNEL_MEDIANS, hpss_plain
 from .stft import n_frames, stft_mag
 
@@ -71,9 +78,13 @@ def stft_hpss_plain(y: torch.Tensor, *, n_fft: int = 400,
     return hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
 
 
-def _launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft, win_length,
-            hop_length, l_harm, l_perc):
-    """K1 with a mel basis ``M``; K2 (full resolution) with ``M=None``."""
+def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
+           win_length: int, hop_length: int, l_harm: int, l_perc: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 with a mel basis ``M``; K2 (full resolution) with ``M=None``, on
+    CUDA audio ``(..., N)`` of any length of at least one frame.  The
+    dispatchers send clips under ``2*(l_harm//2)`` frames elsewhere; this
+    launches the fused kernel whatever the length."""
     F = 1 + n_fft // 2
     if y.dtype != torch.float32:
         raise TypeError("frontend kernel takes float32 audio")
@@ -123,6 +134,23 @@ def _launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft, win_length,
     return out_h.reshape(shape), out_p.reshape(shape)
 
 
+def _dispatch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft,
+              win_length, hop_length, l_harm, l_perc):
+    """The CUDA route of :func:`stft_hpss_mel` (``M`` given) and
+    :func:`stft_hpss` (``M=None``): clips under ``2*(l_harm//2)`` frames go
+    through ``stft_mag`` and K4 or K3, as ``frontend_pallas._dispatch``
+    sends them to ``hpss_pallas``; longer ones launch K1 or K2."""
+    T = n_frames(y.shape[-1], n_fft, hop_length)
+    if 1 <= T < 2 * (l_harm // 2):
+        S = stft_mag(y.to(torch.float32), n_fft=n_fft,
+                     win_length=win_length, hop_length=hop_length)
+        if M is None:
+            return hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc)
+        return hpss_mod.hpss_mel(S, M, l_harm=l_harm, l_perc=l_perc)
+    return launch(y, M, n_fft=n_fft, win_length=win_length,
+                  hop_length=hop_length, l_harm=l_harm, l_perc=l_perc)
+
+
 def _check_modes(power: float, dft_precision: str) -> None:
     if dft_precision != "highest":
         raise NotImplementedError(
@@ -143,15 +171,16 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     the JAX package's ``dft_precision='highest'``; ``'bf16x3'`` has no
     counterpart yet and raises.  The kernel's masks are squared (``power``
     2, what every feature family uses); another power raises.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (each launch
-    adds one to ``stft_hpss_mel.launches``)."""
+    take the plain version; CUDA tensors launch K1 (each launch adds one to
+    ``stft_hpss_mel.launches``), or for clips under ``2*(l_harm//2)``
+    frames the plain ``stft_mag`` and K4."""
     _check_modes(power, dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
               l_harm=l_harm, l_perc=l_perc)
     if y.device.type == "cpu":
         return stft_hpss_mel_plain(y, mel_basis, **kw)
     if y.device.type == "cuda":
-        return _launch(y, mel_basis, **kw)
+        return _dispatch(y, mel_basis, **kw)
     raise ValueError(f"stft_hpss_mel: unsupported device {y.device}")
 
 
@@ -163,15 +192,16 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
 
     Modes as in :func:`stft_hpss_mel`.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (each launch adds one to
-    ``stft_hpss.launches``)."""
+    CUDA tensors launch K2 (each launch adds one to
+    ``stft_hpss.launches``), or for clips under ``2*(l_harm//2)`` frames
+    the plain ``stft_mag`` and K3."""
     _check_modes(power, dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
               l_harm=l_harm, l_perc=l_perc)
     if y.device.type == "cpu":
         return stft_hpss_plain(y, **kw)
     if y.device.type == "cuda":
-        return _launch(y, None, **kw)
+        return _dispatch(y, None, **kw)
     raise ValueError(f"stft_hpss: unsupported device {y.device}")
 
 

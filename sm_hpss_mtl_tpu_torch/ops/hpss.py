@@ -1,19 +1,22 @@
-"""Harmonic–percussive source separation: kernel K3 and its plain version.
+"""Harmonic–percussive source separation: kernels K3 and K4 and their plain
+versions.
 
 Counterpart of ``sm_hpss_mtl_tpu/ops/hpss.py`` (the jnp oracle) and of
-``ops/hpss_pallas.py::hpss`` / ``hpss_masks`` (the TPU kernel):
-``librosa.decompose.hpss`` with kernel ``(l_harm, l_perc)``, margin 1 and
-Wiener soft masks.  A width-``l_harm`` running median across time gives
-the harmonic envelope, a width-``l_perc`` one across frequency the
-percussive envelope.
+``ops/hpss_pallas.py::hpss`` / ``hpss_masks`` (K3) and ``hpss_mel`` (K4),
+the TPU kernels: ``librosa.decompose.hpss`` with kernel ``(l_harm,
+l_perc)``, margin 1 and Wiener soft masks.  A width-``l_harm`` running
+median across time gives the harmonic envelope, a width-``l_perc`` one
+across frequency the percussive envelope; K4 adds the mel projection of
+both components.
 
-:func:`hpss` and :func:`hpss_masks` take :func:`hpss_plain` /
-:func:`hpss_masks_plain` for a CPU tensor and launch the hand-written
-kernel of ``csrc/hpss.cu`` for a CUDA tensor; a CUDA call never falls
-back.  Code that needs the plain version on any device (the plain
-versions of the fused front end, which ``chip_smoke.py`` holds K1 and K2
-to) calls the ``_plain`` functions by name.  The kernel is built with
-``nvcc`` at its first launch, not at import.
+:func:`hpss`, :func:`hpss_masks` and :func:`hpss_mel` take
+:func:`hpss_plain`, :func:`hpss_masks_plain` / :func:`hpss_mel_plain` for a
+CPU tensor and launch the hand-written kernels of ``csrc/hpss.cu`` for a
+CUDA tensor; a CUDA call never falls back.  Code that needs the plain
+version on any device (the plain versions of the fused front end, which
+``chip_smoke.py`` holds K1 and K2 to) calls the ``_plain`` functions by
+name.  The kernels are built with ``nvcc`` at their first launch, not at
+import.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from . import _nvcc
 
-#: (l_harm, l_perc) pairs the kernels K1, K2 and K3 are instantiated for:
+#: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for:
 #: the presets' (21, 11) and a narrow (11, 5).
 KERNEL_MEDIANS = ((21, 11), (11, 5))
 
@@ -85,12 +88,25 @@ def hpss_plain(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     return S * mh, S * mp
 
 
+def hpss_mel_plain(S: torch.Tensor, mel_basis: torch.Tensor, *,
+                   l_harm: int = 21, l_perc: int = 11, power: float = 2.0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mel(H), mel(P))``, each ``(..., n_mels, T)``, for magnitudes
+    ``(..., F, T)`` and an ``(n_mels, F)`` basis: :func:`hpss_plain`, then
+    a float32 product with the basis."""
+    H, P = hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
+    M = mel_basis.to(device=H.device, dtype=torch.float32)
+    return torch.matmul(M, H), torch.matmul(M, P)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.k3_hpss.restype = i
+    lib.k4_hpss_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.k4_hpss_mel.restype = i
     lib.k3_error_string.argtypes = [i]
     lib.k3_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,8 +118,7 @@ def build() -> None:
     _library()
 
 
-def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def _check_input(S: torch.Tensor, l_harm: int, l_perc: int) -> None:
     if S.dtype != torch.float32:
         raise TypeError("hpss kernel takes float32 magnitudes")
     if (l_harm, l_perc) not in KERNEL_MEDIANS:
@@ -111,6 +126,11 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
                          f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
     if S.ndim < 2:
         raise ValueError(f"hpss takes (..., F, T), got {tuple(S.shape)}")
+
+
+def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_input(S, l_harm, l_perc)
     lead, (F, T) = S.shape[:-2], S.shape[-2:]
     S3 = S.reshape(-1, F, T).contiguous()
     out_h = torch.empty_like(S3)
@@ -128,6 +148,41 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
                            + lib.k3_error_string(err).decode())
     (hpss_masks if mask_only else hpss).launches += 1
     return out_h.reshape(lead + (F, T)), out_p.reshape(lead + (F, T))
+
+
+def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
+                l_perc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 on ``(..., F, T)`` magnitudes and an ``(n_mels, F)`` basis."""
+    _check_input(S, l_harm, l_perc)
+    lead, (F, T) = S.shape[:-2], S.shape[-2:]
+    if M.dtype != torch.float32:
+        raise TypeError("hpss_mel kernel takes a float32 basis")
+    if M.device != S.device:
+        raise ValueError("mel_basis must be on the magnitudes' device")
+    if M.ndim != 2 or M.shape[1] != F:
+        raise ValueError(f"mel_basis must be (n_mels, {F}), "
+                         f"got {tuple(M.shape)}")
+    n_mels = M.shape[0]
+    S3 = S.reshape(-1, F, T).contiguous()
+    out_h = torch.empty((S3.shape[0], n_mels, T), dtype=torch.float32,
+                        device=S.device)
+    out_p = torch.empty_like(out_h)
+    shape = lead + (n_mels, T)
+    if S3.numel() == 0 or n_mels == 0:
+        return out_h.reshape(shape), out_p.reshape(shape)
+    M = M.contiguous()
+    lib = _library()
+    with torch.cuda.device(S.device):
+        stream = torch.cuda.current_stream(S.device).cuda_stream
+        err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(), out_h.data_ptr(),
+                              out_p.data_ptr(), S3.shape[0], F, T, l_harm,
+                              l_perc, n_mels, stream)
+    if err != 0:
+        raise RuntimeError("hpss_mel kernel launch failed: "
+                           + lib.k3_error_string(err).decode()
+                           + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
+    hpss_mel.launches += 1
+    return out_h.reshape(shape), out_p.reshape(shape)
 
 
 def _dispatch(S, *, l_harm, l_perc, power, mask_only):
@@ -161,7 +216,25 @@ def hpss_masks(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
                      mask_only=True)
 
 
-#: Launches of the K3 kernel in this process, per mode (the plain versions
-#: do not count).
+def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
+             l_perc: int = 11, power: float = 2.0
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mel(H), mel(P))``, each ``(..., n_mels, T)``, for float32
+    magnitudes ``(..., F, T)`` and an ``(n_mels, F)`` basis.  CPU tensors
+    take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 (power 2
+    only; each launch adds one to ``hpss_mel.launches``)."""
+    if S.device.type == "cpu":
+        return hpss_mel_plain(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
+                              power=power)
+    if S.device.type != "cuda":
+        raise ValueError(f"hpss_mel: unsupported device {S.device}")
+    if power != 2.0:
+        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
+    return _launch_mel(S, mel_basis, l_harm=l_harm, l_perc=l_perc)
+
+
+#: Launches of the K3 kernel in this process, per mode, and of K4 (the plain
+#: versions do not count).
 hpss.launches = 0
 hpss_masks.launches = 0
+hpss_mel.launches = 0

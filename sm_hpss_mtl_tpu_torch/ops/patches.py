@@ -1,8 +1,51 @@
-"""Feature-matrix helpers (counterpart of ``sm_hpss_mtl_tpu/ops/patches.py``)."""
+"""Feature-matrix helpers (counterpart of ``sm_hpss_mtl_tpu/ops/patches.py``):
+per-row standardization, and the reference's sliding-window patches.
+
+Patch semantics are the reference's (``extract_patches`` plus the
+short-clip rule of ``get_feature_patches``): a clip shorter than one window
+is tiled (whole copies of the original) until strictly longer than
+``patch_size``; windows are then centred at ``range(half, T - half,
+shift)`` with ``half = patch_size // 2``.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def tiled_length(T: int, patch_size: int) -> int:
+    """Length after the short-clip tiling rule: repeat the original until
+    strictly longer than ``patch_size``."""
+    out = T
+    while out <= patch_size:
+        out += T
+    return out
+
+
+def num_patches(T: int, patch_size: int, patch_shift: int) -> int:
+    """Patch count for a (possibly tiled) time axis of ``T`` frames."""
+    T = tiled_length(T, patch_size)
+    half = patch_size // 2
+    return len(range(half, T - half, patch_shift))
+
+
+def _start_indices(T: int, patch_size: int, patch_shift: int) -> np.ndarray:
+    half = patch_size // 2
+    return np.arange(half, T - half, patch_shift) - half
+
+
+def extract_patches_np(FV: np.ndarray, patch_size: int, patch_shift: int
+                       ) -> np.ndarray:
+    """``(D, T)`` -> ``(N, D, patch_size)`` windows, on the host."""
+    D, T = FV.shape
+    full_T = tiled_length(T, patch_size)
+    if full_T != T:
+        reps = -(-full_T // T)
+        FV = np.tile(FV, (1, reps))[:, :full_T]
+    starts = _start_indices(full_T, patch_size, patch_shift)
+    idx = starts[:, None] + np.arange(patch_size)[None, :]
+    return np.ascontiguousarray(np.moveaxis(FV[:, idx], 1, 0))
 
 
 def standardize_rows(FV: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Numpy constants of the DSP front end: the Hann window and the Slaney mel
-filterbank, as librosa defines them.
+"""Numpy helpers of the DSP front end: the Hann window, the Slaney mel
+filterbank, framing and RMS energy, as librosa defines them.
 
 A copy of the helpers of ``sm_hpss_mtl_tpu/ops/reference.py`` that the port
 needs (the port imports nothing of the JAX package); the tests hold each
@@ -82,3 +82,27 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int,
         enorm = 2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels])
         weights *= enorm[:, None]
     return weights
+
+
+def frame_signal(y: np.ndarray, frame_length: int, hop_length: int
+                 ) -> np.ndarray:
+    """Non-centered framing: frame ``t`` is
+    ``y[t*hop : t*hop+frame_length]``.  Returns shape
+    ``(frame_length, n_frames)`` (librosa column layout)."""
+    n_frames = 1 + (len(y) - frame_length) // hop_length
+    if n_frames < 1:
+        raise ValueError(f"signal of {len(y)} samples too short for "
+                         f"frame_length={frame_length}")
+    idx = (np.arange(frame_length)[:, None]
+           + hop_length * np.arange(n_frames)[None, :])
+    return y[idx]
+
+
+def rms_energy(y: np.ndarray, frame_length: int, hop_length: int
+               ) -> np.ndarray:
+    """``librosa.feature.rms(y, frame_length, hop_length)`` with the default
+    ``center=True`` reflect padding; returns 1-D ``(n_frames,)``."""
+    y = np.asarray(y, dtype=np.float64)
+    y = np.pad(y, frame_length // 2, mode="reflect")
+    frames = frame_signal(y, frame_length, hop_length)
+    return np.sqrt(np.mean(frames ** 2, axis=0))

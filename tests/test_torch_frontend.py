@@ -175,3 +175,63 @@ def test_plain_versions_never_route_into_k3(monkeypatch):
     tfe.stft_hpss_mel_plain(y, M)
     tfg.featuregram(y, feat_name="LogHarmPercSpec", n_fft=512)
     tfg.featuregram(y, feat_name="LogMelHarmPercSpec", n_mels=16)
+
+
+@pytest.mark.parametrize("T", [1, 8, 19])
+def test_short_clips_match_jax_short_clip_kernels(T):
+    # Clips under 2*(l_harm//2) = 20 frames: the JAX front end sends them
+    # to stft_mag and the spectral Pallas kernels (K4 for mel features, K3
+    # at full resolution), here in interpret mode.  The port's dispatchers
+    # take the plain chain on the CPU.
+    rng = np.random.default_rng(100 + T)
+    y = rng.standard_normal((2, 400 + (T - 1) * 160)).astype(np.float32)
+    M = _mel(120, 400)
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=21,
+              l_perc=11)
+    jh, jp = fp.stft_hpss_mel(jnp.asarray(y), M, dft_precision="highest",
+                              interpret=True, **kw)
+    th, tp = tfe.stft_hpss_mel(torch.from_numpy(y), torch.from_numpy(M),
+                               **kw)
+    assert th.shape == (2, 120, T)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+    jh, jp = fp.stft_hpss(jnp.asarray(y), dft_precision="highest",
+                          interpret=True, **kw)
+    th, tp = tfe.stft_hpss(torch.from_numpy(y), **kw)
+    assert th.shape == (2, 201, T)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+@pytest.mark.parametrize("l_harm,l_perc,T,want", [
+    (21, 11, 1, "spectral"), (21, 11, 19, "spectral"),
+    (21, 11, 20, "fused"), (21, 11, 98, "fused"),
+    (11, 5, 9, "spectral"), (11, 5, 10, "fused"),
+])
+@pytest.mark.parametrize("mel", [True, False])
+def test_cuda_route_sends_short_clips_to_k4_and_k3(monkeypatch, l_harm,
+                                                   l_perc, T, want, mel):
+    # The CUDA route (frontend._dispatch) with its launchers replaced by
+    # spies: clips under 2*(l_harm//2) frames go to stft_mag and then K4
+    # (mel) or K3 (full resolution), the rest to K1 or K2.
+    from sm_hpss_mtl_tpu_torch.ops import hpss as thpss
+    seen = []
+
+    def spectral(name):
+        def run(S, *a, **kw):
+            seen.append((name, tuple(S.shape)))
+            return S, S
+        return run
+
+    monkeypatch.setattr(thpss, "hpss_mel", spectral("K4"))
+    monkeypatch.setattr(thpss, "hpss", spectral("K3"))
+    monkeypatch.setattr(tfe, "launch", lambda y, M, **kw: seen.append(
+        ("K1" if M is not None else "K2", tuple(y.shape))))
+    y = torch.zeros((2, 400 + (T - 1) * 160))
+    M = torch.from_numpy(_mel(16, 400)) if mel else None
+    tfe._dispatch(y, M, n_fft=400, win_length=400, hop_length=160,
+                  l_harm=l_harm, l_perc=l_perc)
+    if want == "spectral":
+        assert seen == [("K4" if mel else "K3", (2, 201, T))]
+    else:
+        assert seen == [("K1" if mel else "K2", tuple(y.shape))]

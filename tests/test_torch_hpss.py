@@ -132,3 +132,110 @@ def test_library_path_follows_the_header(tmp_path, monkeypatch):
     assert after != before
     (tmp_path / "hpss.cu").write_bytes(b"// no includes\n")
     assert _nvcc._sources("hpss.cu") == [tmp_path / "hpss.cu"]
+
+
+# --- K4: hpss_mel (HPSS medians and masks, then the mel projection) -------
+
+def _bank(n_mels=120, n_fft=400):
+    from sm_hpss_mtl_tpu.ops import mel as jmel
+    return np.array(jmel.mel_filterbank(22050, n_fft, n_mels),
+                    dtype=np.float32)
+
+
+@pytest.mark.parametrize("T,l_harm,l_perc", [
+    (1, 21, 11), (7, 21, 11), (15, 21, 11), (19, 21, 11),  # the path's T
+    (400, 21, 11),                       # above the 364-frame Pallas tile
+    (13, 11, 5), (40, 11, 5),            # the kernel's narrow median pair
+])
+def test_hpss_mel_plain_matches_pallas_interpret_and_fallback(T, l_harm,
+                                                              l_perc):
+    S = _mags((2, 201, T), 3 * T + l_harm)
+    M = _bank()
+    th, tp = thpss.hpss_mel_plain(torch.from_numpy(S), torch.from_numpy(M),
+                                  l_harm=l_harm, l_perc=l_perc)
+    assert th.shape == tp.shape == (2, 120, T)
+    for interpret in (True, False):      # the Pallas kernel; its jnp fallback
+        jh, jp = hpss_pallas.hpss_mel(jnp.asarray(S), M, l_harm=l_harm,
+                                      l_perc=l_perc, interpret=interpret)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+def test_hpss_mel_empty_bands_are_exact_zeros():
+    # Row 0 of the sr=22050 bank at n_fft 400 is empty (row 2 holds one
+    # weight of 1.7e-4); its output feeds the dB floor and must be exactly
+    # 0.
+    M = _bank()
+    empty = np.flatnonzero(~M.any(axis=1))
+    assert 0 in empty
+    th, tp = thpss.hpss_mel_plain(torch.from_numpy(_mags((1, 201, 9), 5)),
+                                  torch.from_numpy(M))
+    assert torch.all(th[:, empty] == 0) and torch.all(tp[:, empty] == 0)
+
+
+def test_hpss_mel_wrapper_sends_cpu_tensors_to_plain_version():
+    S = torch.from_numpy(_mags((3, 1, 201, 12), 6))
+    M = torch.from_numpy(_bank(24))
+    before = thpss.hpss_mel.launches
+    h, p = thpss.hpss_mel(S, M)
+    assert thpss.hpss_mel.launches == before
+    assert h.shape == p.shape == (3, 1, 24, 12)
+    for g, w in zip((h, p), thpss.hpss_mel_plain(S, M)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        thpss.hpss_mel(S.to("meta"), M.to("meta"))
+
+
+def test_hpss_mel_plain_never_reaches_a_kernel(monkeypatch):
+    # chip_smoke.py holds K4 to hpss_mel_plain on the card: the plain
+    # version must not route into K3's or K4's launchers.
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached a kernel launcher")
+
+    for name in ("_dispatch", "_launch", "_launch_mel"):
+        monkeypatch.setattr(thpss, name, refuse)
+    S = torch.from_numpy(_mags((1, 201, 5), 7))
+    thpss.hpss_mel_plain(S, torch.from_numpy(_bank(16)))
+
+
+def _c_params(src, fn):
+    """Kinds of the parameters of C function ``fn`` in ``src``: 'p' for a
+    pointer, 'i' for an int."""
+    sig = re.search(rf"\bint {fn}\((.*?)\)\s*\{{", src, re.S).group(1)
+    return ["p" if "*" in a else "i" for a in sig.split(",")]
+
+
+@pytest.mark.parametrize("module,source,functions", [
+    ("hpss", "hpss.cu", ("k3_hpss", "k4_hpss_mel")),
+    ("frontend", "frontend.cu", ("k1_stft_hpss_mel", "k2_stft_hpss")),
+])
+def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
+                                            functions):
+    # A binding with a wrong argument count or kind passes pointers as
+    # 32-bit ints or shifts every argument; only the card would show it.
+    import ctypes
+    import importlib
+    import types
+    mod = importlib.import_module(f"sm_hpss_mtl_tpu_torch.ops.{module}")
+    libs = []
+
+    def fake_cdll(path):
+        lib = types.SimpleNamespace(**{
+            n: types.SimpleNamespace() for n in functions + (
+                "k1_error_string", "k3_error_string")})
+        libs.append(lib)
+        return lib
+
+    monkeypatch.setattr(_nvcc, "build", lambda source: "unbuilt.so")
+    monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
+    mod._library.cache_clear()
+    try:
+        mod._library()
+    finally:
+        mod._library.cache_clear()
+    src = (_nvcc.CSRC / source).read_text()
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i"}
+    for fn in functions:
+        bound = getattr(libs[0], fn)
+        assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn), fn
+        assert bound.restype is ctypes.c_int

@@ -25,7 +25,9 @@ def _modules():
 def test_port_imports_neither_jax_nor_jax_package():
     mods = list(_modules())
     for new in ("cli.segment", "cli.hpss_resynth", "models.jang",
-                "models.pool", "ops.mixing", "ops.hpss"):
+                "models.pool", "ops.mixing", "ops.hpss", "infer",
+                "eval.tester", "data.featurize", "data.folds",
+                "data.batcher", "ops.silence"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -65,3 +67,14 @@ def test_jang_cli_without_device_cpu_raises_when_no_gpu(monkeypatch,
         tcli.main([str(tmp_path / "missing.wav"), "--weights",
                    str(tmp_path / "missing.npz"), "--model",
                    "Jang_et_al_MTL"])
+
+
+def test_classifier_and_featurizer_without_device_cpu_raise_when_no_gpu(
+        monkeypatch, tmp_path):
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig, Featurizer
+    from sm_hpss_mtl_tpu_torch.infer import Classifier
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Featurizer(FeatureConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Classifier.from_weights(str(tmp_path / "missing.npz"))

@@ -51,8 +51,10 @@ def main(argv: list[str]) -> int:
             N = n_fft + (T - 1) * 160
             y = torch.randn((B, N), generator=gen, device="cuda")
             M = mel_filterbank(22050, n_fft, 120, device="cuda")
-            h, pp = frontend.stft_hpss_mel(y, M, n_fft=n_fft, l_harm=lh,
-                                           l_perc=lp)
+            # The direct launcher: the dispatcher sends T < 2*(l_harm//2)
+            # to K4, which is not K1.
+            h, pp = frontend.launch(y, M, n_fft=n_fft, win_length=400,
+                                    hop_length=160, l_harm=lh, l_perc=lp)
             oh, op = torch.empty_like(h), torch.empty_like(pp)
             err = other_lib.k1_stft_hpss_mel(
                 y.data_ptr(), M.data_ptr(), oh.data_ptr(), op.data_ptr(), B,
