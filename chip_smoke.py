@@ -36,7 +36,10 @@ Phases, each of which must pass:
    was checked in phase 3.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after.  Prints a ``{"kernels": [...]}`` line, a serving-times line, a
+just after.  K1 and K2 also report their profiler device time, blocks per
+SM, the ptxas registers and spills, and their max |delta| against a
+float64 run of the plain version at the timed shape.  Prints a
+``{"kernels": [...]}`` line, a serving-times line, a
 resynthesis line, an evaluation line, the card line, and last ``{"ok":
 true, "device": {...}}``.  Exits non-zero, and prints no result, if any
 phase fails or no GPU is present.  Imports nothing of JAX.
@@ -53,6 +56,7 @@ import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -251,6 +255,22 @@ def k4_bound_ms(B: int, F: int, T: int, n_mels: int, mel_nnz: int,
     return _bound(nbytes, ops, card)
 
 
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
+    entry function of ``csrc/<source>`` whose mangled name contains
+    ``kernel``."""
+    import re
+    from sm_hpss_mtl_tpu_torch.ops import _nvcc
+    log = Path(str(_nvcc.library_path(source)) + ".log").read_text()
+    part = log.split(kernel, 1)[1].split("Compiling entry function", 1)[0]
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       part)
+    return {"registers": int(re.search(r"Used (\d+) registers",
+                                       part).group(1)),
+            "spill_stores": int(spills.group(1)),
+            "spill_loads": int(spills.group(2))}
+
+
 def compare(tag: str, got, want, rtol: float, atol: float) -> float:
     """Both outputs of a kernel against its plain version; max |delta|."""
     import torch
@@ -404,6 +424,12 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         bound, by, direct = frontend_bound_ms(T, y.shape[-1], n_fft, 21, 11,
                                               card, **mel)
         ms, plain_ms = cuda_ms(run), cuda_ms(plain, reps=5, batches=3)
+        ref = (frontend.stft_hpss_mel_plain(y.double(), M.double(), **kw)
+               if mel else frontend.stft_hpss_plain(y.double(), **kw))
+        f64_err = [max((g.double() - w).abs().max().item()
+                       for g, w in zip(fn(), ref)) for fn in (run, plain)]
+        del ref
+        fullres = name == "stft_hpss"
         entries.append({
             "name": name, "route": "cuda",
             "source": "sm_hpss_mtl_tpu_torch/csrc/frontend.cu",
@@ -411,6 +437,13 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             "ms": ms[0], "plain_ms": plain_ms[0],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "ms_spread": ms[1:], "plain_ms_spread": plain_ms[1:],
+            "device_ms": device_ms(run, "frontend_kernel"),
+            "max_err_vs_f64": f64_err[0], "plain_err_vs_f64": f64_err[1],
+            "blocks_per_sm": frontend.blocks_per_sm(
+                fullres=fullres, n_fft=n_fft, hop_length=160, l_harm=21,
+                l_perc=11),
+            **ptxas_report("frontend.cu",
+                           f"frontend_kernelILi21ELi11ELb{int(fullres)}E"),
             "bound_direct_dft_ms": direct, "timed_shape": list(y.shape)})
     S = torch.rand((1, 201, 5998), generator=gen, device="cuda")
     bound, by = k3_bound_ms(1, 201, 5998, 21, 11, card)

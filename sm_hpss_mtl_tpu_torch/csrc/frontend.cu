@@ -15,39 +15,60 @@
 // One template, frontend_kernel<LH, LP, FULLRES>; FULLRES selects the
 // epilogue and nothing else, so K1's arithmetic is K2's up to the masks.
 //
-// What bounds them on an H100: operations.  K1 needs ~63k f32 FLOPs per
-// output frame at n_fft 400 (a real FFT ~2.5*n_fft*log2(n_fft) ~ 8.6k, the
-// median comparators ~49k, window, magnitude, masks and sparse mel ~4.5k)
-// against 1,600 bytes of audio in and features out, ~39 FLOP/byte, above the
-// f32 CUDA-core ridge (~20).  K2 drops the mel projection but writes 2F
-// floats per frame (2,056 bytes at n_fft 512), ~30 FLOP/byte: operations
-// still bound it.  The kernels compute the DFT directly, 2*n_fft*2F FLOPs per
-// frame (~526k at n_fft 512): several times the function's floor, taken for
-// a simple, exact loop with no FFT plan (an FFT or tensor-core DFT is later
-// work).  The design keeps every intermediate on chip and spends its effort
-// on the DFT's inner loop:
-//   - One block per (32-frame time tile, batch item).  Blocks are independent;
-//     nothing carries between them.  A tile recomputes its 2*ht halo frames
-//     (x1.6 DFT work at ht=10), the price of having no inter-block traffic.
-//   - The block windows its 52 frames into shared memory, stored [n][frame]
-//     so that one thread reads 8 frames of one sample as two broadcast
-//     float4 loads.  Frame indices outside [0, T) map by the symmetric rule,
-//     so the time edge mirror needs no special tile and every T >= 1 works.
-//   - Twiddles come from an n_fft-entry (cos, sin) table indexed by
-//     (n*k) mod n_fft, kept exact (no recurrence); each thread accumulates
-//     one bin for 8 frames in registers, 16 FMAs per table read.
+// What bounds them on an H100.  The function needs ~63k f32 operations per
+// output frame at n_fft 400 (an FFT's ~8.6k, the median comparators ~49k,
+// magnitudes, masks and the sparse mel ~4.5k) against 1,600 bytes of audio
+// in and features out: operations, on the CUDA cores.  The kernel computes
+// the DFT as a direct product instead of an FFT, which costs more operations
+// than the medians, so the design puts that product on the tensor cores:
+//   - The DFT is a product per block: 64 frame rows by the windowed rDFT
+//     basis, by mma.sync.m16n8k8 with TF32 operands in split TF32 (3xTF32):
+//     each operand is hi + lo with hi = tf32(x) and lo = tf32(x - hi), and
+//     the product is lo*hi + hi*lo + hi*hi (lo*lo dropped), close to f32
+//     accuracy (the JAX bf16x3 decomposition with 11-bit halves).  The
+//     tensor core sums one k-step's products from zero; the running sums
+//     are f32 registers, added to on the CUDA cores with rounding to
+//     nearest, since the tensor core's accumulation truncates (a running
+//     sum kept there put K2's features 0.03 dB off the plain path at
+//     deep-cancellation bins).  The A operand is split in registers as its
+//     fragments are loaded; the basis's halves come precomputed from the
+//     wrapper in the order the B fragments read them (one coalesced 16-byte
+//     load per lane per k-step and tile), read from L2 by every block.  No
+//     twiddle table is read.
+//   - The window is symmetric about n_fft/2, so each frame is folded into
+//     its even part e_n = x_n + x_{N-n} and odd part o_n = x_n - x_{N-n},
+//     n in [0, N/2]: e meets the cos columns and o the -sin columns, half
+//     the products of the plain sum (26 k-steps of 8 at n_fft 400 and 512;
+//     the zero k-steps of a padded window are skipped).  A group of 8 bins
+//     is a cos tile and a sin tile of one warp, so accumulator e of the two
+//     tiles holds the real and imaginary part of one bin and the magnitude
+//     is taken in registers.
+//   - The audio is staged once per block with cp.async as rows of `hop`
+//     samples (the JAX superblocks): frame r, sample n sits at row
+//     r + n / hop, column n % hop, and a k-step of 8 never crosses a row.
+//     The row pitch is hop rounded up to 32 plus 4 floats, so the eight
+//     rows of an A fragment fall on eight bank quads (conflict-free).
+//     43-44 KB, where the previous design expanded 56 windowed frames into
+//     90-115 KB.
+//   - One block per (tile of 64 - 2*(l_harm/2) output frames, batch item):
+//     44 frames at l_harm 21 for 64 DFT rows, a halo factor of 1.45.  The
+//     block computes the DFT of the real frames of its range only; frames
+//     outside [0, T) are read back through the symmetric rule from the
+//     magnitude rows (as the JAX kernel's edge fix copies rows), so edge
+//     tiles do less work and every T >= 1 works.
+//   - Shared memory is the audio rows plus the magnitudes (64 x F floats),
+//     95 KB at n_fft 400 and 110 KB at 512, so two blocks (16 warps) run
+//     per SM; registers are capped at 128 by __launch_bounds__ for that.
 //   - Medians run in registers through the pruned Batcher networks of
-//     median.cuh (those of ops/hpss_pallas.py::median_network).
-//   - K1: the mel projection reads the (n_mels, F) basis from global memory,
-//     where it stays in L1/L2, and the masked tiles from shared memory.
+//     median.cuh; the symmetric rule is applied only in edge tiles and edge
+//     bins.
+//   - K1: the masked tiles overwrite the audio rows in chunks of frames; the
+//     mel projection sums each band over its nonzero bins only (the ranges
+//     come from the wrapper), in ascending order, which equals the dense
+//     sum bit for bit.
 //   - K2: the masked magnitudes go straight from registers to global memory;
-//     the 32 lanes of a warp take the 32 frames of one bin, so each store of
-//     a warp is one contiguous run of a (B, F, T) row.
-// Shared memory per block: (3*n_fft + NFP*n_fft + NF*F) floats, 136 KB at
-// n_fft 400 and 170 KB at n_fft 512 with l_harm 21 (under the 227 KB a block
-// may take after cudaFuncSetAttribute), so one block runs per SM.
-// The DFT is full f32 on the CUDA cores (the dft_precision='highest'
-// contract); a split-precision tensor-core mode is later work.
+//     consecutive lanes take consecutive frames of one bin, so each store of
+//     a warp is a contiguous run of a (B, F, T) row.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfrontend.so frontend.cu
@@ -55,14 +76,17 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "median.cuh"
 
 namespace {
 
-constexpr int TILE = 32;     // output frames per block (= one warp of lanes)
-constexpr int FR = 8;        // frames per thread in the DFT loop
+constexpr int ROWS = 64;       // DFT frame rows per block
+constexpr int MT = ROWS / 16;  // m16 tiles of those rows
+constexpr int GP = 2;          // groups of 8 bins a warp accumulates at once
 constexpr int THREADS = 256;
-constexpr int MPT = 4;       // mel bands per thread in the projection
+constexpr int WARPS = THREADS / 32;
 
 using hpss_median::Median;
 using hpss_median::sym;
@@ -71,225 +95,382 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
+// Floats per row of staged audio: hop rounded up to 32, plus 4.
+__host__ __device__ inline int audio_pitch(int hop) {
+  return round_up(hop, 32) + 4;
+}
+
+// Floats of the staged audio: ROWS + ceil(n_fft / hop) rows (the DFT of
+// row r reads rows r .. r + n_fft / hop).
+__host__ __device__ inline int audio_floats(int n_fft, int hop) {
+  return (ROWS + (n_fft + hop - 1) / hop) * audio_pitch(hop);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b for one m16n8k8 tile, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+               "l"(src));
+}
+
 template <int LH>
 struct Geometry {
   static constexpr int HT = LH / 2;
-  static constexpr int NF = TILE + 2 * HT;        // frames a tile needs
-  static constexpr int NFP = round_up(NF, FR);    // padded to the DFT blocking
+  static constexpr int TILE = ROWS - 2 * HT;  // output frames per block
 };
 
 // Shared-memory layout, in floats:
-//   tab  [n_fft] float2   (cos, sin) of 2*pi*i/n_fft
-//   win  [n_fft]          Hann window, zero-padded to n_fft
-//   xw   [n_fft][NFP]     windowed frames; K1 reuses it for the H and P
-//                         tiles ([TILE][F] each) once the DFT is done
-//   mag  [NF][F]          magnitudes, frames in mirrored order
-__host__ __device__ inline int xw_offset(int n_fft) {
-  return round_up(3 * n_fft, 4);
-}
-
-template <int LH>
-__host__ __device__ inline int xw_floats(int n_fft) {
-  const int F = n_fft / 2 + 1;
-  const int a = n_fft * Geometry<LH>::NFP, b = 2 * TILE * F;
-  return a > b ? a : b;
+//   audio [audio_floats]   staged audio rows; K1 reuses it for the masked
+//                          H and P tiles of a chunk of frames ([ch][F] each)
+//   mag   [ROWS][F]        magnitudes of frames f_lo .. f_hi-1
+__host__ __device__ inline int smem_floats(int n_fft, int hop) {
+  return audio_floats(n_fft, hop) + ROWS * (n_fft / 2 + 1);
 }
 
 template <int LH, int LP, bool FULLRES>
-__global__ void __launch_bounds__(THREADS)
-frontend_kernel(const float* __restrict__ y, const float* __restrict__ mel,
+__global__ void __launch_bounds__(THREADS, 2)
+frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
+                const float* __restrict__ mel, const int2* __restrict__ bands,
                 float* __restrict__ out_h, float* __restrict__ out_p, int N,
                 int T, int n_fft, int win_length, int hop, int n_mels) {
   constexpr int HT = Geometry<LH>::HT;
   constexpr int HP = LP / 2;
-  constexpr int NF = Geometry<LH>::NF;
-  constexpr int NFP = Geometry<LH>::NFP;
+  constexpr int TILE = Geometry<LH>::TILE;
   const int F = n_fft / 2 + 1;
+  const int pitch = audio_pitch(hop);
+  const int n_audio = audio_floats(n_fft, hop);
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
-  const float* yb = y + (size_t)b * N;
+  // The real frames this tile's medians read: [f_lo, f_hi).
+  const int f_lo = max(0, t0 - HT);
+  const int f_hi = min(T, t0 + TILE + HT);
+  const int n_real = f_hi - f_lo;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float2* tab = reinterpret_cast<float2*>(smem);
-  float* win = smem + 2 * n_fft;
-  float* xw = smem + xw_offset(n_fft);
-  float* mag = xw + xw_floats<LH>(n_fft);
+  float* audio = reinterpret_cast<float*>(smem4);
+  float* mag = audio + n_audio;
 
-  // Twiddle table and window, in double then rounded once to f32.
-  const int lpad = (n_fft - win_length) / 2;
-  for (int i = threadIdx.x; i < n_fft; i += THREADS) {
-    double s, c;
-    sincospi(2.0 * i / n_fft, &s, &c);
-    tab[i] = make_float2((float)c, (float)s);
-    const int j = i - lpad;
-    win[i] = (j >= 0 && j < win_length)
-                 ? (float)(0.5 - 0.5 * cospi(2.0 * j / win_length))
-                 : 0.f;
+  // Stage the samples of frames f_lo .. f_hi-1 as rows of `hop`; the rows
+  // past them are zeroed (read only by DFT rows that are discarded).
+  {
+    const float* src = y + (size_t)b * N + (size_t)f_lo * hop;
+    const int span = (n_real - 1) * hop + n_fft;
+    const int quads = hop / 4;
+    const int n_quads = (n_audio / pitch) * quads;
+    const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    for (int q = threadIdx.x; q < n_quads; q += THREADS) {
+      const int r = q / quads;
+      const int c = 4 * (q - r * quads);
+      const int s = r * hop + c;
+      float* dst = audio + r * pitch + c;
+      if (s >= span) {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (aligned) {
+        cp_async16(dst, src + s);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + s + e);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                     : "memory");
   }
   __syncthreads();
 
-  // Windowed frames t0-HT .. t0+TILE+HT-1, mirrored into [0, T).
-  for (int idx = threadIdx.x; idx < NFP * n_fft; idx += THREADS) {
-    const int i = idx / n_fft;
-    const int n = idx - i * n_fft;
-    float v = 0.f;
-    if (i < NF) {
-      const int m = sym(t0 - HT + i, T);
-      v = yb[(size_t)m * hop + n] * win[n];
-    }
-    xw[n * NFP + i] = v;
-  }
-  __syncthreads();
-
-  // DFT magnitudes: lane = bin, FR frames per thread.
-  const int n_kg = (F + 31) / 32;
-  const int n_tasks = n_kg * (NFP / FR);
-  for (int task = warp; task < n_tasks; task += THREADS / 32) {
-    const int kg = task % n_kg;
-    const int fg = task / n_kg;
-    const int k = kg * 32 + lane;
-    const int kk = k < F ? k : 0;  // idle lanes compute bin 0, then discard
-    float re[FR], im[FR];
+  // DFT magnitudes on the tensor cores, from each frame's even and odd
+  // parts about n_fft/2 (the window is symmetric): for n in [0, n_fft/2],
+  // e_n = x_n + x_{N-n} meets the cos columns and o_n = x_n - x_{N-n} the
+  // -sin columns, half the products of the plain sum.  Warp w takes the
+  // groups of 8 bins w, w + 8, w + 16, ... in passes of GP groups, each
+  // group a cos tile and a sin tile, each pass over all k-steps and the
+  // m16 tiles that hold real frames.
+  {
+    const int g = lane >> 2, tig = lane & 3;
+    const int s_lo = (n_fft - win_length) / 2 / 8;
+    const int s_hi = (n_fft / 2 + 8) / 8;
+    const int n_groups = (F + 7) / 8;
+    const int n_mt = (n_real + 15) / 16;
+    for (int q0 = warp; q0 < n_groups; q0 += WARPS * GP) {
+      float acc[MT][2 * GP][4];
 #pragma unroll
-    for (int j = 0; j < FR; ++j) {
-      re[j] = 0.f;
-      im[j] = 0.f;
-    }
-    const float* xcol = xw + fg * FR;
-    int idx = 0;
-    for (int n = 0; n < n_fft; ++n) {
-      const float2 cs = tab[idx];
-      idx += kk;
-      if (idx >= n_fft) idx -= n_fft;
-      const float4* xp = reinterpret_cast<const float4*>(xcol + n * NFP);
-      const float4 a = xp[0], c = xp[1];
-      const float x[FR] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < FR; ++j) {
-        re[j] = fmaf(x[j], cs.x, re[j]);
-        im[j] = fmaf(x[j], cs.y, im[j]);
+        for (int t = 0; t < 2 * GP; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+      // Sample 8s + tig of the frame at row (srow, scol + tig); samples
+      // N - 8s - tig and N - 8s - 4 - tig at (arow, acol) and (brow, bcol).
+      int srow = 8 * s_lo / hop, scol = 8 * s_lo - srow * hop;
+      const int qa = n_fft - 8 * s_lo - tig, qb = qa - 4;
+      int arow = qa / hop, acol = qa - arow * hop;
+      int brow = qb / hop, bcol = qb - brow * hop;
+      const float4* bs = basis + (size_t)q0 * 64 + lane;
+      for (int s = s_lo; s < s_hi; ++s) {
+        uint32_t bh[2 * GP][2], bl[2 * GP][2];
+#pragma unroll
+        for (int t = 0; t < 2 * GP; ++t) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (q0 + (t >> 1) * WARPS < n_groups)
+            v = __ldg(bs + ((t >> 1) * WARPS * 2 + (t & 1)) * 32);
+          bh[t][0] = __float_as_uint(v.x);
+          bh[t][1] = __float_as_uint(v.y);
+          bl[t][0] = __float_as_uint(v.z);
+          bl[t][1] = __float_as_uint(v.w);
+        }
+        bs += (size_t)n_groups * 64;
+        const float* f0 = audio + (g + srow) * pitch + scol + tig;
+        const float* a0 = audio + (g + arow) * pitch + acol;
+        const float* b0 = audio + (g + brow) * pitch + bcol;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (mt < n_mt) {
+            const int o = mt * 16 * pitch;
+            // A fragment: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4).
+            const float x[4] = {f0[o], f0[o + 8 * pitch], f0[o + 4],
+                                f0[o + 8 * pitch + 4]};
+            const float z[4] = {a0[o], a0[o + 8 * pitch], b0[o],
+                                b0[o + 8 * pitch]};
+            uint32_t eh[4], el[4], oh[4], ol[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float ev = x[i] + z[i], od = x[i] - z[i];
+              eh[i] = to_tf32(ev);
+              el[i] = to_tf32(ev - __uint_as_float(eh[i]));
+              oh[i] = to_tf32(od);
+              ol[i] = to_tf32(od - __uint_as_float(oh[i]));
+            }
+            // Each k-step's products are summed from zero on the tensor core
+            // and added to the f32 sums on the CUDA cores (round to
+            // nearest): the tensor core's own accumulation truncates, which
+            // over a whole frame costs deep-cancellation bins their digits.
+#pragma unroll
+            for (int t = 0; t < 2 * GP; t += 2) {
+              if (q0 + (t >> 1) * WARPS < n_groups) {
+                float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_tf32(c, el, bh[t]);
+                mma_tf32(c, eh, bl[t]);
+                mma_tf32(c, eh, bh[t]);
+                mma_tf32(d, ol, bh[t + 1]);
+                mma_tf32(d, oh, bl[t + 1]);
+                mma_tf32(d, oh, bh[t + 1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  acc[mt][t][e] += c[e];
+                  acc[mt][t + 1][e] += d[e];
+                }
+              }
+            }
+          }
+        }
+        scol += 8;
+        if (scol >= hop) {
+          scol -= hop;
+          ++srow;
+        }
+        acol -= 8;
+        if (acol < 0) {
+          acol += hop;
+          --arow;
+        }
+        bcol -= 8;
+        if (bcol < 0) {
+          bcol += hop;
+          --brow;
+        }
       }
-    }
-    if (k < F) {
+      // Accumulator e of the cos tile is the real part, of the sin tile the
+      // imaginary part, of bin 8q + 2*tig + (e & 1) at row g + 8*(e >> 1)
+      // of the m16 tile.
 #pragma unroll
-      for (int j = 0; j < FR; ++j) {
-        const int i = fg * FR + j;
-        if (i < NF) mag[i * F + k] = sqrtf(re[j] * re[j] + im[j] * im[j]);
-      }
-    }
-  }
-  __syncthreads();
-
-  // Medians and soft masks.  K1: the masked tiles overwrite the frame
-  // buffer, [frame][bin].  K2: lane = frame, each warp writes one bin's
-  // 32 frames to the (B, F, T) outputs.
-  float* hs = xw;
-  float* ps = xw + TILE * F;
-  for (int idx = threadIdx.x; idx < TILE * F; idx += THREADS) {
-    int i, k;
-    if constexpr (FULLRES) {
-      k = idx / TILE;
-      i = idx - k * TILE;
-    } else {
-      i = idx / F;
-      k = idx - i * F;
-    }
-    float v[LH];
+      for (int t = 0; t < 2 * GP; t += 2) {
+        const int k0 = 8 * (q0 + (t >> 1) * WARPS) + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < LH; ++j) v[j] = mag[(i + j) * F + k];
-    const float harm = Median<LH>::run(v);
-    float u[LP];
+        for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < LP; ++j) u[j] = mag[(i + HT) * F + sym(k + j - HP, F)];
-    const float perc = Median<LP>::run(u);
-    const float s = mag[(i + HT) * F + k];
-    float mh, mp;
-    hpss_median::soft_masks(harm, perc, &mh, &mp);
-    if constexpr (FULLRES) {
-      if (t0 + i < T) {
-        const size_t o = ((size_t)b * F + k) * T + t0 + i;
-        out_h[o] = s * mh;
-        out_p[o] = s * mp;
-      }
-    } else {
-      hs[idx] = s * mh;
-      ps[idx] = s * mp;
-    }
-  }
-  if constexpr (FULLRES) return;
-  __syncthreads();
-
-  // Mel projection: lane = frame of the tile, MPT bands per thread.
-  const int tt = t0 + lane;
-  for (int m0 = warp * MPT; m0 < n_mels; m0 += (THREADS / 32) * MPT) {
-    float ah[MPT], ap[MPT];
-    const float* rows[MPT];
-#pragma unroll
-    for (int j = 0; j < MPT; ++j) {
-      ah[j] = 0.f;
-      ap[j] = 0.f;
-      rows[j] = mel + (size_t)min(m0 + j, n_mels - 1) * F;
-    }
-    for (int k = 0; k < F; ++k) {
-      const float h = hs[lane * F + k];
-      const float p = ps[lane * F + k];
-#pragma unroll
-      for (int j = 0; j < MPT; ++j) {
-        const float w = __ldg(rows[j] + k);
-        ah[j] = fmaf(w, h, ah[j]);
-        ap[j] = fmaf(w, p, ap[j]);
-      }
-    }
-    if (tt < T) {
-#pragma unroll
-      for (int j = 0; j < MPT; ++j) {
-        const int m = m0 + j;
-        if (m < n_mels) {
-          const size_t o = ((size_t)b * n_mels + m) * T + tt;
-          out_h[o] = ah[j];
-          out_p[o] = ap[j];
+          for (int e = 0; e < 4; ++e) {
+            const int row = mt * 16 + g + 8 * (e >> 1), k = k0 + (e & 1);
+            const float re = acc[mt][t][e], im = acc[mt][t + 1][e];
+            if (row < n_real && k < F)
+              mag[row * F + k] = sqrtf(re * re + im * im);
+          }
         }
       }
     }
   }
+  __syncthreads();
+
+  // Medians and soft masks.  In an interior tile every frame of the medians
+  // is real and frame t0 - HT + r sits in row r; edge tiles map frames
+  // through the symmetric rule.
+  const bool interior = t0 - HT >= 0 && t0 + TILE + HT <= T;
+  auto masks = [&](int i, int k, float* sh, float* sp) {
+    const int t = t0 + i;
+    float v[LH];
+    if (interior) {
+#pragma unroll
+      for (int j = 0; j < LH; ++j) v[j] = mag[(i + j) * F + k];
+    } else {
+#pragma unroll
+      for (int j = 0; j < LH; ++j)
+        v[j] = mag[(sym(t - HT + j, T) - f_lo) * F + k];
+    }
+    const float harm = Median<LH>::run(v);
+    const float* row = mag + (t - f_lo) * F;
+    float u[LP];
+    if (k >= HP && k < F - HP) {
+#pragma unroll
+      for (int j = 0; j < LP; ++j) u[j] = row[k + j - HP];
+    } else {
+#pragma unroll
+      for (int j = 0; j < LP; ++j) u[j] = row[sym(k + j - HP, F)];
+    }
+    const float perc = Median<LP>::run(u);
+    const float s = row[k];
+    float mh, mp;
+    hpss_median::soft_masks(harm, perc, &mh, &mp);
+    *sh = s * mh;
+    *sp = s * mp;
+  };
+
+  if constexpr (FULLRES) {
+    // Consecutive lanes take consecutive frames of one bin.
+    for (int idx = threadIdx.x; idx < TILE * F; idx += THREADS) {
+      const int k = idx / TILE;
+      const int i = idx - k * TILE;
+      if (t0 + i >= T) continue;
+      float h, p;
+      masks(i, k, &h, &p);
+      const size_t o = ((size_t)b * F + k) * T + t0 + i;
+      out_h[o] = h;
+      out_p[o] = p;
+    }
+  } else {
+    // In chunks of `ch` frames: the masked tiles into the audio rows, then
+    // the mel projection of each band over its nonzero bins [lo, hi).
+    const int ch = min(TILE, n_audio / (2 * F));
+    float* hs = audio;
+    float* ps = audio + ch * F;
+    for (int c0 = 0; c0 < TILE; c0 += ch) {
+      const int nc = min(ch, TILE - c0);
+      for (int idx = threadIdx.x; idx < nc * F; idx += THREADS) {
+        const int il = idx / F;
+        const int k = idx - il * F;
+        if (t0 + c0 + il < T) masks(c0 + il, k, hs + idx, ps + idx);
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < nc * n_mels; idx += THREADS) {
+        const int m = idx / nc;
+        const int il = idx - m * nc;
+        const int tt = t0 + c0 + il;
+        if (tt >= T) continue;
+        const int2 r = __ldg(bands + m);
+        const float* w = mel + (size_t)m * F;
+        const float* hr = hs + il * F;
+        const float* pr = ps + il * F;
+        float ah = 0.f, ap = 0.f;
+        for (int k = r.x; k < r.y; ++k) {
+          const float wk = __ldg(w + k);
+          ah = fmaf(wk, hr[k], ah);
+          ap = fmaf(wk, pr[k], ap);
+        }
+        const size_t o = ((size_t)b * n_mels + m) * T + tt;
+        out_h[o] = ah;
+        out_p[o] = ap;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// n_fft and hop multiples of 8 (a k-step never crosses a row of audio), and
+// a window centred so that it is symmetric about n_fft/2 (the fold).
+bool geometry_ok(int n_fft, int win_length, int hop) {
+  return n_fft > 0 && n_fft % 8 == 0 && hop > 0 && hop % 8 == 0 &&
+         win_length > 0 && win_length <= n_fft &&
+         (n_fft - win_length) % 2 == 0;
 }
 
 template <int LH, int LP, bool FULLRES>
-cudaError_t launch(const float* y, const float* mel, float* out_h,
-                   float* out_p, int B, int N, int T, int n_fft,
-                   int win_length, int hop, int n_mels, cudaStream_t stream) {
-  const int F = n_fft / 2 + 1;
-  const size_t floats = (size_t)xw_offset(n_fft) + xw_floats<LH>(n_fft) +
-                        (size_t)Geometry<LH>::NF * F;
-  const size_t bytes = floats * sizeof(float);
+cudaError_t prepare(int n_fft, int hop, size_t* bytes) {
+  *bytes = (size_t)smem_floats(n_fft, hop) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       frontend_kernel<LH, LP, FULLRES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
   if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(frontend_kernel<LH, LP, FULLRES>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int LH, int LP, bool FULLRES>
+cudaError_t launch(const float* y, const float4* basis, const float* mel,
+                   const int2* bands, float* out_h, float* out_p, int B, int N,
+                   int T, int n_fft, int win_length, int hop, int n_mels,
+                   cudaStream_t stream) {
+  size_t bytes;
+  cudaError_t e = prepare<LH, LP, FULLRES>(n_fft, hop, &bytes);
+  if (e != cudaSuccess) return e;
+  constexpr int TILE = Geometry<LH>::TILE;
   const dim3 grid((T + TILE - 1) / TILE, B);
   frontend_kernel<LH, LP, FULLRES><<<grid, THREADS, bytes, stream>>>(
-      y, mel, out_h, out_p, N, T, n_fft, win_length, hop, n_mels);
+      y, basis, mel, bands, out_h, out_p, N, T, n_fft, win_length, hop,
+      n_mels);
   return cudaGetLastError();
 }
 
+template <int LH, int LP, bool FULLRES>
+int blocks_per_sm(int n_fft, int hop) {
+  size_t bytes;
+  cudaError_t e = prepare<LH, LP, FULLRES>(n_fft, hop, &bytes);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, frontend_kernel<LH, LP, FULLRES>, THREADS, bytes);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 template <bool FULLRES>
-int dispatch(const void* y, const void* mel, void* out_h, void* out_p, int B,
-             int N, int T, int n_fft, int win_length, int hop, int l_harm,
-             int l_perc, int n_mels, void* stream) {
+int dispatch(const void* y, const void* basis, const void* mel,
+             const void* bands, void* out_h, void* out_p, int B, int N, int T,
+             int n_fft, int win_length, int hop, int l_harm, int l_perc,
+             int n_mels, void* stream) {
+  if (!geometry_ok(n_fft, win_length, hop))
+    return (int)cudaErrorInvalidValue;
   const float* yy = static_cast<const float*>(y);
+  const float4* bb = static_cast<const float4*>(basis);
   const float* mm = static_cast<const float*>(mel);
+  const int2* rr = static_cast<const int2*>(bands);
   float* oh = static_cast<float*>(out_h);
   float* op = static_cast<float*>(out_p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (l_harm == 21 && l_perc == 11)
-    return launch<21, 11, FULLRES>(yy, mm, oh, op, B, N, T, n_fft, win_length,
-                                   hop, n_mels, st);
+    return launch<21, 11, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft,
+                                   win_length, hop, n_mels, st);
   if (l_harm == 11 && l_perc == 5)
-    return launch<11, 5, FULLRES>(yy, mm, oh, op, B, N, T, n_fft, win_length,
-                                  hop, n_mels, st);
+    return launch<11, 5, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft,
+                                  win_length, hop, n_mels, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -297,24 +478,43 @@ int dispatch(const void* y, const void* mel, void* out_h, void* out_p, int B,
 
 extern "C" {
 
-// Launches K1 on `stream`.  y: (B, N) f32; mel: (n_mels, n_fft/2+1) f32;
-// out_h, out_p: (B, n_mels, T) f32, T = 1 + (N - n_fft) / hop >= 1.
+// Launches K1 on `stream`.  y: (B, N) f32; basis: the folded, split
+// windowed rDFT basis in fragment order, as ops/frontend.py::dft_fragments
+// lays it out (the window symmetric about n_fft/2, zero at n = 0);
+// mel: (n_mels, n_fft/2+1) f32; bands: (n_mels, 2) int32, each band's
+// nonzero bins [lo, hi); out_h, out_p: (B, n_mels, T) f32,
+// T = 1 + (N - n_fft) / hop >= 1.  n_fft and hop must be multiples of 8.
 // Returns a cudaError_t; cudaErrorInvalidValue for an unsupported
-// (l_harm, l_perc) pair.  Does not synchronise.
-int k1_stft_hpss_mel(const void* y, const void* mel, void* out_h, void* out_p,
-                     int B, int N, int T, int n_fft, int win_length, int hop,
-                     int l_harm, int l_perc, int n_mels, void* stream) {
-  return dispatch<false>(y, mel, out_h, out_p, B, N, T, n_fft, win_length,
-                         hop, l_harm, l_perc, n_mels, stream);
+// (l_harm, l_perc) pair or geometry.  Does not synchronise.
+int k1_stft_hpss_mel(const void* y, const void* basis, const void* mel,
+                     const void* bands, void* out_h, void* out_p, int B, int N,
+                     int T, int n_fft, int win_length, int hop, int l_harm,
+                     int l_perc, int n_mels, void* stream) {
+  return dispatch<false>(y, basis, mel, bands, out_h, out_p, B, N, T, n_fft,
+                         win_length, hop, l_harm, l_perc, n_mels, stream);
 }
 
-// Launches K2 on `stream`.  y: (B, N) f32; out_h, out_p: (B, n_fft/2+1, T)
-// f32, T = 1 + (N - n_fft) / hop >= 1.  Returns as k1_stft_hpss_mel does.
-int k2_stft_hpss(const void* y, void* out_h, void* out_p, int B, int N, int T,
-                 int n_fft, int win_length, int hop, int l_harm, int l_perc,
-                 void* stream) {
-  return dispatch<true>(y, nullptr, out_h, out_p, B, N, T, n_fft, win_length,
-                        hop, l_harm, l_perc, 0, stream);
+// Launches K2 on `stream`.  y and basis as for k1_stft_hpss_mel; out_h,
+// out_p: (B, n_fft/2+1, T) f32.  Returns as k1_stft_hpss_mel does.
+int k2_stft_hpss(const void* y, const void* basis, void* out_h, void* out_p,
+                 int B, int N, int T, int n_fft, int win_length, int hop,
+                 int l_harm, int l_perc, void* stream) {
+  return dispatch<true>(y, basis, nullptr, nullptr, out_h, out_p, B, N, T,
+                        n_fft, win_length, hop, l_harm, l_perc, 0, stream);
+}
+
+// Blocks of K2 (fullres != 0) or K1 that one SM holds at once, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
+// failure.
+int k1_blocks_per_sm(int fullres, int n_fft, int hop, int l_harm,
+                     int l_perc) {
+  if (l_harm == 21 && l_perc == 11)
+    return fullres ? blocks_per_sm<21, 11, true>(n_fft, hop)
+                   : blocks_per_sm<21, 11, false>(n_fft, hop);
+  if (l_harm == 11 && l_perc == 5)
+    return fullres ? blocks_per_sm<11, 5, true>(n_fft, hop)
+                   : blocks_per_sm<11, 5, false>(n_fft, hop);
+  return -(int)cudaErrorInvalidValue;
 }
 
 const char* k1_error_string(int err) {

@@ -35,8 +35,9 @@ class FeatureConfig:
     """Per-model feature settings (the reference's featName / n_fft / n_mels
     / l_harm / l_perc parameters).
 
-    ``dft_precision`` defaults to ``'highest'`` (full float32), the only
-    precision the port's kernels implement: the JAX package's default
+    ``dft_precision`` defaults to ``'highest'``, the only precision the
+    port's kernels implement (split TF32 on the card, held to the JAX
+    package's ``'highest'`` bars): the JAX package's default
     ``'bf16x3'`` raises in ``ops.frontend._check_modes``."""
     feat_name: str = "LogMelHarmPercSpec"
     sr: int = 16000

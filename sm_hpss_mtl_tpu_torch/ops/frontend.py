@@ -17,18 +17,27 @@ launched, it raises.  :func:`launch` runs K1 or K2 at any length, without
 the short-clip branch (``chip_smoke.py`` holds the kernels to their plain
 versions through it).
 
-The kernel is built with ``nvcc`` at its first launch, not at import.
+The kernels compute the DFT on the tensor cores in split TF32 (each
+operand a sum of two TF32 halves, three products per k-step), from each
+frame folded into its even and odd parts (see ``csrc/frontend.cu``):
+:func:`dft_fragments` builds the folded windowed basis's halves once per
+geometry, in float64, in the order the kernel reads them,
+and :func:`mel_band_ranges` gives K1 each mel band's nonzero bins.  The
+kernel is built with ``nvcc`` at its first launch, not at import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
+import numpy as np
 import torch
 
 from . import _nvcc
 from . import hpss as hpss_mod
+from . import reference as ref
 from .hpss import KERNEL_MEDIANS, hpss_plain
 from .stft import n_frames, stft_mag
 
@@ -39,11 +48,12 @@ _SOURCE = "frontend.cu"
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                     p]
+    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p]
     lib.k1_stft_hpss_mel.restype = i
-    lib.k2_stft_hpss.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 8 + [p]
     lib.k2_stft_hpss.restype = i
+    lib.k1_blocks_per_sm.argtypes = [i] * 5
+    lib.k1_blocks_per_sm.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib
@@ -55,17 +65,127 @@ def build() -> None:
     _library()
 
 
+def blocks_per_sm(*, fullres: bool, n_fft: int, hop_length: int,
+                  l_harm: int, l_perc: int) -> int:
+    """Blocks of K2 (``fullres``) or K1 one SM of the current card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = _library().k1_blocks_per_sm(int(fullres), n_fft, hop_length, l_harm,
+                                     l_perc)
+    if n < 0:
+        raise RuntimeError("occupancy query failed: "
+                           + _library().k1_error_string(-n).decode())
+    return n
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """``x`` (float64) rounded to TF32's 11 significant bits (10 stored),
+    to nearest; exactly representable in float32."""
+    m, e = np.frexp(np.asarray(x, dtype=np.float64))
+    return np.ldexp(np.round(m * 2048.0) / 2048.0, e)
+
+
+def dft_steps(n_fft: int, win_length: int) -> tuple[int, int]:
+    """The kernels' k-steps ``[s_lo, s_hi)`` of 8 samples over the folded
+    frame, ``n`` in ``[0, n_fft/2]``: from the window's start (``pad_center``'s
+    ``lpad``; the basis is exact zeros before it) to ``n_fft/2``."""
+    return (n_fft - win_length) // 2 // 8, (n_fft // 2 + 8) // 8
+
+
+@functools.lru_cache(maxsize=8)
+def dft_fragments(n_fft: int, win_length: int) -> np.ndarray:
+    """The kernels' folded windowed rDFT basis, split into TF32 halves and
+    laid out in the order the ``mma.m16n8k8`` B fragments read it.
+
+    The window ``w`` is symmetric about ``n_fft/2`` and zero at ``n = 0``,
+    so ``Re X_k = sum_n C[n, k] e_n`` and ``Im X_k = sum_n S[n, k] o_n``
+    over ``n`` in ``[0, n_fft/2]``, with ``e_n = x_n + x_{N-n}`` and
+    ``o_n = x_n - x_{N-n}`` (``x_N`` meets only zeros), where ``C[n, k] =
+    c_n w_n cos(2 pi n k / N)`` (``c_{N/2} = 1/2``, else 1) and ``S[n, k] =
+    -w_n sin(2 pi n k / N)`` for ``0 < n < N/2`` (zero elsewhere), built in
+    float64 for bins ``k < F`` (zero beyond, up to ``8*ceil(F/8)``).
+    ``hi = tf32(.)``, ``lo = tf32(. - hi)``.  Entry ``[s - s_lo, 2*q + p,
+    lane]`` (``s`` a k-step of :func:`dft_steps`, ``q`` a group of 8 bins,
+    ``p`` 0 for ``C`` and 1 for ``S``, ``g = lane // 4``, ``r = lane % 4``)
+    holds ``(hi[8s+r, 8q+g], hi[8s+r+4, 8q+g], lo[8s+r, 8q+g], lo[8s+r+4,
+    8q+g])`` of that matrix: the lane's fragment registers b0 and b1 of both
+    halves, one 16-byte load.  Returns float32 ``(s_hi - s_lo, 2 *
+    n_groups, 32, 4)``."""
+    if (n_fft - win_length) % 2:
+        raise ValueError("the kernels fold the frame about n_fft/2 and take "
+                         "a window centred symmetrically: n_fft - win_length "
+                         "must be even")
+    F = 1 + n_fft // 2
+    n_groups = -(-F // 8)
+    s_lo, s_hi = dft_steps(n_fft, win_length)
+    window = ref.pad_center(ref.hann_window(win_length), n_fft)
+    n = np.arange(8 * s_hi)[:, None]
+    k = np.arange(F)[None, :]
+    ang = 2.0 * np.pi * ((n * k) % n_fft) / n_fft
+    w = np.where(n <= n_fft // 2, window[np.minimum(n, n_fft - 1)], 0.0)
+    half = n_fft // 2
+    cos = np.zeros((8 * s_hi, 8 * n_groups))
+    sin = np.zeros_like(cos)
+    cos[:, :F] = np.cos(ang) * w * np.where(n == half, 0.5, 1.0)
+    sin[:, :F] = -np.sin(ang) * w * ((n > 0) & (n < half))
+    lane = np.arange(32)
+    rows = 8 * np.arange(s_lo, s_hi)[:, None, None] + (lane % 4)[None, None]
+    cols = 8 * np.arange(n_groups)[None, :, None] + (lane // 4)[None, None]
+    parts = []
+    for basis in (cos, sin):
+        hi = tf32_round(basis)
+        lo = tf32_round(basis - hi)
+        parts.append(np.stack([hi[rows, cols], hi[rows + 4, cols],
+                               lo[rows, cols], lo[rows + 4, cols]], axis=-1))
+    frag = np.stack(parts, axis=2)          # (steps, n_groups, 2, 32, 4)
+    return frag.reshape(s_hi - s_lo, 2 * n_groups, 32, 4).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _fragments_on(n_fft: int, win_length: int,
+                  device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(dft_fragments(n_fft, win_length), device=device)
+
+
+_BANDS: dict[int, tuple] = {}
+
+
+def _band_ranges_of(M: torch.Tensor) -> torch.Tensor:
+    """:func:`mel_band_ranges` of ``M``, kept while that tensor lives and is
+    not modified in place (its ``_version``), so a basis reused across
+    launches is scanned once."""
+    key = id(M)
+    hit = _BANDS.get(key)
+    if hit is not None and hit[0]() is M and hit[1] == M._version:
+        return hit[2]
+    ranges = mel_band_ranges(M)
+    _BANDS[key] = (weakref.ref(M, lambda _, key=key: _BANDS.pop(key, None)),
+                   M._version, ranges)
+    return ranges
+
+
+def mel_band_ranges(M: torch.Tensor) -> torch.Tensor:
+    """Each row's nonzero bins of an ``(n_mels, F)`` basis as ``(n_mels, 2)``
+    int32 ``[lo, hi)``: its first nonzero and one past its last; ``[0, 0)``
+    for a row of zeros.  Computed on ``M``'s device, without a sync."""
+    nz = M != 0
+    k = torch.arange(M.shape[1], device=M.device)
+    lo = torch.where(nz, k, M.shape[1]).amin(dim=1)
+    hi = torch.where(nz, k + 1, 0).amax(dim=1)
+    return torch.stack([torch.minimum(lo, hi), hi], dim=1).to(torch.int32)
+
+
 def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
                         n_fft: int = 400, win_length: int = 400,
                         hop_length: int = 160, l_harm: int = 21,
                         l_perc: int = 11, power: float = 2.0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """stft_mag -> hpss -> mel projection: ``(..., N)`` audio and an
-    ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps."""
+    ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps, float32 (all of
+    it in float64 for float64 audio)."""
     H, P = stft_hpss_plain(y, n_fft=n_fft, win_length=win_length,
                            hop_length=hop_length, l_harm=l_harm,
                            l_perc=l_perc, power=power)
-    M = mel_basis.to(device=H.device, dtype=torch.float32)
+    M = mel_basis.to(device=H.device, dtype=H.dtype)
     return torch.matmul(M, H), torch.matmul(M, P)
 
 
@@ -101,6 +221,12 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
                          f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
     if not win_length <= n_fft:
         raise ValueError("win_length must not exceed n_fft")
+    if n_fft % 8 or hop_length % 8:
+        raise ValueError(f"kernel takes n_fft and hop_length that are "
+                         f"multiples of 8, got {n_fft} and {hop_length}")
+    if (n_fft - win_length) % 2:
+        raise ValueError("kernel takes a window centred symmetrically: "
+                         "n_fft - win_length must be even")
     lead, N = y.shape[:-1], y.shape[-1]
     T = n_frames(N, n_fft, hop_length)
     if T < 1:
@@ -114,18 +240,22 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     if B == 0:
         return out_h.reshape(shape), out_p.reshape(shape)
     lib = _library()
+    basis = _fragments_on(n_fft, win_length, y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         if M is None:
             err = lib.k2_stft_hpss(
-                y2.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N, T,
-                n_fft, win_length, hop_length, l_harm, l_perc, stream)
+                y2.data_ptr(), basis.data_ptr(), out_h.data_ptr(),
+                out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
+                l_harm, l_perc, stream)
         else:
             M = M.contiguous()
+            bands = _band_ranges_of(M)
             err = lib.k1_stft_hpss_mel(
-                y2.data_ptr(), M.data_ptr(), out_h.data_ptr(),
-                out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
-                l_harm, l_perc, rows, stream)
+                y2.data_ptr(), basis.data_ptr(), M.data_ptr(),
+                bands.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N,
+                T, n_fft, win_length, hop_length, l_harm, l_perc, rows,
+                stream)
     name = "stft_hpss" if M is None else "stft_hpss_mel"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -154,8 +284,8 @@ def _dispatch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft,
 def _check_modes(power: float, dft_precision: str) -> None:
     if dft_precision != "highest":
         raise NotImplementedError(
-            f"dft_precision={dft_precision!r}: only 'highest' (full float32) "
-            "is implemented")
+            f"dft_precision={dft_precision!r}: only 'highest' is "
+            "implemented")
     if power != 2.0:
         raise NotImplementedError(f"power={power!r}: only 2 is implemented")
 
@@ -167,9 +297,10 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Audio ``(..., N)`` -> ``(mel(H), mel(P))``, each ``(..., n_mels, T)``.
 
-    ``mel_basis`` is ``(n_mels, F)``.  The kernel's DFT is full float32,
-    the JAX package's ``dft_precision='highest'``; ``'bf16x3'`` has no
-    counterpart yet and raises.  The kernel's masks are squared (``power``
+    ``mel_basis`` is ``(n_mels, F)``.  The kernel's DFT is split TF32,
+    close to float32, and serves the JAX package's
+    ``dft_precision='highest'`` within its bars; ``'bf16x3'`` has no
+    counterpart and raises.  The kernel's masks are squared (``power``
     2, what every feature family uses); another power raises.  CPU tensors
     take the plain version; CUDA tensors launch K1 (each launch adds one to
     ``stft_hpss_mel.launches``), or for clips under ``2*(l_harm//2)``

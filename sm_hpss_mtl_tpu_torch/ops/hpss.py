@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import _nvcc
+from .stft import real_dtype
 
 #: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for:
 #: the presets' (21, 11) and a narrow (11, 5).
@@ -60,9 +61,11 @@ def _sliding_median(S: torch.Tensor, width: int, dim: int) -> torch.Tensor:
 def softmask(X: torch.Tensor, X_ref: torch.Tensor,
              power: float = 2.0) -> torch.Tensor:
     """``librosa.util.softmask`` with ``split_zeros=False``: normalised by
-    ``max(X, X_ref)``; where both are below float32 ``tiny`` the mask is 0."""
-    X = X.to(torch.float32)
-    X_ref = X_ref.to(torch.float32)
+    ``max(X, X_ref)``; where both are below float32 ``tiny`` the mask is 0.
+    Float32, or float64 for float64 inputs."""
+    dtype = real_dtype(X)
+    X = X.to(dtype)
+    X_ref = X_ref.to(dtype)
     Z = torch.maximum(X, X_ref)
     bad = Z < _F32_TINY
     Zs = torch.where(bad, torch.ones_like(Z), Z)
@@ -84,7 +87,7 @@ def hpss_plain(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
                power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(H, P) = (S*mask_h, S*mask_p)`` for magnitudes ``(..., F, T)``."""
     mh, mp = hpss_masks_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
-    S = S.to(torch.float32)
+    S = S.to(real_dtype(S))
     return S * mh, S * mp
 
 

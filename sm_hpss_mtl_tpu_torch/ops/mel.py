@@ -20,10 +20,18 @@ def _mel_basis(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
     return np.asarray(ref.mel_filterbank(sr, n_fft, n_mels), dtype=np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _mel_on(sr: int, n_fft: int, n_mels: int,
+            device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_mel_basis(sr, n_fft, n_mels), device=device)
+
+
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, *,
                    device: str | torch.device = "cpu") -> torch.Tensor:
-    """Slaney-norm mel filterbank ``(n_mels, 1 + n_fft//2)`` float32."""
-    return torch.as_tensor(_mel_basis(sr, n_fft, n_mels), device=device)
+    """Slaney-norm mel filterbank ``(n_mels, 1 + n_fft//2)`` float32, one
+    shared tensor per geometry and device (as the CPU tensor always shared
+    the cached array): do not modify it in place."""
+    return _mel_on(sr, n_fft, n_mels, torch.device(device))
 
 
 def apply_mel(S: torch.Tensor, *, sr: int, n_mels: int) -> torch.Tensor:

@@ -31,31 +31,41 @@ def hann_window(win_length: int, n_fft: int, *,
     return torch.as_tensor(w, dtype=torch.float32, device=device)
 
 
+def real_dtype(x: torch.Tensor) -> torch.dtype:
+    """float64 for a float64 tensor, else float32: the plain DSP chain runs
+    in float32 and keeps float64 only where a caller asks for it (the
+    kernels' float64 yardstick in ``chip_smoke.py``)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 @functools.lru_cache(maxsize=16)
-def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
+def _dft_basis(n_fft: int, win_length: int, dtype=np.float32) -> np.ndarray:
     """Windowed rDFT basis ``(n_fft, 2F)``: columns ``[0, F)`` cos, ``[F, 2F)``
-    −sin, computed in float64 and rounded once."""
+    −sin, computed in float64 and rounded once to ``dtype``."""
     F = 1 + n_fft // 2
     window = ref.pad_center(ref.hann_window(win_length), n_fft)
     n = np.arange(n_fft)[:, None]
     ang = 2.0 * np.pi * n * np.arange(F)[None, :] / n_fft
     basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1) * window[:, None]
-    return basis.astype(np.float32)
+    return basis.astype(dtype)
 
 
 def _stft_reim(y: torch.Tensor, n_fft: int, win_length: int,
                hop_length: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Real and imaginary parts, each ``(..., T, F)``."""
     F = 1 + n_fft // 2
-    frames = y.to(torch.float32).unfold(-1, n_fft, hop_length)  # (..., T, n)
-    basis = torch.as_tensor(_dft_basis(n_fft, win_length), device=y.device)
-    reim = torch.matmul(frames, basis)                          # (..., T, 2F)
+    dtype = real_dtype(y)
+    frames = y.to(dtype).unfold(-1, n_fft, hop_length)          # (..., T, n)
+    basis = _dft_basis(n_fft, win_length,
+                       np.float64 if dtype == torch.float64 else np.float32)
+    reim = torch.matmul(frames, torch.as_tensor(basis, device=y.device))
     return reim[..., :F], reim[..., F:]
 
 
 def stft_mag(y: torch.Tensor, *, n_fft: int, win_length: int,
              hop_length: int) -> torch.Tensor:
-    """``(..., n_samples)`` -> magnitude ``(..., F, T)`` float32."""
+    """``(..., n_samples)`` -> magnitude ``(..., F, T)``, float32 (float64
+    for float64 audio)."""
     re, im = _stft_reim(y, n_fft, win_length, hop_length)
     return torch.sqrt(re * re + im * im).transpose(-1, -2)
 

@@ -235,3 +235,230 @@ def test_cuda_route_sends_short_clips_to_k4_and_k3(monkeypatch, l_harm,
         assert seen == [("K4" if mel else "K3", (2, 201, T))]
     else:
         assert seen == [("K1" if mel else "K2", tuple(y.shape))]
+
+
+def _fragment_matrices(n_fft, win_length=400):
+    # Undo the layout of ops/frontend.py::dft_fragments by the PTX B
+    # fragment of mma.m16n8k8 (.tf32): lane l holds b0 = B[k = l % 4,
+    # n = l // 4] and b1 = B[k = l % 4 + 4, n = l // 4] of its 8 x 8 tile;
+    # tile 2q is group q of the cos matrix, 2q + 1 of the sin matrix.
+    # Returns {(part, half): (8*s_hi, 8*n_groups) float32}.
+    frag = tfe.dft_fragments(n_fft, win_length)
+    s_lo, s_hi = tfe.dft_steps(n_fft, win_length)
+    n_groups = -(-(1 + n_fft // 2) // 8)
+    assert frag.shape == (s_hi - s_lo, 2 * n_groups, 32, 4)
+    lane = np.arange(32)
+    k = 8 * np.arange(s_lo, s_hi)[:, None, None] + lane % 4
+    n = 8 * np.arange(n_groups)[None, :, None] + lane // 4
+    out = {}
+    for part in (0, 1):
+        f = frag[:, part::2]
+        for half in (0, 1):
+            m = np.zeros((8 * s_hi, 8 * n_groups), np.float32)
+            m[k, n], m[k + 4, n] = f[..., 2 * half], f[..., 2 * half + 1]
+            out[part, half] = m
+    return out
+
+
+def _folded_basis64(n_fft, width, win_length=400):
+    # Rows n in [0, n_fft/2]: cos part c_n w_n cos(2 pi n k / N) with
+    # c_{N/2} = 1/2, sin part -w_n sin(2 pi n k / N) for 0 < n < N/2; zero
+    # past bin F - 1.  The angle is reduced exactly (n k mod n_fft).
+    from sm_hpss_mtl_tpu.ops import reference as jref
+    F, half = 1 + n_fft // 2, n_fft // 2
+    w = jref.pad_center(jref.hann_window(win_length), n_fft)[:half + 1]
+    ang = 2 * np.pi * (np.outer(np.arange(half + 1), np.arange(F))
+                       % n_fft) / n_fft
+    C, S = np.zeros((half + 1, width)), np.zeros((half + 1, width))
+    C[:, :F] = np.cos(ang) * w[:, None]
+    C[half] *= 0.5
+    S[1:half, :F] = -np.sin(ang[1:half]) * w[1:half, None]
+    return C, S
+
+
+def _fold(frames, n_fft):
+    # e_n = x_n + x_{N-n}, o_n = x_n - x_{N-n} for n in [0, N/2] (x_N, which
+    # meets only zero basis rows, taken as 0), in the frames' dtype.
+    half = n_fft // 2
+    x = frames[..., :half + 1]
+    z = np.concatenate([np.zeros_like(frames[..., :1]),
+                        frames[..., :half - 1:-1]], axis=-1)
+    return x + z, x - z
+
+
+@pytest.mark.parametrize("n_fft", [400, 512])
+def test_basis_halves_are_tf32_and_sum_to_the_f64_basis(n_fft):
+    # The kernels' folded split-TF32 basis: both halves carry no mantissa
+    # bits below TF32's 10, hi + lo is the float64 basis within 2^-21 of
+    # each entry, the k-steps the kernels skip hold only exact zeros, and
+    # the folded sums are the DFT.
+    m = _fragment_matrices(n_fft)
+    for half in m.values():
+        assert not (half.view(np.uint32) & 0x1FFF).any()
+    width = m[0, 0].shape[1]
+    C, S = _folded_basis64(n_fft, width)
+    s_lo, s_hi = tfe.dft_steps(n_fft, 400)
+    assert 8 * s_hi > n_fft // 2 >= 8 * (s_hi - 1)
+    for part, B in ((0, C), (1, S)):
+        B = np.concatenate([B, np.zeros((8 * s_hi - len(B), width))])
+        assert not B[:8 * s_lo].any()
+        err = np.abs(m[part, 0].astype(np.float64) + m[part, 1] - B)
+        assert (err <= 2.0 ** -21 * np.abs(B)).all(), (part, err.max())
+        assert np.abs(m[part, 0] - B).max() > 1e-5   # lo carries real bits
+    x = np.random.default_rng(10).standard_normal((3, n_fft))
+    e, o = _fold(x, n_fft)
+    F = 1 + n_fft // 2
+    want = np.fft.rfft(x * tfe.ref.pad_center(tfe.ref.hann_window(400),
+                                              n_fft))
+    np.testing.assert_allclose(e @ C[:, :F], want.real, atol=1e-11)
+    np.testing.assert_allclose(o @ S[:, :F], want.imag, atol=1e-11)
+
+
+def _rna_tf32(x):
+    # cvt.rna.tf32.f32: round float32 to 10 stored mantissa bits, ties away
+    # from zero.
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32_mag(y, n_fft):
+    # The kernels' DFT emulated on the CPU: frames folded in float32 and
+    # split into TF32 halves as the kernel splits its A fragments, the
+    # wrapper's basis halves, and lo*hi + hi*lo + hi*hi in float32 (lo*lo
+    # dropped).
+    m = _fragment_matrices(n_fft)
+    T = 1 + (y.shape[-1] - n_fft) // 160
+    idx = 160 * np.arange(T)[:, None] + np.arange(n_fft)
+    e, o = _fold(y[..., idx].astype(np.float32), n_fft)
+    F = 1 + n_fft // 2
+    reim = []
+    for part, a in ((0, e), (1, o)):
+        a = np.concatenate([a, np.zeros(a.shape[:-1] + (
+            len(m[part, 0]) - a.shape[-1],), np.float32)], axis=-1)
+        a_hi = _rna_tf32(a)
+        a_lo = _rna_tf32(a - a_hi)
+        hi, lo = m[part, 0], m[part, 1]
+        reim.append((a_lo @ hi + a_hi @ lo + a_hi @ hi)[..., :F])
+    re, im = reim
+    return np.swapaxes(np.sqrt(re * re + im * im), -1, -2)
+
+
+def _toy_sine(n, seed):
+    # A chord of pure sines with the -40 dB white-noise floor of the
+    # evaluation tests (tests/test_torch_eval.py::_add_noise_floor).
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    x = sum(a * np.sin(2 * np.pi * f * t)
+            for f, a in ((220.0, 0.5), (330.0, 0.3), (440.0, 0.2)))
+    return (x + 1e-2 * rng.standard_normal(n)).astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("signal,n_fft,mel", [
+    ("random", 400, True), ("sine", 400, True), ("random", 512, False),
+    ("sine", 512, False)])
+def test_split_tf32_dft_meets_the_kernel_bar(signal, n_fft, mel):
+    # The split product alone, through the plain HPSS and the mel bank,
+    # meets K1's (K2's) bar against the JAX oracle chain at
+    # dft_precision='highest' semantics.
+    n = n_fft + 97 * 160
+    y = (np.random.default_rng(11).standard_normal((2, n)).astype(np.float32)
+         if signal == "random" else _toy_sine(n, 12))
+    kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=21,
+              l_perc=11, power=2.0)
+    M = _mel(120, n_fft) if mel else None
+    S = torch.from_numpy(_split_tf32_mag(y, n_fft))
+    th, tp = tfe.hpss_plain(S, l_harm=21, l_perc=11)
+    if mel:
+        Mt = torch.from_numpy(M)
+        th, tp = Mt @ th, Mt @ tp
+    jh, jp = fp._oracle(jnp.asarray(y), None if M is None else jnp.asarray(M),
+                        **kw)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+def _sparse_basis():
+    rng = np.random.default_rng(13)
+    M = rng.random((20, 37)).astype(np.float32)
+    M[rng.random(M.shape) < 0.8] = 0
+    M[[0, 5, 19]] = 0                                    # empty rows
+    M[7, [0, 36]] = 1.0                                  # both edges
+    return M
+
+
+@pytest.mark.parametrize("bank", [(22050, 400, 120), (22050, 512, 120),
+                                  (16000, 400, 64), "sparse"])
+def test_mel_band_ranges_cover_every_nonzero(bank):
+    # K1 sums each band over [lo, hi) only: every nonzero lies inside, an
+    # empty row gets [0, 0), and an in-order float32 sum over the range
+    # equals the dense in-order sum bit for bit.
+    M = _sparse_basis() if bank == "sparse" else _mel(bank[2], bank[1])
+    if bank != "sparse":
+        M = np.array(jmel.mel_filterbank(*bank), np.float32)
+    r = tfe.mel_band_ranges(torch.from_numpy(M))
+    assert r.dtype == torch.int32 and r.shape == (M.shape[0], 2)
+    lo, hi = r[:, 0].numpy(), r[:, 1].numpy()
+    k = np.arange(M.shape[1])
+    inside = (k >= lo[:, None]) & (k < hi[:, None])
+    assert not (M != 0)[~inside].any()
+    empty = ~(M != 0).any(axis=1)
+    assert (lo[empty] == 0).all() and (hi[empty] == 0).all()
+    assert (M[~empty, lo[~empty]] != 0).all()
+    assert (M[~empty, hi[~empty] - 1] != 0).all()
+    h = np.random.default_rng(14).random(M.shape[1]).astype(np.float32)
+    for m in range(M.shape[0]):
+        dense = ranged = np.float32(0)
+        for j in range(M.shape[1]):
+            dense = np.float32(dense + M[m, j] * h[j])
+        for j in range(lo[m], hi[m]):
+            ranged = np.float32(ranged + M[m, j] * h[j])
+        assert dense.tobytes() == ranged.tobytes(), m
+
+
+def test_launch_refuses_geometry_the_kernel_does_not_tile():
+    # A k-step of 8 samples must not cross a row of hop samples: n_fft and
+    # hop must be multiples of 8, checked before anything is built.
+    y = torch.zeros((1, 4000))
+    kw = dict(win_length=400, l_harm=21, l_perc=11)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfe.launch(y, None, n_fft=400, hop_length=100, **kw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfe.launch(y, None, n_fft=404, hop_length=160, **kw)
+    # The fold about n_fft/2 needs a window centred symmetrically.
+    with pytest.raises(ValueError, match="symmetric"):
+        tfe.launch(y, None, n_fft=400, hop_length=160, win_length=399,
+                   l_harm=21, l_perc=11)
+    with pytest.raises(ValueError, match="symmetric"):
+        tfe.dft_fragments(512, 399)
+    assert tfe._library.cache_info().currsize == 0
+
+
+def test_plain_versions_run_in_float64_for_float64_audio():
+    # chip_smoke.py measures the kernels against a float64 run of the plain
+    # versions; float32 audio keeps the float32 chain.
+    y = np.random.default_rng(15).standard_normal((1, 8000))
+    M = torch.from_numpy(_mel(40, 400))
+    h64, p64 = tfe.stft_hpss_mel_plain(torch.from_numpy(y), M)
+    h32, p32 = tfe.stft_hpss_mel_plain(torch.from_numpy(y.astype(np.float32)),
+                                       M)
+    assert h64.dtype == p64.dtype == torch.float64
+    assert h32.dtype == p32.dtype == torch.float32
+    np.testing.assert_allclose(h32.numpy(), h64.numpy(), **TOL)
+    np.testing.assert_allclose(p32.numpy(), p64.numpy(), **TOL)
+    H, P = tfe.stft_hpss_plain(torch.from_numpy(y), n_fft=512)
+    assert H.dtype == P.dtype == torch.float64
+
+
+def test_band_ranges_are_kept_per_basis_tensor():
+    # The wrapper scans a basis once while the tensor lives unchanged; an
+    # in-place change or another tensor is scanned again.
+    M = torch.from_numpy(_sparse_basis())
+    r = tfe._band_ranges_of(M)
+    assert tfe._band_ranges_of(M) is r
+    M[0, 3] = 1.0
+    r2 = tfe._band_ranges_of(M)
+    assert r2 is not r and r2[0].tolist() == [3, 4]
+    assert torch.equal(r2, tfe.mel_band_ranges(M))
+    key = id(M)
+    del M
+    assert key not in tfe._BANDS

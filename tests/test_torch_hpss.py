@@ -207,7 +207,8 @@ def _c_params(src, fn):
 
 @pytest.mark.parametrize("module,source,functions", [
     ("hpss", "hpss.cu", ("k3_hpss", "k4_hpss_mel")),
-    ("frontend", "frontend.cu", ("k1_stft_hpss_mel", "k2_stft_hpss")),
+    ("frontend", "frontend.cu", ("k1_stft_hpss_mel", "k2_stft_hpss",
+                                 "k1_blocks_per_sm")),
 ])
 def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
                                             functions):

@@ -78,3 +78,19 @@ def test_classifier_and_featurizer_without_device_cpu_raise_when_no_gpu(
         Featurizer(FeatureConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Classifier.from_weights(str(tmp_path / "missing.npz"))
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py"])
+def test_chip_scripts_import_neither_jax_nor_jax_package(script):
+    # Both run on the GPU machine, which has no JAX: importing them (not
+    # running them) must pull in neither jax nor the JAX package.
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', {script!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'sm_hpss_mtl_tpu'))\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env={k: v for k, v in os.environ.items()
+                        if k != "PYTHONPATH"})
