@@ -36,9 +36,15 @@ Phases, each of which must pass:
    was checked in phase 3.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after.  K1 and K2 also report their profiler device time, blocks per
-SM, the ptxas registers and spills, and their max |delta| against a
-float64 run of the plain version at the timed shape.  Prints a
+just after.  Every kernel also reports its profiler device time, blocks
+per SM, the ptxas registers and spills, and the comparators per output
+of its median networks, counted in the ``csrc/`` it was built from; K1
+and K2 their max |delta| against a float64 run of the plain version at
+the timed shape, and their bound also with the medians priced at their
+own networks; K3 its times on a rotation of inputs larger than L2 and at
+Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
+and K4) against K1 at the same length.  Every bound prices the medians
+at the shared-core networks' count, the least work known.  Prints a
 ``{"kernels": [...]}`` line, a serving-times line, a
 resynthesis line, an evaluation line, the card line, and last ``{"ok":
 true, "device": {...}}``.  Exits non-zero, and prints no result, if any
@@ -48,6 +54,7 @@ phase fails or no GPU is present.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -92,8 +99,6 @@ RESYNTH_TOL = 1e-4
 #: H100 peaks (NVIDIA data sheet): HBM bytes/s and float32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = {"PCIe": 51e12, "default": 67e12}
-#: Comparators of the pruned median networks (csrc/median.cuh).
-COMPARATORS = {21: 91, 11: 32, 5: 8}
 #: Operations per bin of the soft masks (both masks and both products).
 MASK_OPS = 10
 
@@ -209,48 +214,80 @@ def _bound(nbytes: float, flops: float, card: str) -> tuple[float, str]:
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def frontend_bound_ms(T: int, N: int, n_fft: int, l_harm: int, l_perc: int,
+def median_comparators() -> tuple[dict, dict]:
+    """Comparators per output of the median networks in the checkout's
+    ``csrc/``, the sources phase 2 builds, counted from their text: per
+    width L, ``Median<L>`` (one network per window, as K1 and K2 run
+    them); per (l_harm, l_perc), harmonic plus percussive, the shared-core
+    networks K3 and K4 run, ``MedianCore<W, K>`` over its K outputs plus
+    one ``MedianMerge<K>`` each, with K the frames (``QT``) and bins
+    (``QF``) of ``hpss.cu``'s unit.  The shared-core count is the least
+    work known for the medians; every bound prices them with it."""
+    import re
+    from sm_hpss_mtl_tpu_torch.ops import _nvcc
+    head = (_nvcc.CSRC / "median.cuh").read_text()
+    unit = (_nvcc.CSRC / "hpss.cu").read_text()
+
+    def count(pattern):
+        return {tuple(int(g) for g in m.groups()[:-1]):
+                len(re.findall(r"CS\(\d+,\d+\)", m.groups()[-1]))
+                for m in re.finditer(pattern, head, re.S)}
+
+    single = count(r"struct Median<(\d+)>\s*\{(.*?)return")
+    cores = count(r"struct MedianCore<(\d+), (\d+)>\s*\{(.*?)\n\};")
+    merges = count(r"struct MedianMerge<(\d+)>\s*\{(.*?)return")
+    qf, qt = (int(re.search(rf"constexpr int {q} = (\d+);", unit).group(1))
+              for q in ("QF", "QT"))
+
+    def shared(w, k):
+        return cores[(w, k)] / k + merges[(k,)]
+
+    return ({w: n for (w,), n in single.items()},
+            {(lh, lp): shared(lh, qt) + shared(lp, qf)
+             for lh, lp in ((21, 11), (11, 5))})
+
+
+def frontend_bound_ms(T: int, N: int, n_fft: int, comparators: float,
                       card: str, n_mels: int = 0, mel_nnz: int = 0
                       ) -> tuple[float, str, float]:
     """Least time for K1's function (``n_mels`` > 0) or K2's on this card:
     the larger of its bytes (each input read once, each output written
     once) over HBM and the f32 operations it needs over the CUDA-core peak.
     Operations per frame: the window (n_fft), a real FFT (2.5 n_fft log2
-    n_fft), the magnitude (3 per bin), both median networks (min and max
-    per comparator), the masks (10 per bin) and, for K1, the mel projection
-    over the basis's nonzeros (two outputs, one FMA each).  Bytes: the
-    audio in, and two (n_mels, T) maps out plus the basis (K1) or two
-    (F, T) maps out (K2).  Also returns the operations bound with the DFT
-    and the mel projection priced as the dense products the kernels
-    compute (2 n_fft 2F and 2 F n_mels per output per frame)."""
+    n_fft), the magnitude (3 per bin), both medians (min and max per
+    comparator, ``comparators`` per bin), the masks (10 per bin) and, for
+    K1, the mel projection over the basis's nonzeros (two outputs, one FMA
+    each).  Bytes: the audio in, and two (n_mels, T) maps out plus the
+    basis (K1) or two (F, T) maps out (K2).  Also returns the operations
+    bound with the DFT and the mel projection priced as the dense products
+    the kernels compute (2 n_fft 2F and 2 F n_mels per output per
+    frame)."""
     F = 1 + n_fft // 2
     out_rows = n_mels if n_mels else F
     nbytes = 4 * (N + n_mels * F + 2 * out_rows * T)
-    common = (n_fft + 3 * F
-              + (COMPARATORS[l_harm] + COMPARATORS[l_perc]) * 2 * F
-              + MASK_OPS * F)
+    common = n_fft + 3 * F + comparators * 2 * F + MASK_OPS * F
     flops = T * (2.5 * n_fft * np.log2(n_fft) + common + 2 * 2 * mel_nnz)
     direct = T * (2 * n_fft * 2 * F + common + 2 * 2 * F * n_mels)
     bound, by = _bound(nbytes, flops, card)
     return bound, by, _bound(nbytes, direct, card)[0]
 
 
-def k3_bound_ms(B: int, F: int, T: int, l_harm: int, l_perc: int,
+def k3_bound_ms(B: int, F: int, T: int, comparators: float,
                 card: str) -> tuple[float, str]:
     """Least time for K3's function: one (B, F, T) read and two written,
-    against both median networks and the masks per bin."""
-    ops = (COMPARATORS[l_harm] + COMPARATORS[l_perc]) * 2 + MASK_OPS
+    against ``comparators`` per bin (min and max each) and the masks."""
+    ops = comparators * 2 + MASK_OPS
     return _bound(4 * 3 * B * F * T, ops * B * F * T, card)
 
 
 def k4_bound_ms(B: int, F: int, T: int, n_mels: int, mel_nnz: int,
-                l_harm: int, l_perc: int, card: str) -> tuple[float, str]:
+                comparators: float, card: str) -> tuple[float, str]:
     """Least time for K4's function: one (B, F, T) magnitude and the
-    (n_mels, F) basis read, two (B, n_mels, T) maps written, against both
-    median networks and the masks per bin and the mel sums over the
-    basis's nonzeros (two outputs, one FMA each)."""
-    ops = (((COMPARATORS[l_harm] + COMPARATORS[l_perc]) * 2 + MASK_OPS)
-           * B * F * T + 2 * 2 * mel_nnz * B * T)
+    (n_mels, F) basis read, two (B, n_mels, T) maps written, against K3's
+    operations per bin and the mel sums over the basis's nonzeros (two
+    outputs, one FMA each)."""
+    ops = ((comparators * 2 + MASK_OPS) * B * F * T
+           + 2 * 2 * mel_nnz * B * T)
     nbytes = 4 * (B * F * T + n_mels * F + 2 * B * n_mels * T)
     return _bound(nbytes, ops, card)
 
@@ -259,9 +296,14 @@ def ptxas_report(source: str, kernel: str) -> dict:
     """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
     entry function of ``csrc/<source>`` whose mangled name contains
     ``kernel``."""
-    import re
     from sm_hpss_mtl_tpu_torch.ops import _nvcc
-    log = Path(str(_nvcc.library_path(source)) + ".log").read_text()
+    return parse_ptxas(
+        Path(str(_nvcc.library_path(source)) + ".log").read_text(), kernel)
+
+
+def parse_ptxas(log: str, kernel: str) -> dict:
+    """``ptxas_report`` of one ``nvcc -Xptxas -v`` log."""
+    import re
     part = log.split(kernel, 1)[1].split("Compiling entry function", 1)[0]
     spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        part)
@@ -389,21 +431,22 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         check(all(bool((g[:, empty] == 0).all()) for g in got),
               f"K4 F={F} T={T}: empty mel rows are not exact zeros")
         checked["K4"].add((lh, lp, B, F, T))
-    refused = False
-    try:
-        hpss.hpss_mel(torch.rand((1, 600, 5), device="cuda"),
-                      torch.rand((8, 600), device="cuda"))
-    except RuntimeError:
-        refused = True
-    check(refused, "K4 launched at F=600, whose tile does not fit")
-    print(f"kernel K4 hpss_mel: {len(k4_cases)} shapes ok, "
-          f"max |delta| {k4_err:.3e}; F=600 refused", flush=True)
+    # A basis whose bands all span F = 600 bins: the span is taken in
+    # several passes, so no F is refused.
+    S = torch.rand((1, 600, 5), generator=gen, device="cuda")
+    M = torch.rand((8, 600), generator=gen, device="cuda")
+    k4_err = max(k4_err, compare(
+        "K4 F=600 dense basis", hpss.hpss_mel(S, M),
+        hpss.hpss_mel_plain(S, M), K3_RTOL, K3_ATOL))
+    print(f"kernel K4 hpss_mel: {len(k4_cases) + 1} shapes ok (F=600 with "
+          f"a dense basis among them), max |delta| {k4_err:.3e}", flush=True)
 
     # Times at each kernel's dominant launch on its path: an interior slab
     # of the slabbed featurizer (16384 frames plus a 10-frame margin on
     # each side) for K1 (Lemaire, n_fft 400) and K2 (Jang, n_fft 512); the
     # 60 s resynthesis for K3; the evaluation's most frequent short clip
     # for K4, and K4 at the 60 s length, where it is more than latency.
+    single, shared = median_comparators()
     entries = []
     T = 16384 + 2 * 10
     for name, n_fft, err in (("stft_hpss_mel", 400, k1_err),
@@ -421,8 +464,10 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             plain = lambda: frontend.stft_hpss_plain(y, **kw)  # noqa: E731
             mel = {}
             replaces = "sm_hpss_mtl_tpu/ops/frontend_pallas.py:219"
-        bound, by, direct = frontend_bound_ms(T, y.shape[-1], n_fft, 21, 11,
-                                              card, **mel)
+        bound, by, direct = frontend_bound_ms(
+            T, y.shape[-1], n_fft, shared[(21, 11)], card, **mel)
+        per_window = frontend_bound_ms(T, y.shape[-1], n_fft,
+                                       single[21] + single[11], card, **mel)
         ms, plain_ms = cuda_ms(run), cuda_ms(plain, reps=5, batches=3)
         ref = (frontend.stft_hpss_mel_plain(y.double(), M.double(), **kw)
                if mel else frontend.stft_hpss_plain(y.double(), **kw))
@@ -444,11 +489,32 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
                 l_perc=11),
             **ptxas_report("frontend.cu",
                            f"frontend_kernelILi21ELi11ELb{int(fullres)}E"),
-            "bound_direct_dft_ms": direct, "timed_shape": list(y.shape)})
+            "bound_direct_dft_ms": direct,
+            "comparators_per_output": single[21] + single[11],
+            "bound_comparators_per_output": shared[(21, 11)],
+            "bound_ms_at_own_networks": per_window[0],
+            "timed_shape": list(y.shape)})
+    # K3: the 60 s resynthesis (mask-only), on one resident input and on
+    # a rotation of 12 inputs (58 MB, over the 50 MB L2), and Jang's most
+    # frequent short evaluation item (1 x 257 x T, masked components).
+    k3 = {"comparators_per_output": shared[(21, 11)],
+          "blocks_per_sm": hpss.blocks_per_sm(mel=False),
+          **ptxas_report("hpss.cu", "hpss_kernelILi21ELi11ELb1E")}
     S = torch.rand((1, 201, 5998), generator=gen, device="cuda")
-    bound, by = k3_bound_ms(1, 201, 5998, 21, 11, card)
-    ms = cuda_ms(lambda: hpss.hpss_masks(S), reps=100)
+    bound, by = k3_bound_ms(1, 201, 5998, shared[(21, 11)], card)
+    run = lambda: hpss.hpss_masks(S)  # noqa: E731
+    ms = cuda_ms(run, reps=100)
     plain_ms = cuda_ms(lambda: hpss.hpss_masks_plain(S), reps=5, batches=3)
+    rotation = [torch.rand((1, 201, 5998), generator=gen, device="cuda")
+                for _ in range(12)]
+    inputs = itertools.cycle(rotation)
+    rotating = lambda: hpss.hpss_masks(next(inputs))  # noqa: E731
+    cold = cuda_ms(rotating, reps=96)
+    T3 = eval_frames["K3_T"]
+    S3 = torch.rand((1, 257, T3), generator=gen, device="cuda") ** 3
+    short_run = lambda: hpss.hpss(S3)  # noqa: E731
+    short_ms = cuda_ms(short_run, reps=100)
+    short_plain = cuda_ms(lambda: hpss.hpss_plain(S3), reps=5, batches=3)
     entries.append({
         "name": "hpss", "route": "cuda",
         "source": "sm_hpss_mtl_tpu_torch/csrc/hpss.cu",
@@ -457,8 +523,17 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         "ms": ms[0], "plain_ms": plain_ms[0],
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "ms_spread": ms[1:], "plain_ms_spread": plain_ms[1:],
-        "device_ms": device_ms(lambda: hpss.hpss_masks(S), "hpss_kernel"),
-        "timed_shape": list(S.shape), "timed_mode": "mask_only"})
+        "device_ms": device_ms(run, "hpss_kernel"),
+        "timed_shape": list(S.shape), "timed_mode": "mask_only",
+        "ms_rotating_58MB": cold[0], "ms_rotating_58MB_spread": cold[1:],
+        "device_ms_rotating_58MB": device_ms(rotating, "hpss_kernel"),
+        "short_shape": [1, 257, T3], "short_mode": "masked components",
+        "ms_short": short_ms[0], "ms_short_spread": short_ms[1:],
+        "device_ms_short": device_ms(short_run, "hpss_kernel"),
+        "plain_ms_short": short_plain[0],
+        "bound_ms_short": k3_bound_ms(1, 257, T3, shared[(21, 11)],
+                                      card)[0], **k3})
+    del rotation
     M = bank(400)
     nnz = int((M != 0).sum())
     k4 = {}
@@ -468,9 +543,23 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         plain_ms = cuda_ms(lambda: hpss.hpss_mel_plain(S, M), reps=5,
                            batches=3)
         k4[T] = dict(ms=ms, plain_ms=plain_ms,
-                     bound=k4_bound_ms(1, 201, T, 120, nnz, 21, 11, card),
+                     bound=k4_bound_ms(1, 201, T, 120, nnz,
+                                       shared[(21, 11)], card),
                      device_ms=device_ms(lambda: hpss.hpss_mel(S, M),
                                          "hpss_mel_kernel"))
+    # The short-clip route against K1 at the same length: frontend.launch
+    # runs K1 at any length; stft_hpss_mel sends a clip this short to the
+    # plain stft_mag and K4.
+    y = audio(400, 1, eval_frames["K4_T"])
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=21,
+              l_perc=11)
+    route = {"frames": eval_frames["K4_T"],
+             "k1_ms": cuda_ms(lambda: frontend.launch(y, M, **kw),
+                              reps=100)[0],
+             "k1_device_ms": device_ms(lambda: frontend.launch(y, M, **kw),
+                                       "frontend_kernel"),
+             "stft_mag_k4_ms": cuda_ms(lambda: frontend.stft_hpss_mel(y, M),
+                                       reps=100)[0]}
     short, full = k4[eval_frames["K4_T"]], k4[5998]
     entries.append({
         "name": "hpss_mel", "route": "cuda",
@@ -487,7 +576,11 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         "plain_ms_at_5998": full["plain_ms"][0],
         "bound_ms_at_5998": full["bound"][0],
         "bound_by_at_5998": full["bound"][1],
-        "device_ms_at_5998": full["device_ms"]})
+        "device_ms_at_5998": full["device_ms"],
+        "comparators_per_output": shared[(21, 11)],
+        "blocks_per_sm": hpss.blocks_per_sm(mel=True),
+        **ptxas_report("hpss.cu", "hpss_mel_kernelILi21ELi11E"),
+        "short_clip_route": route})
     return entries, checked
 
 
@@ -870,7 +963,9 @@ def run() -> None:
             "K1": {T for T in lem_frames if T >= SHORT_FRAMES}
             | {n_frames(bucket_length(n60), 400, 160)},
             "K2": {T for T in jang_frames if T >= SHORT_FRAMES},
-            "K4_T": short.most_common(1)[0][0]}
+            "K4_T": short.most_common(1)[0][0],
+            "K3_T": Counter(T for T in jang_frames
+                            if T < SHORT_FRAMES).most_common(1)[0][0]}
 
         entries, checked = phase_kernels(card, eval_frames)
         print("[3 kernels] ok; " + "; ".join(

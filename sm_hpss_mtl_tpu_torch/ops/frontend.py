@@ -22,7 +22,7 @@ operand a sum of two TF32 halves, three products per k-step), from each
 frame folded into its even and odd parts (see ``csrc/frontend.cu``):
 :func:`dft_fragments` builds the folded windowed basis's halves once per
 geometry, in float64, in the order the kernel reads them,
-and :func:`mel_band_ranges` gives K1 each mel band's nonzero bins.  The
+and ``mel.mel_band_ranges`` gives K1 each mel band's nonzero bins.  The
 kernel is built with ``nvcc`` at its first launch, not at import.
 """
 
@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 
 import numpy as np
 import torch
@@ -39,6 +38,7 @@ from . import _nvcc
 from . import hpss as hpss_mod
 from . import reference as ref
 from .hpss import KERNEL_MEDIANS, hpss_plain
+from .mel import _band_ranges_of
 from .stft import n_frames, stft_mag
 
 _SOURCE = "frontend.cu"
@@ -144,34 +144,6 @@ def dft_fragments(n_fft: int, win_length: int) -> np.ndarray:
 def _fragments_on(n_fft: int, win_length: int,
                   device: torch.device) -> torch.Tensor:
     return torch.as_tensor(dft_fragments(n_fft, win_length), device=device)
-
-
-_BANDS: dict[int, tuple] = {}
-
-
-def _band_ranges_of(M: torch.Tensor) -> torch.Tensor:
-    """:func:`mel_band_ranges` of ``M``, kept while that tensor lives and is
-    not modified in place (its ``_version``), so a basis reused across
-    launches is scanned once."""
-    key = id(M)
-    hit = _BANDS.get(key)
-    if hit is not None and hit[0]() is M and hit[1] == M._version:
-        return hit[2]
-    ranges = mel_band_ranges(M)
-    _BANDS[key] = (weakref.ref(M, lambda _, key=key: _BANDS.pop(key, None)),
-                   M._version, ranges)
-    return ranges
-
-
-def mel_band_ranges(M: torch.Tensor) -> torch.Tensor:
-    """Each row's nonzero bins of an ``(n_mels, F)`` basis as ``(n_mels, 2)``
-    int32 ``[lo, hi)``: its first nonzero and one past its last; ``[0, 0)``
-    for a row of zeros.  Computed on ``M``'s device, without a sync."""
-    nz = M != 0
-    k = torch.arange(M.shape[1], device=M.device)
-    lo = torch.where(nz, k, M.shape[1]).amin(dim=1)
-    hi = torch.where(nz, k + 1, 0).amax(dim=1)
-    return torch.stack([torch.minimum(lo, hi), hi], dim=1).to(torch.int32)
 
 
 def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,

@@ -21,6 +21,7 @@ import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from . import _nvcc
+from .mel import _band_ranges_of
 from .stft import real_dtype
 
 #: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for:
@@ -108,8 +110,11 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.k3_hpss.restype = i
-    lib.k4_hpss_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.k4_hpss_mel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.k4_hpss_mel.restype = i
+    for name in ("k3_blocks_per_sm", "k4_blocks_per_sm"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
     lib.k3_error_string.argtypes = [i]
     lib.k3_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,6 +124,54 @@ def build() -> None:
     """Build and load the kernel library now (it is otherwise built at the
     first launch)."""
     _library()
+
+
+def blocks_per_sm(*, mel: bool, l_harm: int = 21, l_perc: int = 11) -> int:
+    """Blocks of K4 (``mel``) or K3 (at its largest tile) one SM of the
+    current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _library()
+    n = (lib.k4_blocks_per_sm if mel else lib.k3_blocks_per_sm)(l_harm,
+                                                                l_perc)
+    if n < 0:
+        raise RuntimeError("occupancy query failed: "
+                           + lib.k3_error_string(-n).decode())
+    return n
+
+
+def _device_context(device: torch.device):
+    """``device`` made current for the launch: a no-op context when it
+    already is, else ``torch.cuda.device``."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+#: PyTorch's private raw-stream getter (the one its generated kernels
+#: use), or None where this torch has none: a CPU-only build, or a release
+#: that dropped it, where a launch then fails with a message naming it.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: torch.device) -> int:
+    """``device``'s current stream as a ``cudaStream_t``, by the raw
+    getter: 0.4 us per call against 8.7 for
+    ``torch.cuda.current_stream().cuda_stream`` on an H100 host
+    (``tools/hpss_ab.py``, ``host_us``)."""
+    if _RAW_STREAM is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no "
+            "torch._C._cuda_getCurrentRawStream, which the hpss kernels' "
+            "launch reads the current stream with")
+    return _RAW_STREAM(device.index)
+
+
+def _as_3d(S: torch.Tensor) -> torch.Tensor:
+    """``(..., F, T)`` as a contiguous ``(B, F, T)``, without a call for a
+    tensor that already is one."""
+    if S.ndim == 3 and S.is_contiguous():
+        return S
+    return S.reshape(-1, *S.shape[-2:]).contiguous()
 
 
 def _check_input(S: torch.Tensor, l_harm: int, l_perc: int) -> None:
@@ -133,31 +186,36 @@ def _check_input(S: torch.Tensor, l_harm: int, l_perc: int) -> None:
 
 def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on ``(..., F, T)`` magnitudes.  The host path is kept short (the
+    kernel takes a few microseconds at the short-clip shapes): no reshape
+    of a 3-D input or of its outputs, and two ``empty_like`` (cheaper than
+    one allocation split in two)."""
     _check_input(S, l_harm, l_perc)
-    lead, (F, T) = S.shape[:-2], S.shape[-2:]
-    S3 = S.reshape(-1, F, T).contiguous()
-    out_h = torch.empty_like(S3)
-    out_p = torch.empty_like(S3)
-    if S3.numel() == 0:
-        return out_h.reshape(S.shape), out_p.reshape(S.shape)
-    lib = _library()
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream(S.device).cuda_stream
-        err = lib.k3_hpss(S3.data_ptr(), out_h.data_ptr(), out_p.data_ptr(),
-                          S3.shape[0], F, T, l_harm, l_perc, int(mask_only),
-                          stream)
-    if err != 0:
-        raise RuntimeError("hpss kernel launch failed: "
-                           + lib.k3_error_string(err).decode())
-    (hpss_masks if mask_only else hpss).launches += 1
-    return out_h.reshape(lead + (F, T)), out_p.reshape(lead + (F, T))
+    S3 = _as_3d(S)
+    out_h, out_p = torch.empty_like(S3), torch.empty_like(S3)
+    if S3.numel():
+        B, F, T = S3.shape
+        lib = _library()
+        with _device_context(S.device):
+            err = lib.k3_hpss(S3.data_ptr(), out_h.data_ptr(),
+                              out_p.data_ptr(), B, F, T, l_harm, l_perc,
+                              int(mask_only), _stream(S.device))
+        if err != 0:
+            raise RuntimeError("hpss kernel launch failed: "
+                               + lib.k3_error_string(err).decode())
+        (hpss_masks if mask_only else hpss).launches += 1
+    if S3 is S:
+        return out_h, out_p
+    return out_h.reshape(S.shape), out_p.reshape(S.shape)
 
 
 def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
                 l_perc: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4 on ``(..., F, T)`` magnitudes and an ``(n_mels, F)`` basis."""
+    """K4 on ``(..., F, T)`` magnitudes and an ``(n_mels, F)`` basis; the
+    basis's band ranges are kept per basis tensor (``mel._band_ranges_of``),
+    so a reused basis costs no extra work per launch."""
     _check_input(S, l_harm, l_perc)
-    lead, (F, T) = S.shape[:-2], S.shape[-2:]
+    F, T = S.shape[-2:]
     if M.dtype != torch.float32:
         raise TypeError("hpss_mel kernel takes a float32 basis")
     if M.device != S.device:
@@ -166,25 +224,26 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
         raise ValueError(f"mel_basis must be (n_mels, {F}), "
                          f"got {tuple(M.shape)}")
     n_mels = M.shape[0]
-    S3 = S.reshape(-1, F, T).contiguous()
-    out_h = torch.empty((S3.shape[0], n_mels, T), dtype=torch.float32,
-                        device=S.device)
-    out_p = torch.empty_like(out_h)
-    shape = lead + (n_mels, T)
-    if S3.numel() == 0 or n_mels == 0:
-        return out_h.reshape(shape), out_p.reshape(shape)
-    M = M.contiguous()
-    lib = _library()
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream(S.device).cuda_stream
-        err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(), out_h.data_ptr(),
-                              out_p.data_ptr(), S3.shape[0], F, T, l_harm,
-                              l_perc, n_mels, stream)
-    if err != 0:
-        raise RuntimeError("hpss_mel kernel launch failed: "
-                           + lib.k3_error_string(err).decode()
-                           + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
-    hpss_mel.launches += 1
+    S3 = _as_3d(S)
+    out_h = S3.new_empty((S3.shape[0], n_mels, T))
+    out_p = S3.new_empty((S3.shape[0], n_mels, T))
+    if S3.numel() and n_mels:
+        M = M.contiguous()
+        bands = _band_ranges_of(M)
+        lib = _library()
+        with _device_context(S.device):
+            err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(),
+                                  bands.data_ptr(), out_h.data_ptr(),
+                                  out_p.data_ptr(), S3.shape[0], F, T,
+                                  l_harm, l_perc, n_mels, _stream(S.device))
+        if err != 0:
+            raise RuntimeError("hpss_mel kernel launch failed: "
+                               + lib.k3_error_string(err).decode()
+                               + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
+        hpss_mel.launches += 1
+    if S3 is S:
+        return out_h, out_p
+    shape = S.shape[:-2] + (n_mels, T)
     return out_h.reshape(shape), out_p.reshape(shape)
 
 

@@ -8,6 +8,7 @@ kept on purpose (see ``ops/featuregram.py``).
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -32,6 +33,35 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, *,
     shared tensor per geometry and device (as the CPU tensor always shared
     the cached array): do not modify it in place."""
     return _mel_on(sr, n_fft, n_mels, torch.device(device))
+
+
+def mel_band_ranges(M: torch.Tensor) -> torch.Tensor:
+    """Each row's nonzero bins of an ``(n_mels, F)`` basis as ``(n_mels, 2)``
+    int32 ``[lo, hi)``: its first nonzero and one past its last; ``[0, 0)``
+    for a row of zeros.  Computed on ``M``'s device, without a sync.  The
+    mel epilogues of K1 and K4 sum each band over its range only."""
+    nz = M != 0
+    k = torch.arange(M.shape[1], device=M.device)
+    lo = torch.where(nz, k, M.shape[1]).amin(dim=1)
+    hi = torch.where(nz, k + 1, 0).amax(dim=1)
+    return torch.stack([torch.minimum(lo, hi), hi], dim=1).to(torch.int32)
+
+
+_BANDS: dict[int, tuple] = {}
+
+
+def _band_ranges_of(M: torch.Tensor) -> torch.Tensor:
+    """:func:`mel_band_ranges` of ``M``, kept while that tensor lives and is
+    not modified in place (its ``_version``), so a basis reused across
+    launches is scanned once."""
+    key = id(M)
+    hit = _BANDS.get(key)
+    if hit is not None and hit[0]() is M and hit[1] == M._version:
+        return hit[2]
+    ranges = mel_band_ranges(M)
+    _BANDS[key] = (weakref.ref(M, lambda _, key=key: _BANDS.pop(key, None)),
+                   M._version, ranges)
+    return ranges
 
 
 def apply_mel(S: torch.Tensor, *, sr: int, n_mels: int) -> torch.Tensor:

@@ -24,6 +24,7 @@ from sm_hpss_mtl_tpu.ops import frontend_pallas as fp
 from sm_hpss_mtl_tpu.ops import hpss_pallas
 from sm_hpss_mtl_tpu.ops import mel as jmel
 from sm_hpss_mtl_tpu_torch.ops import frontend as tfe
+from sm_hpss_mtl_tpu_torch.ops import mel as tmel
 
 torch.set_num_threads(1)
 
@@ -389,13 +390,13 @@ def _sparse_basis():
 @pytest.mark.parametrize("bank", [(22050, 400, 120), (22050, 512, 120),
                                   (16000, 400, 64), "sparse"])
 def test_mel_band_ranges_cover_every_nonzero(bank):
-    # K1 sums each band over [lo, hi) only: every nonzero lies inside, an
-    # empty row gets [0, 0), and an in-order float32 sum over the range
+    # K1 and K4 sum each band over [lo, hi) only: every nonzero lies inside,
+    # an empty row gets [0, 0), and an in-order float32 sum over the range
     # equals the dense in-order sum bit for bit.
     M = _sparse_basis() if bank == "sparse" else _mel(bank[2], bank[1])
     if bank != "sparse":
         M = np.array(jmel.mel_filterbank(*bank), np.float32)
-    r = tfe.mel_band_ranges(torch.from_numpy(M))
+    r = tmel.mel_band_ranges(torch.from_numpy(M))
     assert r.dtype == torch.int32 and r.shape == (M.shape[0], 2)
     lo, hi = r[:, 0].numpy(), r[:, 1].numpy()
     k = np.arange(M.shape[1])
@@ -450,15 +451,16 @@ def test_plain_versions_run_in_float64_for_float64_audio():
 
 
 def test_band_ranges_are_kept_per_basis_tensor():
-    # The wrapper scans a basis once while the tensor lives unchanged; an
-    # in-place change or another tensor is scanned again.
+    # The wrappers of K1 and K4 scan a basis once while the tensor lives
+    # unchanged; an in-place change or another tensor is scanned again.
     M = torch.from_numpy(_sparse_basis())
-    r = tfe._band_ranges_of(M)
-    assert tfe._band_ranges_of(M) is r
+    r = tmel._band_ranges_of(M)
+    assert tmel._band_ranges_of(M) is r
+    assert tfe._band_ranges_of is tmel._band_ranges_of
     M[0, 3] = 1.0
-    r2 = tfe._band_ranges_of(M)
+    r2 = tmel._band_ranges_of(M)
     assert r2 is not r and r2[0].tolist() == [3, 4]
-    assert torch.equal(r2, tfe.mel_band_ranges(M))
+    assert torch.equal(r2, tmel.mel_band_ranges(M))
     key = id(M)
     del M
-    assert key not in tfe._BANDS
+    assert key not in tmel._BANDS

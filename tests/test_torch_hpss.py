@@ -7,7 +7,9 @@ kernel itself is held to the plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import importlib.util
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -206,7 +208,8 @@ def _c_params(src, fn):
 
 
 @pytest.mark.parametrize("module,source,functions", [
-    ("hpss", "hpss.cu", ("k3_hpss", "k4_hpss_mel")),
+    ("hpss", "hpss.cu", ("k3_hpss", "k4_hpss_mel", "k3_blocks_per_sm",
+                         "k4_blocks_per_sm")),
     ("frontend", "frontend.cu", ("k1_stft_hpss_mel", "k2_stft_hpss",
                                  "k1_blocks_per_sm")),
 ])
@@ -240,3 +243,325 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
         bound = getattr(libs[0], fn)
         assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn), fn
         assert bound.restype is ctypes.c_int
+
+
+def test_launch_stream_getter_fails_loudly_when_missing(monkeypatch):
+    # K3's and K4's wrappers read the current stream through torch's
+    # private raw getter: a torch without it must fail at the launch with a
+    # message that names it.
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(thpss, "_RAW_STREAM", None)
+    with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
+        thpss._stream(dev)
+    monkeypatch.setattr(thpss, "_RAW_STREAM", lambda index: 1000 + index)
+    assert thpss._stream(dev) == 1000
+    if torch.version.cuda is not None:   # a torch built for CUDA has it
+        assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+
+
+# --- Shared-core selection networks of median.cuh (K3 and K4) -------------
+
+def _shared_core_networks(src):
+    """The MedianCore<W, K> and MedianMerge<K> comparator lists of the
+    header."""
+    def pairs(body):
+        return tuple((int(i), int(j))
+                     for i, j in re.findall(r"CS\((\d+),(\d+)\)", body))
+    cores = {(int(w), int(k)): pairs(body) for w, k, body in re.findall(
+        r"struct MedianCore<(\d+), (\d+)>\s*\{(.*?)\n\};", src, re.S)}
+    merges = {int(k): pairs(body) for k, body in re.findall(
+        r"struct MedianMerge<(\d+)>\s*\{(.*?)return", src, re.S)}
+    return cores, merges
+
+
+def _run(pairs, wires):
+    """A comparator list over a list of arrays (min to the first wire, max
+    to the second); bitwise and/or for packed 0/1 columns."""
+    v = list(wires)
+    lo, hi = ((np.bitwise_and, np.bitwise_or) if v[0].dtype == np.uint64
+              else (np.minimum, np.maximum))
+    for i, j in pairs:
+        v[i], v[j] = lo(v[i], v[j]), hi(v[i], v[j])
+    return v
+
+
+def _running_medians(cores, merges, w, k, x):
+    """hpss_median::running_medians: x holds w + k - 1 wires; out[j] is the
+    median of x[j .. j+w-1]."""
+    first = (w - 1) // 2 - k + 1
+    core = _run(cores[(w, k)], x[k - 1:w])
+    out = []
+    for j in range(k):
+        u = core[first:first + k] + x[j:k - 1] + x[w:w + j]
+        out.append(_run(merges[k], u)[k - 1])
+    return out
+
+
+def _packed_columns(n_wires, chunk_bits=20):
+    """Every 0/1 input of ``n_wires`` wires, bit-parallel: chunks of
+    2**chunk_bits columns, wire i of column c being bit i of c, each wire a
+    uint64 array (64 columns a word); yields (first column, wires)."""
+    low = min(n_wires, chunk_bits)
+    words = max(1, (1 << low) // 64)
+    lane = np.arange(64, dtype=np.uint64)
+    word = np.arange(words, dtype=np.uint64)
+    base = []
+    for i in range(low):
+        if i < 6:
+            pat = np.bitwise_or.reduce(
+                ((lane >> np.uint64(i)) & np.uint64(1)) << lane)
+            base.append(np.full(words, pat, dtype=np.uint64))
+        else:
+            bit = (word >> np.uint64(i - 6)) & np.uint64(1)
+            base.append(np.where(bit == 1, ~np.uint64(0), np.uint64(0)))
+    for hi in range(1 << (n_wires - low)):
+        high = [np.full(words, ~np.uint64(0) if (hi >> (i - low)) & 1
+                        else np.uint64(0), dtype=np.uint64)
+                for i in range(low, n_wires)]
+        yield hi << low, base + high
+
+
+def _unpack(bits, n):
+    return np.unpackbits(bits.view(np.uint8), bitorder="little")[:n]
+
+
+def _columns(first, n):
+    return np.arange(first, first + n, dtype=np.uint64)
+
+
+def test_shared_core_header_matches_generator():
+    # tools/median_networks.py writes the lists; the header holds them.
+    spec = importlib.util.spec_from_file_location(
+        "median_networks", _nvcc.CSRC.parents[1] / "tools" /
+        "median_networks.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    cores, merges = _shared_core_networks(
+        (_nvcc.CSRC / "median.cuh").read_text())
+    assert set(cores) == set(gen.INSTANCES)
+    assert set(merges) == {k for _, k in gen.INSTANCES}
+    for (w, k), pairs in cores.items():
+        assert pairs == gen.core_network(w, k), (w, k)
+    for k, pairs in merges.items():
+        assert pairs == gen.merge_network(k), k
+    # Comparators per output: well under half of Median<21> + Median<11>.
+    per = {wk: gen.per_output(*wk)[0] for wk in gen.INSTANCES}
+    assert per[(21, 4)] + per[(11, 2)] == 44.75
+    assert per[(21, 4)] + per[(11, 2)] < 0.5 * (91 + 32)
+    # chip_smoke.py counts them in the header it builds (and prices every
+    # bound with them): the same counts, and Median<L>'s for K1 and K2.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", _nvcc.CSRC.parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    single, shared = smoke.median_comparators()
+    assert single == {21: 91, 11: 32, 5: 8}
+    assert shared == {(21, 11): per[(21, 4)] + per[(11, 2)],
+                      (11, 5): per[(11, 4)] + per[(5, 2)]}
+
+
+@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+def test_median_core_sorts_the_middle_ranks_for_every_01_input(w, k):
+    # 0-1 principle: a comparator network that puts ranks M-K+1 .. M of the
+    # core onto those wires for every 0/1 input does so for every input.
+    cores, _ = _shared_core_networks((_nvcc.CSRC / "median.cuh").read_text())
+    c = w - k + 1
+    m = (w - 1) // 2
+    for first, wires in _packed_columns(c):
+        out = _run(cores[(w, k)], wires)
+        n = 64 * len(wires[0])
+        zeros = c - np.bitwise_count(_columns(first, n)
+                                     & np.uint64((1 << c) - 1))
+        for r in range(m - k + 1, m + 1):
+            got = _unpack(out[r], n)
+            np.testing.assert_array_equal(got, (r >= zeros).astype(np.uint8))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_median_merge_selects_the_median_for_every_01_input(k):
+    # K sorted core values (0s then 1s) and K - 1 free extras: the median
+    # of the 2K - 1 values is 1 iff K or more of them are 1.
+    _, merges = _shared_core_networks((_nvcc.CSRC / "median.cuh").read_text())
+    for ones in range(k + 1):
+        for extras in range(1 << (k - 1)):
+            u = [np.array([1.0 if i >= k - ones else 0.0]) for i in range(k)]
+            u += [np.array([float((extras >> i) & 1)]) for i in range(k - 1)]
+            want = float(ones + bin(extras).count("1") >= k)
+            assert _run(merges[k], u)[k - 1][0] == want, (k, ones, extras)
+
+
+@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+def test_running_medians_are_exact_for_every_01_input(w, k):
+    # The whole shared-core reconstruction (core network, then one merge per
+    # output) over all 2**(w+k-1) 0/1 columns, 64 a word: output j is 1 iff
+    # window j holds more than M ones.
+    cores, merges = _shared_core_networks(
+        (_nvcc.CSRC / "median.cuh").read_text())
+    n_wires = w + k - 1
+    m = (w - 1) // 2
+    for first, wires in _packed_columns(n_wires):
+        out = _running_medians(cores, merges, w, k, wires)
+        n = 64 * len(wires[0])
+        cols = _columns(first, n)
+        for j in range(k):
+            ones = np.bitwise_count((cols >> np.uint64(j))
+                                    & np.uint64((1 << w) - 1))
+            np.testing.assert_array_equal(_unpack(out[j], n),
+                                          (ones > m).astype(np.uint8))
+
+
+@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_shared_core_networks_match_np_median(w, k, kind):
+    # Floats: the core's middle wires are np.sort's ranks, each merge gives
+    # np.median of its 2K - 1 values, and the K outputs are np.median of the
+    # K windows; "ties" draws from four values.
+    cores, merges = _shared_core_networks(
+        (_nvcc.CSRC / "median.cuh").read_text())
+    rng = np.random.default_rng(w * 10 + k)
+    x = (rng.standard_normal((4000, w + k - 1)) if kind == "random"
+         else rng.integers(0, 4, (4000, w + k - 1)).astype(np.float64))
+    wires = [x[:, i].copy() for i in range(w + k - 1)]
+    m = (w - 1) // 2
+    core = _run(cores[(w, k)], wires[k - 1:w])
+    want = np.sort(x[:, k - 1:w], axis=1)
+    for r in range(m - k + 1, m + 1):
+        np.testing.assert_array_equal(core[r], want[:, r])
+    u = np.concatenate([np.sort(x[:, :k], axis=1), x[:, k:2 * k - 1]], 1)
+    got = _run(merges[k], [u[:, i].copy() for i in range(2 * k - 1)])[k - 1]
+    np.testing.assert_array_equal(got, np.median(u, axis=1))
+    out = _running_medians(cores, merges, w, k, wires)
+    for j in range(k):
+        np.testing.assert_array_equal(out[j], np.median(x[:, j:j + w], 1))
+
+
+def test_soft_masks_rcp_stays_within_the_bar():
+    # csrc/median.cuh::soft_masks_rcp emulated in float32 (correctly
+    # rounded reciprocals, then products) against the plain softmask, over
+    # random medians, exact ties, zeros, subnormal-scale and large values.
+    rng = np.random.default_rng(3)
+    h = np.abs(rng.standard_normal(200000)).astype(np.float32)
+    p = np.abs(rng.standard_normal(200000)).astype(np.float32)
+    scale = np.float32(10.0) ** rng.integers(-30, 30, h.shape)
+    h, p = h * scale.astype(np.float32), p * scale.astype(np.float32)
+    h[:100], p[:100] = 0, 0
+    h[100:200] = p[100:200]
+    p[200:300] = 0
+    h[300:400] = np.float32(1e-39)
+    one = np.float32(1)
+    z = np.maximum(h, p)
+    bad = z < np.finfo(np.float32).tiny
+    r = one / np.where(bad, one, z)
+    hn, pn = (h * r) ** 2, (p * r) ** 2
+    rd = one / np.where(bad, one, hn + pn)
+    mh = np.where(bad, 0, hn * rd).astype(np.float32)
+    mp = np.where(bad, 0, pn * rd).astype(np.float32)
+    wh = thpss.softmask(torch.from_numpy(h), torch.from_numpy(p)).numpy()
+    wp = thpss.softmask(torch.from_numpy(p), torch.from_numpy(h)).numpy()
+    np.testing.assert_allclose(mh, wh, **TOL)
+    np.testing.assert_allclose(mp, wp, **TOL)
+    assert (mh[:100] == 0).all() and (mp[:100] == 0).all()
+
+
+# --- K4's block plan, emulated on the host ---------------------------------
+
+def _hpss_cu_constants():
+    src = (_nvcc.CSRC / "hpss.cu").read_text()
+    return {name: int(v) for name, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _k4_plan(bands, F, T, l_harm, l_perc):
+    """hpss_mel_kernel's decomposition: per block (group, time tile), the
+    bins each pass computes, the tile rows and columns it reads, the
+    (bin, frame) cells its units write, and the (band, frame) outputs it
+    stores."""
+    c = _hpss_cu_constants()
+    G, TT, CH, QF, QT = (c["K4_BANDS"], c["K4_TT"], c["K4_CHUNK"], c["QF"],
+                         c["QT"])
+    hp, ht = l_perc // 2, l_harm // 2
+    n_mels = len(bands)
+    blocks = []
+    for m0 in range(0, n_mels, G):
+        live = [(lo, hi) for lo, hi in bands[m0:m0 + G] if hi > lo]
+        glo = min((lo for lo, _ in live), default=F)
+        ghi = max((hi for _, hi in live), default=0)
+        for t0 in range(0, T, TT):
+            ng = -(-min(TT, T - t0) // QT)
+            passes = []
+            for c0 in range(glo, ghi, CH):
+                nb = min(CH, ghi - c0)
+                np_ = -(-nb // QF)
+                cells = {(c0 + QF * (u // ng) + q, t0 + QT * (u % ng) + j)
+                         for u in range(np_ * ng)
+                         for q in range(QF) for j in range(QT)}
+                passes.append({"bins": range(c0, c0 + nb),
+                               "rows": range(c0 - hp, c0 + QF * np_ + hp),
+                               "cols": range(t0 - ht, t0 + QT * ng + ht),
+                               "cells": cells})
+            outs = [(m0 + w, t0 + l) for w in range(G) for l in range(TT)
+                    if m0 + w < n_mels and t0 + l < T]
+            blocks.append({"m0": m0, "t0": t0, "passes": passes,
+                           "outputs": outs,
+                           "threads_for_units": max(
+                               [len(p["cells"]) // (QF * QT)
+                                for p in passes], default=0)})
+    return blocks, c
+
+
+@pytest.mark.parametrize("n_fft", [400, 512])
+@pytest.mark.parametrize("T", [1, 13, 19, 33])
+def test_k4_block_plan_covers_each_band_once(n_fft, T):
+    # With the real sr=22050 bank: each band's nonzero bins lie in its
+    # group's passes, each bin in exactly one pass, with its percussive
+    # halo inside that pass's tile rows and every real frame's harmonic
+    # halo inside its columns; the units write every (bin, real frame)
+    # cell a band reads; every output (band, frame) is stored exactly once.
+    M = _bank(120, n_fft)
+    F = M.shape[1]
+    bands = [tuple(r) for r in
+             thpss._band_ranges_of(torch.from_numpy(M)).tolist()]
+    blocks, c = _k4_plan(bands, F, T, 21, 11)
+    written = Counter()
+    for blk in blocks:
+        written.update(blk["outputs"])
+        assert blk["threads_for_units"] <= c["THREADS"]
+        for m in range(blk["m0"], min(blk["m0"] + c["K4_BANDS"], 120)):
+            lo, hi = bands[m]
+            for k in range(lo, hi):
+                owners = [p for p in blk["passes"] if k in p["bins"]]
+                assert len(owners) == 1, (m, k)
+                p = owners[0]
+                assert k - 5 in p["rows"] and k + 5 in p["rows"]
+                assert len(p["rows"]) <= c["K4_CHUNK"] + 10
+                for t in range(blk["t0"], min(T, blk["t0"] + c["K4_TT"])):
+                    assert (k, t) in p["cells"]
+                    assert t - 10 in p["cols"] and t + 10 in p["cols"]
+    assert written == Counter((m, t) for m in range(120) for t in range(T))
+    # Spans at T = 13: 15 blocks; bins computed twice, as the header says.
+    if T == 13:
+        assert len(blocks) == 15
+        spans = [p["bins"] for b in blocks for p in b["passes"]]
+        rows, union = sum(map(len, spans)), set().union(*spans)
+        assert (rows, len(union)) == ((223, 199) if n_fft == 400
+                                      else (282, 255))
+
+
+def _hpss_ab():
+    spec = importlib.util.spec_from_file_location(
+        "hpss_ab", _nvcc.CSRC.parents[1] / "tools" / "hpss_ab.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", sorted(_hpss_ab().VARIANTS))
+def test_hpss_ab_variants_follow_the_source(variant):
+    # tools/hpss_ab.py patches hpss.cu by exact text; each pattern must be
+    # in the source once, or the GPU run stops (or times another kernel).
+    ab = _hpss_ab()
+    src = (_nvcc.CSRC / "hpss.cu").read_text()
+    for old, new in ab.VARIANTS[variant]:
+        assert src.count(old) == 1, (variant, old)
+        src = src.replace(old, new)
+    assert set(ab.ABLATIONS) <= set(ab.VARIANTS)

@@ -80,7 +80,8 @@ def test_classifier_and_featurizer_without_device_cpu_raise_when_no_gpu(
         Classifier.from_weights(str(tmp_path / "missing.npz"))
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",
+                                    "tools/hpss_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_jax_package(script):
     # Both run on the GPU machine, which has no JAX: importing them (not
     # running them) must pull in neither jax nor the JAX package.

@@ -43,7 +43,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend  # noqa: E402
-from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank  # noqa: E402
+from sm_hpss_mtl_tpu_torch.ops.mel import (mel_band_ranges,  # noqa: E402
+                                          mel_filterbank)
 
 FRAMES = 16404
 #: The six products of a k-step: cos tile (e) and sin tile (o), each
@@ -115,7 +116,7 @@ def main() -> int:
             rows = 120 if name == "K1" else 1 + n_fft // 2
             runs[name] = (n_fft, y, M, rows,
                           frontend._fragments_on(n_fft, 400, y.device),
-                          frontend.mel_band_ranges(M))
+                          mel_band_ranges(M))
         for variant, lib, report in built:
             row = dict(report)
             for name, (n_fft, y, M, rows, basis, bands) in runs.items():
