@@ -32,8 +32,17 @@ Phases, each of which must pass:
    1e-3, labels and confusion matrices equal but for near-ties);
    ``Classifier.classify_file`` on the 60 s broadcast on both; one Jang-MTL
    ``test_model`` on the card (K2, and K3 for short items);
-10. checks on the launch counts, and that every launch shape of phases 4-9
-   was checked in phase 3.
+10. Lemaire-MTL training at full width on a ``make_toy_musan`` corpus (9
+   files of 4 s per class): ``cli.mtl.main`` for fold 0 (2 epochs of 10
+   train and 2 val steps) by the device pipeline (K1 once per train or
+   eval step, at 48 clips x 11120 samples) and by the host pipeline (K1
+   once per featurized file); one train step from the same weights on the
+   card and on the CPU (loss, every update, BatchNorm statistics); 20
+   steps on one batch (the loss falls); the device pipeline's step time
+   (CUDA events) and K1's and the device's share of it (profiler);
+11. checks on the launch counts, and that every launch shape of phases 4-10
+   was checked in phase 3 (K1 also at 12 clips x 43760 samples, the
+   device pipeline's launch on a corpus of MUSAN's size).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -46,8 +55,8 @@ Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
 and K4) against K1 at the same length.  Every bound prices the medians
 at the shared-core networks' count, the least work known.  Prints a
 ``{"kernels": [...]}`` line, a serving-times line, a
-resynthesis line, an evaluation line, the card line, and last ``{"ok":
-true, "device": {...}}``.  Exits non-zero, and prints no result, if any
+resynthesis line, an evaluation line, a training line, the card line,
+and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and prints no result, if any
 phase fails or no GPU is present.  Imports nothing of JAX.
 """
 
@@ -87,6 +96,30 @@ TIE_TOL = 1e-3
 #: and the sweep's SMR levels (the reference's).
 EVAL_FILES, EVAL_SHORT = 6, 3
 SMR_LEVELS = (-5, 0, 5, 10, 15, 20)
+#: Training corpus: files per class and seconds per file.
+TRAIN_FILES, TRAIN_SECONDS = 9, 4.0
+#: Training run of each pipeline: epochs, train and val steps per epoch.
+TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 10, 2
+#: K1's launches in the device training pipeline, (clips, samples): 16
+#: clips per class of one 68-frame patch (the toy corpus resolves
+#: ``clip_patches`` to 1), and 4 clips per class of four patches (a corpus
+#: of MUSAN's size resolves it to 4).
+TRAIN_SHAPES = ((48, 11120), (12, 43760))
+#: One train step on the card against the same step on the CPU: the loss
+#: (relative), each parameter's update (relative to the update's L2 norm,
+#: plus a rounding floor, see ``_step_card_vs_cpu``), the BatchNorm
+#: statistics (absolute, or relative above 1).
+STEP_LOSS_RTOL, STEP_UPDATE_RTOL, STEP_STATS_TOL = 1e-3, 1e-2, 1e-3
+#: The same step with K1 inside on the card: each update's bar.  K1 holds
+#: 2e-4 of its plain version, but the crop-local row standardization
+#: divides rows near the dB floor by a small std and moves them by up to
+#: 0.1, which moves some updates by a few percent of their norm (3.0e-2
+#: on an H100 80GB HBM3 for this corpus and seed).
+STEP_AUDIO_UPDATE_RTOL = 1e-1
+#: The Lemaire optimizer's first lr (``train.optimizers``), the largest
+#: update a parameter element can take in one step (gradients clipped to
+#: norm 1 per tensor).
+STEP_LR = 0.002
 #: Clips under this many frames take the short-clip kernels (K4, K3).
 SHORT_FRAMES = 2 * (21 // 2)
 #: Resynthesized signals, GPU run against the CPU run: max |delta| over the
@@ -248,11 +281,12 @@ def median_comparators() -> tuple[dict, dict]:
 
 
 def frontend_bound_ms(T: int, N: int, n_fft: int, comparators: float,
-                      card: str, n_mels: int = 0, mel_nnz: int = 0
-                      ) -> tuple[float, str, float]:
-    """Least time for K1's function (``n_mels`` > 0) or K2's on this card:
-    the larger of its bytes (each input read once, each output written
-    once) over HBM and the f32 operations it needs over the CUDA-core peak.
+                      card: str, n_mels: int = 0, mel_nnz: int = 0,
+                      B: int = 1) -> tuple[float, str, float]:
+    """Least time for K1's function (``n_mels`` > 0) or K2's on this card,
+    over ``B`` items of ``N`` samples and ``T`` frames each: the larger of
+    its bytes (each input read once, each output written once) over HBM
+    and the f32 operations it needs over the CUDA-core peak.
     Operations per frame: the window (n_fft), a real FFT (2.5 n_fft log2
     n_fft), the magnitude (3 per bin), both medians (min and max per
     comparator, ``comparators`` per bin), the masks (10 per bin) and, for
@@ -264,10 +298,11 @@ def frontend_bound_ms(T: int, N: int, n_fft: int, comparators: float,
     frame)."""
     F = 1 + n_fft // 2
     out_rows = n_mels if n_mels else F
-    nbytes = 4 * (N + n_mels * F + 2 * out_rows * T)
+    nbytes = 4 * (B * N + n_mels * F + 2 * B * out_rows * T)
     common = n_fft + 3 * F + comparators * 2 * F + MASK_OPS * F
-    flops = T * (2.5 * n_fft * np.log2(n_fft) + common + 2 * 2 * mel_nnz)
-    direct = T * (2 * n_fft * 2 * F + common + 2 * 2 * F * n_mels)
+    flops = B * T * (2.5 * n_fft * np.log2(n_fft) + common
+                     + 2 * 2 * mel_nnz)
+    direct = B * T * (2 * n_fft * 2 * F + common + 2 * 2 * F * n_mels)
     bound, by = _bound(nbytes, flops, card)
     return bound, by, _bound(nbytes, direct, card)[0]
 
@@ -346,6 +381,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     import torch
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checked = {"K1": set(), "K2": set(), "K3": set(), "K4": set()}
@@ -362,6 +398,8 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     k1_cases += [(512, 21, 11, 2, T) for T in (1, 19, 98)]
     k1_cases += [(400, 21, 11, 1, T) for T in sorted(
         {6024, 16384, 16394, 16404} | eval_frames["K1"])]
+    k1_cases += [(400, 21, 11, B, n_frames(N, 400, 160))
+                 for B, N in TRAIN_SHAPES]
     k1_err = 0.0
     for n_fft, lh, lp, B, T in k1_cases:
         y = audio(n_fft, B, T)
@@ -494,6 +532,24 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             "bound_comparators_per_output": shared[(21, 11)],
             "bound_ms_at_own_networks": per_window[0],
             "timed_shape": list(y.shape)})
+    # K1 at the device training pipeline's batched launches.
+    M = bank(400)
+    nnz = int((M != 0).sum())
+    trained = {}
+    for B, N in TRAIN_SHAPES:
+        T = n_frames(N, 400, 160)
+        y = audio(400, B, T)
+        run = lambda: frontend.stft_hpss_mel(y, M)  # noqa: E731
+        ms = cuda_ms(run, reps=50)
+        plain_ms = cuda_ms(lambda: frontend.stft_hpss_mel_plain(y, M),
+                           reps=3, batches=3)
+        bound, by, _ = frontend_bound_ms(T, N, 400, shared[(21, 11)], card,
+                                         n_mels=120, mel_nnz=nnz, B=B)
+        trained[f"{B}x{N}"] = {
+            "frames": T, "ms": ms[0], "ms_spread": ms[1:],
+            "device_ms": device_ms(run, "frontend_kernel"),
+            "plain_ms": plain_ms[0], "bound_ms": bound, "bound_by": by}
+    entries[0]["training_shapes"] = trained
     # K3: the 60 s resynthesis (mask-only), on one resident input and on
     # a rotation of 12 inputs (58 MB, over the 50 MB L2), and Jang's most
     # frequent short evaluation item (1 x 257 x T, masked components).
@@ -911,6 +967,278 @@ def classify(wav: str, weights: str, device: str) -> dict:
             "total_s": total_s}
 
 
+def make_train_corpus(root: str) -> dict:
+    """The training corpus: ``make_toy_musan`` with ``TRAIN_FILES`` files
+    of ``TRAIN_SECONDS`` per class, and its folds where ``cli.mtl`` reads
+    them.  Returns the root, fold 0's training split, and the frames of
+    every item the host pipeline's featurizer can compute: each music and
+    speech file's length bucket (a mixture takes its speech file's
+    length), launched one item at a time."""
+    from sm_hpss_mtl_tpu_torch.cli.experiment import (load_or_create_folds,
+                                                      split_train_val)
+    from sm_hpss_mtl_tpu_torch.data import audio
+    from sm_hpss_mtl_tpu_torch.data.featurize import bucket_length
+    from sm_hpss_mtl_tpu_torch.data.folds import get_train_test_files
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
+    from sm_hpss_mtl_tpu_torch.train.config import ExperimentConfig
+    audio.make_toy_musan(root, n_per_class=TRAIN_FILES,
+                         duration_s=TRAIN_SECONDS, seed=SEED)
+    cv = load_or_create_folds(ExperimentConfig(data_root=root))
+    tr, _ = split_train_val(get_train_test_files(cv, 0)[0])
+    frames = {n_frames(bucket_length(len(audio.load_and_preprocess_signal(
+        os.path.join(root, c, f))[0])), 400, 160)
+        for c in ("music", "speech")
+        for f in os.listdir(os.path.join(root, c)) if f.endswith(".wav")}
+    return {"root": root, "train_files": tr, "frames": frames}
+
+
+def train_cli(corpus: dict, out: str, pipeline: str) -> dict:
+    """One ``cli.mtl`` run of fold 0 on the card (host clock around it);
+    its outputs checked, and K1 launched once per device-pipeline train
+    or eval step and once per featurized file, nothing else."""
+    from sm_hpss_mtl_tpu_torch.cli import mtl
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        res = mtl.main(["--data", corpus["root"], "--output", out,
+                        "--pipeline", pipeline, "--epochs",
+                        str(TRAIN_EPOCHS), "--tr-steps", str(TRAIN_STEPS),
+                        "--v-steps", str(VAL_STEPS), "--lr-schedule-steps",
+                        "100000", "--folds", "0"])
+        total_s = time.perf_counter() - t0
+    fold = res[0]
+    row, hist = fold["row"], fold["fit"].history
+    check(fold["pipeline"] == pipeline, f"ran the {fold['pipeline']} "
+          f"pipeline, asked for {pipeline}")
+    check(len(hist) == TRAIN_EPOCHS, f"{pipeline}: {len(hist)} epochs")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["val_loss"])
+              for h in hist), f"{pipeline}: losses not finite: {hist}")
+    check(np.isfinite(row["val_loss"]) and 0 <= row["accuracy"] <= 1,
+          f"{pipeline}: fold row {row}")
+    for name in ("Performance.csv", "fold0_log.csv",
+                 "fold0_ckpt/state/model.npz"):
+        check(os.path.exists(os.path.join(fold["op_dir"], name)),
+              f"{pipeline}: {name} not written")
+    computes = fold["cache_stats"]["featurizer"]["computes"]
+    steps = TRAIN_EPOCHS * (TRAIN_STEPS + VAL_STEPS)
+    want = computes + (steps if pipeline == "device" else 0)
+    check(rec["launches"] == {"K1": want, "K2": 0, "K3": 0, "K4": 0},
+          f"{pipeline}: launches {rec['launches']}, want K1 {want} "
+          f"({computes} featurized files)")
+    return {"launches": rec["launches"], "shapes": rec["shapes"],
+            "total_s": total_s, "featurized_files": computes,
+            "epoch_train_s": [h["epoch_train_s"] for h in hist],
+            "fit_wall_s": fold["fit"].wall_time,
+            "val_loss": row["val_loss"], "accuracy": row["accuracy"],
+            "history": hist}
+
+
+def _train_setup(device: str, net, seed: int, audio: bool = True,
+                 **step_kw):
+    """A copy of ``net`` on ``device``, its Lemaire optimizer and a train
+    step at full width: the device pipeline's (``audio``: 16 clips per
+    class, one 68-frame patch each, K1 inside) or the patch step."""
+    import copy
+
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
+    from sm_hpss_mtl_tpu_torch.train.endtoend import make_audio_train_step
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    from sm_hpss_mtl_tpu_torch.train.state import TrainState, make_train_step
+    model = copy.deepcopy(net).to(device)
+    opt, _ = for_model("Lemaire_et_al_MTL", model.parameters(),
+                       tr_steps=100000)
+    kw = dict(generator=torch.Generator(device=device).manual_seed(seed),
+              l2_reg=0.01, **step_kw)
+    step = (make_audio_train_step(model, opt, FeatureConfig(), patch_size=68,
+                                  patch_shift=68, n_patches_per_clip=1, **kw)
+            if audio else make_train_step(model, opt, mtl=True, **kw))
+    return model, TrainState(model, opt), step
+
+
+def _crops(corpus: dict, seed: int):
+    from sm_hpss_mtl_tpu_torch.data.audiostream import (AudioCache,
+                                                        AudioCropBatcher)
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
+    return AudioCropBatcher(AudioCache(), corpus["root"],
+                            corpus["train_files"], FeatureConfig(),
+                            clips_per_class=16, n_patches_per_clip=1,
+                            patch_size=68, seed=seed)
+
+
+def _step_card_vs_cpu(net, batch, labels, audio: bool,
+                      update_rtol: float) -> dict:
+    """One train step of ``net`` on ``batch`` on the CPU and on the card:
+    the loss, the BatchNorm statistics and every parameter's update (to
+    ``update_rtol`` of its norm) held to their bars."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model, state, step = _train_setup(dev, net, SEED, audio=audio)
+        d = torch.device(dev)
+        loss = float(step(state, to_device(batch, d),
+                          to_device(labels, d))["loss"])
+        got[dev] = (loss, {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()})
+    (loss_cpu, cpu), (loss_gpu, gpu) = got["cpu"], got["cuda"]
+    tag = "audio step" if audio else "patch step"
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    check(loss_rel <= STEP_LOSS_RTOL, f"{tag}: loss card {loss_gpu} vs "
+          f"CPU {loss_cpu}")
+    update_rel, stats_err, worst = 0.0, 0.0, ""
+    for k, b in before.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            err = float(((gpu[k] - cpu[k]).abs()
+                         / cpu[k].abs().clamp_min(1.0)).max())
+            stats_err = max(stats_err, err)
+            check(err <= STEP_STATS_TOL, f"{tag}: {k} card vs CPU {err:.3e}")
+            continue
+        b = b.double()
+        d_cpu, d_gpu = cpu[k].double() - b, gpu[k].double() - b
+        # Below the relative bar: two float32 ulps of the parameter, and
+        # 1e-6 of the largest update (the first lr) per element, where a
+        # gradient that is 0 in exact arithmetic (a dense bias before a
+        # BatchNorm) leaves its rounding noise.
+        floor = (2 * 2.0 ** -23 * b.norm()
+                 + 1e-6 * STEP_LR * b.numel() ** 0.5)
+        tol = update_rtol * d_cpu.norm() + floor
+        diff = (d_gpu - d_cpu).norm()
+        check(diff <= tol,
+              f"{tag}: {k} update card vs CPU |delta| {diff:.3e} over "
+              f"{tol:.3e} (update norm {d_cpu.norm():.3e})")
+        if d_cpu.norm() > floor:
+            rel = float(diff / d_cpu.norm())
+            if rel > update_rel:
+                update_rel, worst = rel, k
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
+            "loss_rel": loss_rel, "update_rel_max": update_rel,
+            "update_rel_max_at": worst, "stats_err_max": stats_err}
+
+
+def train_step_checks(corpus: dict) -> dict:
+    """One crop batch and one set of weights, dropout and augmentation off:
+    the features on the card (K1) against the CPU's (the plain version);
+    one patch step on the CPU's features on the card and on the CPU, held
+    to every bar (loss, each update, BatchNorm statistics); one audio step
+    (K1 inside on the card) on both, held to the same loss and statistics
+    bars and to ``STEP_AUDIO_UPDATE_RTOL`` on each update.  Then 20 audio
+    steps on that batch on the card:
+    the loss stays finite and falls."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.models import layers
+    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
+    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+    from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
+
+    audio, labels = next(_crops(corpus, SEED))
+    net = init_weights(get_model("Lemaire_et_al_MTL", dropout_rate=0.0),
+                       torch.Generator().manual_seed(SEED))
+    for m in net.modules():
+        if isinstance(m, layers.Dropout):
+            m.rate = 0.0
+    feats = {dev: device_featurize_patches(
+        to_device(audio, torch.device(dev)), FeatureConfig(), patch_size=68,
+        patch_shift=68, max_patches=1).cpu() for dev in ("cpu", "cuda")}
+    fdiff = (feats["cuda"] - feats["cpu"]).abs()
+    # Patch j of clip b is row j*B + b; one patch a clip, so the clips'
+    # labels are the rows'.
+    patch = _step_card_vs_cpu(net, feats["cpu"], labels, audio=False,
+                              update_rtol=STEP_UPDATE_RTOL)
+    audio_step = _step_card_vs_cpu(net, audio, labels, audio=True,
+                                   update_rtol=STEP_AUDIO_UPDATE_RTOL)
+
+    model, state, step = _train_setup("cuda", net, SEED)
+    dev = torch.device("cuda")
+    a, y = to_device(audio, dev), to_device(labels, dev)
+    losses = torch.stack([step(state, a, y)["loss"]
+                          for _ in range(20)]).tolist()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"20 steps on one batch: losses {losses}")
+    return {"features_max_abs_delta": float(fdiff.max()),
+            "features_mean_abs_delta": float(fdiff.mean()),
+            "features_rows_over_1e-2": int(
+                (fdiff.amax(dim=1) > 1e-2).sum()),
+            "patch_step": patch, "audio_step": audio_step,
+            "fixed_batch_losses": losses}
+
+
+def time_device_steps(corpus: dict, steps: int = 30,
+                      profiled: int = 10) -> dict:
+    """Device-pipeline train steps at full width on the card, fed by the
+    crop batcher through the prefetcher, dropout and augmentation on.
+    Each step's period (its start to the next one's, CUDA events) and its
+    own span; over a further ``profiled`` steps, K1's device time and all
+    device time per step from ``torch.profiler``, against the host clock
+    around them."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import DevicePrefetcher
+    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
+    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+    from torch.profiler import ProfilerActivity, profile
+
+    net = init_weights(get_model("Lemaire_et_al_MTL"),
+                       torch.Generator().manual_seed(SEED))
+    _, state, step = _train_setup("cuda", net, SEED,
+                                  augment_noise=True)
+    it = DevicePrefetcher(_crops(corpus, SEED + 100), "cuda")
+    try:
+        marks = []
+        for _ in range(steps):
+            audio, labels = next(it)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, audio, labels)
+            end.record()
+            marks.append((start, end))
+        torch.cuda.synchronize()
+        # Steps 3 and after: the first two build the kernel plans.
+        period = sorted(marks[i][0].elapsed_time(marks[i + 1][0])
+                        for i in range(2, steps - 1))
+        span = sorted(a.elapsed_time(b) for a, b in marks[2:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled):
+                audio, labels = next(it)
+                step(state, audio, labels)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        it.close()
+    device = [e for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    busy = sum(e.device_time_total for e in device) / 1e3
+    k1 = sum(e.device_time_total for e in device
+             if "frontend_kernel" in e.name) / 1e3
+    # Where the host's time goes: the operators with the most self CPU
+    # time per step (the profiler's own cost is in them too).
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+    mid = len(period) // 2
+    return {"steps_timed": len(period), "step_ms": period[mid],
+            "step_ms_spread": [period[0], period[-1]],
+            "step_span_ms": span[len(span) // 2],
+            "step_span_ms_spread": [span[0], span[-1]],
+            "profiled_steps": profiled,
+            "profiled_wall_ms_per_step": wall_ms / profiled,
+            "device_busy_ms_per_step": busy / profiled if device else None,
+            "device_idle_share": 1 - busy / wall_ms if device else None,
+            "k1_device_ms_per_step": k1 / profiled if device else None,
+            "k1_share_of_step": (k1 / profiled) / period[mid]
+            if device else None,
+            "device_busy_share_of_step": (busy / profiled) / period[mid]
+            if device else None,
+            "host_top_ops_ms_per_step": {
+                e.key: e.self_cpu_time_total / 1e3 / profiled
+                for e in host_ops[:8]}}
+
+
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source at once, one nvcc process each; load the
     libraries.  Returns the wall time and the ptxas reports."""
@@ -953,6 +1281,7 @@ def run() -> None:
         wav600, x600 = write_broadcast(tmp, "b600.wav", 600.0, SEED + 1)
         wav10, x10 = write_broadcast(tmp, "b10.wav", 10.0, SEED + 2)
         corpus = make_eval_corpus(out("corpus"))
+        train_corpus = make_train_corpus(out("train_corpus"))
         lem_frames = eval_item_frames(corpus, 400, sweep=True)
         jang_frames = eval_item_frames(corpus, 512, sweep=False)
         n60 = len(load_and_preprocess_signal(wav60)[0])
@@ -961,7 +1290,8 @@ def run() -> None:
               "the evaluation corpus has no short item")
         eval_frames = {
             "K1": {T for T in lem_frames if T >= SHORT_FRAMES}
-            | {n_frames(bucket_length(n60), 400, 160)},
+            | {n_frames(bucket_length(n60), 400, 160)}
+            | train_corpus["frames"],
             "K2": {T for T in jang_frames if T >= SHORT_FRAMES},
             "K4_T": short.most_common(1)[0][0],
             "K3_T": Counter(T for T in jang_frames
@@ -1079,6 +1409,28 @@ def run() -> None:
               f"{clf_delta:.3e}; Jang {len(jang_eval['frames'])} items, "
               f"launches {jang_eval['launches']}", flush=True)
 
+        runs["train_device"] = tdev = train_cli(train_corpus, out("td"),
+                                                "device")
+        runs["train_host"] = thost = train_cli(train_corpus, out("th"),
+                                               "host")
+        step_checks = train_step_checks(train_corpus)
+        step_times = time_device_steps(train_corpus)
+        print(f"[10 training] device pipeline {tdev['launches']['K1']} K1 "
+              f"launches, epochs {tdev['epoch_train_s']} s; host pipeline "
+              f"{thost['launches']['K1']} K1 launches, epochs "
+              f"{thost['epoch_train_s']} s; one step card vs CPU, on the "
+              f"same patches: loss "
+              f"{step_checks['patch_step']['loss_rel']:.2e}, updates "
+              f"{step_checks['patch_step']['update_rel_max']:.2e}, "
+              f"statistics {step_checks['patch_step']['stats_err_max']:.2e};"
+              f" with K1 inside: loss "
+              f"{step_checks['audio_step']['loss_rel']:.2e}, updates "
+              f"{step_checks['audio_step']['update_rel_max']:.2e} (features "
+              f"{step_checks['features_max_abs_delta']:.2e}); 20 steps "
+              f"{step_checks['fixed_batch_losses'][0]:.4f} -> "
+              f"{step_checks['fixed_batch_losses'][-1]:.4f}; step "
+              f"{step_times['step_ms']:.3f} ms", flush=True)
+
         lem_t = {"whole_60s": time_legs(lem, x60, wav60, wpath[lem],
                                         out("t60.npz"), whole["total_s"]),
                  "slabbed_600s": time_legs(lem, x600, wav600, wpath[lem],
@@ -1091,7 +1443,7 @@ def run() -> None:
                                             j600["total_s"])}
 
     paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
-                    "classify_60"),
+                    "classify_60", "train_device", "train_host"),
              "K2": ("jang_60", "jang_600", "jang_10", "eval_jang"),
              "K3": ("resynth_60", "eval_jang"),
              "K4": ("eval_lemaire",)}
@@ -1105,7 +1457,7 @@ def run() -> None:
         others = [n for n in runs if n not in names
                   and runs[n]["launches"][kernel]]
         check(not others, f"{kernel} launched on another path: {others}")
-    print("[10 checks] ok", flush=True)
+    print("[11 checks] ok", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"serving": {
         "card": card, "lemaire_mtl": lem_t, "jang_mtl": jang_t,
@@ -1141,6 +1493,24 @@ def run() -> None:
                      "test_model_ms": 1e3 * jang_eval["test_model_s"],
                      "featurize_ms": 1e3 * jang_eval["featurize_s"],
                      "launches": jang_eval["launches"]}}}))
+    k1_train = entries[0]["training_shapes"]
+    print(json.dumps({"training": {
+        "card": card, "model": lem, "width": "32 filters, 3 stacks, Nd 8, "
+        "D 240, patch 68, head width 16, 16 clips per class",
+        "corpus": {"files_per_class": TRAIN_FILES,
+                   "seconds_per_file": TRAIN_SECONDS},
+        "epochs": TRAIN_EPOCHS, "train_steps": TRAIN_STEPS,
+        "val_steps": VAL_STEPS,
+        "device_pipeline": {**{k: v for k, v in tdev.items()
+                               if k not in ("shapes", "history")},
+                            **step_times},
+        "host_pipeline": {k: v for k, v in thost.items()
+                          if k not in ("shapes", "history")},
+        "k1_at_48x11120": k1_train["48x11120"],
+        "k1_at_12x43760": k1_train["12x43760"],
+        "one_step_card_vs_cpu": {k: v for k, v in step_checks.items()
+                                 if k != "fixed_batch_losses"},
+        "fixed_batch_losses": step_checks["fixed_batch_losses"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

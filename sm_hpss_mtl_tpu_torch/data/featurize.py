@@ -17,6 +17,7 @@ that both packages featurize the same padded signal.
 from __future__ import annotations
 
 import os
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -110,23 +111,32 @@ class Featurizer:
         self._mem_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
         self._mem_bytes = 0
         self._mem_limit = mem_cache_mb * (1 << 20)
+        self._lock = threading.Lock()
         #: cache behaviour counters
         self.stats = {"mem_hits": 0, "disk_hits": 0, "computes": 0}
 
+    def _count(self, key: str) -> None:
+        with self._lock:
+            self.stats[key] += 1
+
     def _mem_get(self, key: str):
-        fv = self._mem_cache.get(key)
-        if fv is not None:
-            self._mem_cache.move_to_end(key)
-        return fv
+        with self._lock:
+            fv = self._mem_cache.get(key)
+            if fv is not None:
+                self._mem_cache.move_to_end(key)
+            return fv
 
     def _mem_put(self, key: str, fv: np.ndarray):
         if fv.nbytes > self._mem_limit:
             return
-        self._mem_cache[key] = fv
-        self._mem_bytes += fv.nbytes
-        while self._mem_bytes > self._mem_limit:
-            _, old = self._mem_cache.popitem(last=False)
-            self._mem_bytes -= old.nbytes
+        with self._lock:
+            if key in self._mem_cache:
+                return
+            self._mem_cache[key] = fv
+            self._mem_bytes += fv.nbytes
+            while self._mem_bytes > self._mem_limit:
+                _, old = self._mem_cache.popitem(last=False)
+                self._mem_bytes -= old.nbytes
 
     def _featuregram(self, audio: np.ndarray, valid_frames=None
                      ) -> torch.Tensor:
@@ -173,15 +183,15 @@ class Featurizer:
         key = f"{classname}/{name}"
         cached = self._mem_get(key)
         if cached is not None:
-            self.stats["mem_hits"] += 1
+            self._count("mem_hits")
             return cached
         cache_path = self._cache_path(classname, name)
         if cache_path and os.path.exists(cache_path):
             fv = np.load(cache_path, allow_pickle=False)
             self._mem_put(key, fv)
-            self.stats["disk_hits"] += 1
+            self._count("disk_hits")
             return fv
-        self.stats["computes"] += 1
+        self._count("computes")
         fv = self._compute(self._load(classname, sp_path, mu_path,
                                       target_db))
         if save_feat:

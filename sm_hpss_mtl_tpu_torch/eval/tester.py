@@ -52,7 +52,7 @@ class FileWiseTester:
         if self.skewness_vector:
             raise NotImplementedError(
                 "skewness_vector: ops/stats.py is not ported yet (ROADMAP "
-                "§1, item 2)")
+                "§1, item 2c)")
         if self.input_kind not in ("time_mel", "image"):
             raise ValueError(f"unknown input_kind {self.input_kind!r}")
 

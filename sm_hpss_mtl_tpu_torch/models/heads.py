@@ -4,7 +4,9 @@ the Keras dense layers the models build from.
 Counterpart of ``sm_hpss_mtl_tpu/models/heads.py`` (``MTLHeads`` with one
 Dense-16 block per head, the reference's effective wiring; ``KDense``).
 Keras BatchNorm has eps 1e-3 and momentum 0.99, which torch writes as
-0.01.  Keras's glorot-uniform initialisation is ``lemaire.init_weights``.
+0.01; its running variance takes the biased batch variance
+(``layers.BatchNorm1d``).  Keras's glorot-uniform initialisation is
+``lemaire.init_weights``.
 """
 
 from __future__ import annotations
@@ -12,15 +14,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .layers import BatchNorm1d, Dropout
+
 BN_KW = dict(eps=1e-3, momentum=0.01)
 
 
 def dense_with_bn(in_features: int, width: int
-                  ) -> tuple[nn.Linear, nn.BatchNorm1d]:
+                  ) -> tuple[nn.Linear, BatchNorm1d]:
     """A Keras Dense layer and a Keras BatchNorm over its ``width``
     outputs, as two modules, so that each keeps its own flax name (Jang's
     ``fc1`` and ``fc1_bn``)."""
-    return nn.Linear(in_features, width), nn.BatchNorm1d(width, **BN_KW)
+    return nn.Linear(in_features, width), BatchNorm1d(width, **BN_KW)
 
 
 class HeadBlock(nn.Module):
@@ -30,8 +34,8 @@ class HeadBlock(nn.Module):
                  dropout: float = 0.4):
         super().__init__()
         self.dense = nn.Linear(in_features, width)
-        self.bn = nn.BatchNorm1d(width, **BN_KW)
-        self.dropout = nn.Dropout(dropout)
+        self.bn = BatchNorm1d(width, **BN_KW)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(torch.relu(self.bn(self.dense(x))))

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops import reference as ref
 from .heads import BN_KW, MTLHeads, dense_with_bn
+from .layers import BatchNorm2d, Dropout
 from .pool import max_pool
 
 
@@ -78,8 +79,8 @@ class _ConvBlock(nn.Module):
                  pool_padding: str = "SAME"):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, 3, padding=1)
-        self.bn = nn.BatchNorm2d(features, **BN_KW)
-        self.dropout = nn.Dropout(dropout)
+        self.bn = BatchNorm2d(features, **BN_KW)
+        self.dropout = Dropout(dropout)
         self.pool_padding = pool_padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -116,7 +117,7 @@ class JangCNN(nn.Module):
         if mtl:
             self.fc1, self.fc1_bn = dense_with_bn(flat, 2048)
             self.fc2, self.fc2_bn = dense_with_bn(2048, 1024)
-            self.fc_dropout = nn.Dropout(0.4)
+            self.fc_dropout = Dropout(0.4)
             self.heads = MTLHeads(1024, n_classes=n_classes)
         else:
             self.out = nn.Linear(flat, n_classes)

@@ -1,0 +1,78 @@
+"""Keras-semantics BatchNorm and dropout for training the ported models.
+
+flax's ``nn.BatchNorm`` (Keras's too) moves its running variance towards
+the *biased* batch variance; torch's ``nn.BatchNorm1d``/``2d`` move it
+towards the unbiased one, which drifts by ``n/(n-1)`` on every update.
+:class:`BatchNorm1d` and :class:`BatchNorm2d` subclass torch's, so state_dict
+keys and ``isinstance`` checks stay, and differ only in train mode: they
+normalise with the batch statistics and update the running ones with the
+biased variance.  Eval mode is torch's, unchanged.
+
+Dropout draws from an explicit ``torch.Generator`` on the activations'
+device, set on the module by :func:`use_generator` (the train steps call
+it), never from torch's global RNG: a training run is then a function of
+its seeds.  In train mode a dropout with no generator raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class _BiasedRunningVariance:
+    """Train-mode forward shared by the two BatchNorm classes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.ndim))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class BatchNorm1d(_BiasedRunningVariance, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_BiasedRunningVariance, nn.BatchNorm2d):
+    pass
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with keep probability ``1 - rate``: elementwise, or
+    with ``spatial`` one draw per (item, channel) of ``(B, C, T)``, shared
+    across time (Keras SpatialDropout1D).  The identity in eval mode."""
+
+    def __init__(self, rate: float, spatial: bool = False):
+        super().__init__()
+        self.rate = rate
+        self.spatial = spatial
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in train mode draws from an explicit generator: "
+                "set one with models.layers.use_generator (the train steps "
+                "take it as generator=)")
+        keep = 1.0 - self.rate
+        shape = x.shape[:-1] + (1,) if self.spatial else x.shape
+        mask = torch.empty(shape, device=x.device, dtype=x.dtype).bernoulli_(
+            keep, generator=self.generator)
+        return x * mask / keep
+
+
+def use_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Make every dropout of ``model`` draw from ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator

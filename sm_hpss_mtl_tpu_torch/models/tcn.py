@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .layers import Dropout
+
 
 def channel_normalization(x: torch.Tensor) -> torch.Tensor:
     """Per-timestep max-abs channel normalisation of ``(B, C, T)``
@@ -24,21 +26,12 @@ def channel_normalization(x: torch.Tensor) -> torch.Tensor:
     return x / (x.abs().amax(dim=1, keepdim=True) + 1e-5)
 
 
-class SpatialDropout1D(nn.Module):
+class SpatialDropout1D(Dropout):
     """Drop whole channels of ``(B, C, T)`` (one mask across time), as
     Keras SpatialDropout1D; the identity in eval mode."""
 
     def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.bernoulli(torch.full(x.shape[:-1] + (1,), keep,
-                                          device=x.device, dtype=x.dtype))
-        return x * mask / keep
+        super().__init__(rate, spatial=True)
 
 
 class TCNResidualBlock(nn.Module):

@@ -8,15 +8,14 @@ import torch
 from torch import nn
 
 from ..ops.featuregram import feature_dim
-from ..train.config import MODEL_PRESETS, preset_n_mels
+from ..train.config import MODEL_PRESETS, input_kind_of, preset_n_mels
 from ..weights import from_flax, load_npz
 from .jang import JangCNN
 from .lemaire import LemaireMTL
 
-#: ``input_kind`` of each ported model, as the JAX ``ModelSpec`` names it:
-#: 'time_mel' takes ``(B, T, D)`` patches, 'image' takes ``(B, D, T, 1)``.
-INPUT_KIND = {"Lemaire_et_al_MTL": "time_mel", "Jang_et_al": "image",
-              "Jang_et_al_MTL": "image"}
+#: ``input_kind`` of each ported model (``train.config.input_kind_of``).
+INPUT_KIND = {name: input_kind_of(name) for name in
+              ("Lemaire_et_al_MTL", "Jang_et_al", "Jang_et_al_MTL")}
 
 #: Windows per model call for 'image' models: a whole 10000-window chunk
 #: of Jang-MTL holds ~21 GB in its first conv block alone (~2 MB a window).
@@ -24,15 +23,18 @@ IMAGE_BATCH_WINDOWS = 1024
 
 
 def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
-              patch_size: int = 68, dropout_rate: float = 0.275
-              ) -> nn.Module:
+              patch_size: int = 68, dropout_rate: float = 0.275,
+              **arch_kwargs) -> nn.Module:
     """Build a model by its reference name.  Lemaire-MTL is sized for its
     preset's features (``D = 2 * n_mels`` for LogMelHarmPercSpec); for
     Jang-MTL ``n_mels`` is the mel-scale layer's band count (the JAX zoo
     builds the single-task Jang model with 64 bands whatever it is
-    given)."""
+    given).  ``arch_kwargs`` (Lemaire-MTL only, as in the JAX zoo):
+    ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``, ``head_width``."""
     if name not in INPUT_KIND:
         raise ValueError(f"model {name!r} is not ported")
+    if arch_kwargs and not name.startswith("Lemaire"):
+        raise ValueError(f"arch_kwargs not supported for {name!r}")
     # The reference computes in float32 (train/config.py compute_dtype).
     # cuDNN convolutions default to TF32 on the GPU, which keeps ~3 decimal
     # digits, so both TF32 switches are turned off where a model is built.
@@ -45,7 +47,7 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
                        patch_size=patch_size)
     in_dim = feature_dim(MODEL_PRESETS[name]["feat_name"], n_mels=n_mels)
     return LemaireMTL(in_dim, patch_size=patch_size, n_classes=n_classes,
-                      dropout_rate=dropout_rate)
+                      dropout_rate=dropout_rate, **arch_kwargs)
 
 
 def load_model(weights: str, device: torch.device, model: str,

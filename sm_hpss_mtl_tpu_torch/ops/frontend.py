@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -42,6 +43,9 @@ from .mel import _band_ranges_of
 from .stft import n_frames, stft_mag
 
 _SOURCE = "frontend.cu"
+#: Guards the launch counts: the host training pipeline launches K1 from
+#: several worker threads.
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,7 +236,8 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.k1_error_string(err).decode())
-    (stft_hpss if M is None else stft_hpss_mel).launches += 1
+    with _COUNT_LOCK:
+        (stft_hpss if M is None else stft_hpss_mel).launches += 1
     return out_h.reshape(shape), out_p.reshape(shape)
 
 

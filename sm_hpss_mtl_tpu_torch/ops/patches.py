@@ -1,5 +1,6 @@
 """Feature-matrix helpers (counterpart of ``sm_hpss_mtl_tpu/ops/patches.py``):
-per-row standardization, and the reference's sliding-window patches.
+per-row standardization, and the reference's sliding-window patches on
+the host (numpy) and on the device (torch).
 
 Patch semantics are the reference's (``extract_patches`` plus the
 short-clip rule of ``get_feature_patches``): a clip shorter than one window
@@ -46,6 +47,21 @@ def extract_patches_np(FV: np.ndarray, patch_size: int, patch_shift: int
     starts = _start_indices(full_T, patch_size, patch_shift)
     idx = starts[:, None] + np.arange(patch_size)[None, :]
     return np.ascontiguousarray(np.moveaxis(FV[:, idx], 1, 0))
+
+
+def extract_patches(FV: torch.Tensor, *, patch_size: int,
+                    patch_shift: int) -> torch.Tensor:
+    """``(..., D, T)`` -> ``(N, ..., D, patch_size)`` windows on ``FV``'s
+    device, the patch axis leading (the device training pipeline's
+    layout)."""
+    T = FV.shape[-1]
+    full_T = tiled_length(T, patch_size)
+    if full_T != T:
+        reps = -(-full_T // T)
+        FV = FV.repeat((1,) * (FV.ndim - 1) + (reps,))[..., :full_T]
+    n = len(_start_indices(full_T, patch_size, patch_shift))
+    windows = FV.unfold(-1, patch_size, patch_shift)[..., :n, :]
+    return windows.movedim(-2, 0)
 
 
 def standardize_rows(FV: torch.Tensor) -> torch.Tensor:

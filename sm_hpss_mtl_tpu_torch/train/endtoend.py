@@ -1,0 +1,130 @@
+"""The device training pipeline: raw audio -> features -> model in one
+step on the card (counterpart of ``sm_hpss_mtl_tpu/train/endtoend.py``).
+
+The host streams raw-audio crops (``data.audiostream``); each train or
+eval step featurizes them on the device (``ops.featuregram``: on CUDA the
+fused STFT + HPSS + mel kernel K1 over the whole ``(B, L)`` batch in one
+launch), standardizes each HPSS component's rows over the crop, cuts the
+patches and runs the model.  The features carry no gradient: the audio
+needs none, so K1 has no backward.
+
+Batch convention: ``audio (B, n_samples)`` with per-clip labels; every
+clip yields the same number of patches ``k``, which take their clip's
+labels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..data.featurize import FeatureConfig
+from ..ops import featuregram as fg
+from ..ops.patches import extract_patches, standardize_rows
+from .state import make_eval_step, make_train_step
+
+
+def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
+                             patch_size: int, patch_shift: int,
+                             input_kind: str = "time_mel",
+                             skewness_vector: str | None = None,
+                             fold_stats=None,
+                             max_patches: int | None = None
+                             ) -> torch.Tensor:
+    """``(B, n) audio -> (B*k, ...) model-ready patches`` on the audio's
+    device.
+
+    Rows are standardized per featuregram (per HPSS component for the
+    HarmPerc families) over all the crop's frames; ``max_patches`` then
+    keeps the first ``k`` windows of each clip.  Patch ``j`` of clip ``b``
+    is row ``j*B + b``.  Frame-level scaling (``fold_stats``), skewness
+    vectors and the 'dual' input are not ported and raise."""
+    if fold_stats is not None:
+        raise NotImplementedError(
+            "fold_stats: frame-level scaling (data/stats.py) is not ported "
+            "yet (ROADMAP §1, item 2c)")
+    if skewness_vector:
+        raise NotImplementedError(
+            "skewness_vector: ops/stats.py is not ported yet (ROADMAP §1, "
+            "item 2c)")
+    if input_kind not in ("time_mel", "image"):
+        raise NotImplementedError(
+            f"input_kind {input_kind!r}: intermediate fusion is not ported "
+            "yet (ROADMAP §1, item 7)")
+    fv = fg.featuregram(audio, feat_name=cfg.feat_name, sr=cfg.sr,
+                        n_fft=cfg.n_fft, win_length=cfg.win_length,
+                        hop_length=cfg.hop_length, n_mels=cfg.n_mels,
+                        l_harm=cfg.l_harm, l_perc=cfg.l_perc,
+                        dft_precision=cfg.dft_precision)      # (B, D, T)
+    if "HarmPerc" in cfg.feat_name:
+        half = fv.shape[1] // 2
+        fv = torch.cat([standardize_rows(fv[:, :half]),
+                        standardize_rows(fv[:, half:])], dim=1)
+    else:
+        fv = standardize_rows(fv)
+    patches = extract_patches(fv, patch_size=patch_size,
+                              patch_shift=patch_shift)        # (k, B, D, W)
+    if max_patches is not None:
+        patches = patches[:max_patches]
+    patches = patches.reshape((-1,) + patches.shape[2:])
+    if input_kind == "time_mel":
+        return patches.transpose(1, 2).contiguous()
+    return patches[..., None]
+
+
+def _broadcast_labels(labels: dict, k: int) -> dict:
+    """Per-clip labels -> per-patch, in :func:`device_featurize_patches`'s
+    ``(k, B)`` order: clip ``b``'s labels at rows ``j*B + b``."""
+    return {key: y.repeat((k,) + (1,) * (y.ndim - 1))
+            for key, y in labels.items()}
+
+
+def _featurizer(cfg: FeatureConfig, **patch_kw) -> Callable:
+    def featurize(audio: torch.Tensor, labels: dict):
+        batch = device_featurize_patches(audio, cfg, **patch_kw)
+        return batch, _broadcast_labels(labels, batch.shape[0]
+                                        // audio.shape[0])
+    return featurize
+
+
+def make_audio_train_step(model, optimizer, cfg: FeatureConfig, *,
+                          patch_size: int, patch_shift: int,
+                          generator: torch.Generator,
+                          input_kind: str = "time_mel", mtl: bool = True,
+                          skewness_vector: str | None = None,
+                          fold_stats=None,
+                          loss_weights: dict | None = None,
+                          l2_reg: float = 0.0,
+                          augment_noise: bool = False,
+                          n_patches_per_clip: int | None = None
+                          ) -> Callable:
+    """``(state, audio (B, n), clip_labels) -> metrics``: featurization,
+    the forward and backward passes and the optimizer update
+    (``train.state.make_train_step`` after the device featurizer)."""
+    featurize = _featurizer(cfg, patch_size=patch_size,
+                            patch_shift=patch_shift, input_kind=input_kind,
+                            skewness_vector=skewness_vector,
+                            fold_stats=fold_stats,
+                            max_patches=n_patches_per_clip)
+    return make_train_step(model, optimizer, mtl=mtl, generator=generator,
+                           loss_weights=loss_weights, l2_reg=l2_reg,
+                           augment_noise=augment_noise, featurize=featurize)
+
+
+def make_audio_eval_step(model, cfg: FeatureConfig, *, patch_size: int,
+                         patch_shift: int, input_kind: str = "time_mel",
+                         mtl: bool = True,
+                         skewness_vector: str | None = None,
+                         fold_stats=None,
+                         loss_weights: dict | None = None,
+                         n_patches_per_clip: int | None = None) -> Callable:
+    """``(state, audio, clip_labels) -> metrics``, the eval analog of
+    :func:`make_audio_train_step` (keys of ``train.state.make_eval_step``)."""
+    featurize = _featurizer(cfg, patch_size=patch_size,
+                            patch_shift=patch_shift, input_kind=input_kind,
+                            skewness_vector=skewness_vector,
+                            fold_stats=fold_stats,
+                            max_patches=n_patches_per_clip)
+    return make_eval_step(model, mtl=mtl, loss_weights=loss_weights,
+                          featurize=featurize)

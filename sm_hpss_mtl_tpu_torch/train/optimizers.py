@@ -1,0 +1,119 @@
+"""Optimizers of the reference's per-model compile settings (counterpart
+of ``sm_hpss_mtl_tpu/train/optimizers.py``).
+
+======================  ====================================================
+Model                   Reference setting
+======================  ====================================================
+Lemaire*                SGD momentum 0.9, clipnorm=1, ExponentialDecay
+                        (0.002, 3*TR_STEPS, 0.1): :class:`KerasSGD`
+Doukhan*                Adam 1e-4 (Keras eps 1e-7): ``torch.optim.Adam``
+Papakostas*             SGD, ExponentialDecay(0.001, 700, 0.1):
+                        ``torch.optim.SGD`` with the decay as a ``LambdaLR``
+Jang*                   Adam 1e-3 (eps 1e-7): ``torch.optim.Adam``
+======================  ====================================================
+
+Keras ``clipnorm`` clips each gradient *tensor* to L2 norm 1 before the
+momentum update (:func:`clip_by_per_tensor_norm`), not the global norm of
+``torch.nn.utils.clip_grad_norm_``.  Keras's momentum SGD scales the
+gradient by the lr *before* it enters the velocity, which
+``torch.optim.SGD`` does not (it scales the velocity), and the two part
+under a decaying lr.  Schedules count from 0 at the first update, as
+optax's ``scale_by_learning_rate`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import torch
+
+
+def clip_by_per_tensor_norm(grads: list[torch.Tensor],
+                            max_norm: float) -> None:
+    """Scale each gradient tensor in place to at most ``max_norm`` L2 norm
+    (norms floored at 1e-12)."""
+    if not grads:
+        return
+    norms = torch.stack(torch._foreach_norm(grads))
+    scales = (max_norm / norms.clamp_min(1e-12)).clamp_max(1.0)
+    torch._foreach_mul_(grads, list(scales.unbind()))
+
+
+def exponential_decay(init_value: float, decay_steps: int,
+                      decay_rate: float = 0.1) -> Callable[[int], float]:
+    """Keras ``ExponentialDecay(staircase=False)``:
+    ``lr(t) = init * rate ** (t / decay_steps)``."""
+    return lambda t: init_value * decay_rate ** (t / decay_steps)
+
+
+class KerasSGD(torch.optim.Optimizer):
+    """Keras momentum SGD under a schedule: per parameter, optionally
+    ``g`` clipped to ``clipnorm`` (:func:`clip_by_per_tensor_norm`), then
+    ``v <- m*v + lr_t*g; p <- p - v``, with ``t`` the updates taken before
+    this one.  State per parameter: ``momentum_buffer`` and ``step``."""
+
+    def __init__(self, params: Iterable, schedule: Callable[[int], float],
+                 momentum: float = 0.9, clipnorm: float | None = None):
+        super().__init__(params, dict(momentum=momentum, clipnorm=clipnorm))
+        self.schedule = schedule
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["clipnorm"] is not None:
+                clip_by_per_tensor_norm(grads, group["clipnorm"])
+            bufs = []
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                bufs.append(state["momentum_buffer"])
+            t = int(self.state[params[0]]["step"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, grads, alpha=self.schedule(t))
+            torch._foreach_sub_(params, bufs)
+            for p in params:
+                self.state[p]["step"] = t + 1
+        return loss
+
+
+def lemaire_optimizer(params: Iterable, tr_steps: int,
+                      init_lr: float = 0.002):
+    sched = exponential_decay(init_lr, 3 * tr_steps)
+    return KerasSGD(params, sched, momentum=0.9, clipnorm=1.0), sched
+
+
+def papakostas_optimizer(params: Iterable, init_lr: float = 0.001):
+    sched = exponential_decay(1.0, 700)
+    opt = torch.optim.SGD(params, lr=init_lr)
+    decay = torch.optim.lr_scheduler.LambdaLR(opt, sched)
+    opt.register_step_post_hook(lambda *_: decay.step())
+    return opt, lambda t: init_lr * sched(t)
+
+
+def adam_optimizer(params: Iterable, lr: float):
+    # Keras Adam's eps is 1e-7 (torch's default is 1e-8).
+    return torch.optim.Adam(params, lr=lr, eps=1e-7), lambda t: lr
+
+
+def for_model(name: str, params: Iterable, tr_steps: int):
+    """Optimizer over ``params`` and its lr schedule for a registry model
+    name."""
+    if name.startswith("Lemaire"):
+        return lemaire_optimizer(params, tr_steps)
+    if name.startswith("Doukhan"):
+        return adam_optimizer(params, 1e-4)
+    if name.startswith("Papakostas"):
+        return papakostas_optimizer(params)
+    if name.startswith("Jang"):
+        return adam_optimizer(params, 1e-3)
+    raise ValueError(f"unknown model {name!r}")

@@ -27,7 +27,11 @@ def test_port_imports_neither_jax_nor_jax_package():
     for new in ("cli.segment", "cli.hpss_resynth", "models.jang",
                 "models.pool", "ops.mixing", "ops.hpss", "infer",
                 "eval.tester", "data.featurize", "data.folds",
-                "data.batcher", "ops.silence"):
+                "data.batcher", "ops.silence", "train.losses",
+                "train.optimizers", "train.state", "train.checkpoint",
+                "train.loop", "train.config", "train.endtoend",
+                "data.prefetch", "data.audiostream", "utils.results",
+                "cli.experiment", "cli.mtl", "models.layers"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
