@@ -22,7 +22,9 @@ Phases, each of which must pass:
 7. Jang-MTL serving (``--model Jang_et_al_MTL``, features through K2): the
    60 s and 10-minute broadcasts on the card, a 10 s broadcast on the card
    and on the CPU (tracks within 1e-3), and the 10-minute features through
-   K2 against the plain version (<= 0.02 dB);
+   K2 against the plain version (<= 0.02 dB); Papakostas-MTL serving (K2
+   at n_fft 400): the 60 s broadcast on the card, the 10 s one on the card
+   and on the CPU (tracks within 1e-3);
 8. HPSS resynthesis: ``cli.hpss_resynth.main`` on the 60 s broadcast on
    the card (masks through K3) and on the CPU;
 9. file-wise evaluation: on a MUSAN-shaped toy corpus (3-30 s files and
@@ -31,17 +33,26 @@ Phases, each of which must pass:
    items under 20 frames) on the card and on the CPU (predictions within
    1e-3, labels and confusion matrices equal but for near-ties);
    ``Classifier.classify_file`` on the 60 s broadcast on both; one Jang-MTL
-   ``test_model`` on the card (K2, and K3 for short items);
-10. Lemaire-MTL training at full width on a ``make_toy_musan`` corpus (9
-   files of 4 s per class): ``cli.mtl.main`` for fold 0 (2 epochs of 10
-   train and 2 val steps) by the device pipeline (K1 once per train or
-   eval step, at 48 clips x 11120 samples) and by the host pipeline (K1
-   once per featurized file); one train step from the same weights on the
-   card and on the CPU (loss, every update, BatchNorm statistics); 20
-   steps on one batch (the loss falls); the device pipeline's step time
-   (CUDA events) and K1's and the device's share of it (profiler);
+   ``test_model`` on the card (K2, and K3 for short items), and one
+   Papakostas-MTL ``test_model`` (K2 at n_fft 400, K3 for short items);
+10. training at full width on a ``make_toy_musan`` corpus (9 files of 4 s
+   per class), each through ``cli.mtl.main`` or ``cli.baseline.main`` for
+   fold 0: Lemaire-MTL (2 epochs of 10 train and 2 val steps) by the
+   device pipeline (K1 once per train or eval step, at 48 clips x 11120
+   samples) and by the host pipeline (K1 once per featurized file), and
+   with ``--frame-level-scaling`` (the statistics pass: K1 once per
+   training file); Jang-MTL by both pipelines (K2 at n_fft 512: 67 frames
+   a clip), Papakostas-MTL (K2 at n_fft 400) and Doukhan-MTL (K1) by the
+   device pipeline; the single-task Jang and Papakostas models through
+   ``cli.baseline`` for one epoch (no kernel).  One Lemaire-MTL train step
+   from the same weights on the card and on the CPU (loss, every update,
+   BatchNorm statistics), and with K1 inside; the same for Jang-MTL with
+   K2 inside and for Papakostas-MTL on patches; 20 steps on one batch for
+   Lemaire-MTL and Jang-MTL (the loss falls); the device pipeline's step
+   time (CUDA events) and the kernel's and the device's share of it
+   (profiler), for Lemaire-MTL and Jang-MTL;
 11. checks on the launch counts, and that every launch shape of phases 4-10
-   was checked in phase 3 (K1 also at 12 clips x 43760 samples, the
+   was checked in phase 3 (K1 and K2 also at 12 clips x 43760 samples, the
    device pipeline's launch on a corpus of MUSAN's size).
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -100,11 +111,15 @@ SMR_LEVELS = (-5, 0, 5, 10, 15, 20)
 TRAIN_FILES, TRAIN_SECONDS = 9, 4.0
 #: Training run of each pipeline: epochs, train and val steps per epoch.
 TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 10, 2
-#: K1's launches in the device training pipeline, (clips, samples): 16
-#: clips per class of one 68-frame patch (the toy corpus resolves
-#: ``clip_patches`` to 1), and 4 clips per class of four patches (a corpus
-#: of MUSAN's size resolves it to 4).
+#: K1's and K2's launches in the device training pipeline, (clips,
+#: samples): 16 clips per class of one 68-frame patch (the toy corpus
+#: resolves ``clip_patches`` to 1), and 4 clips per class of four patches
+#: (a corpus of MUSAN's size resolves it to 4).  The crop is framed for a
+#: 400-sample window: at n_fft 512 it holds 67 and 271 frames.
 TRAIN_SHAPES = ((48, 11120), (12, 43760))
+#: The models phase 10 trains beside Lemaire-MTL, and their run names.
+IMAGE_MTL = ("Jang_et_al_MTL", "Papakostas_et_al_MTL", "Doukhan_et_al_MTL")
+BASELINES = ("Jang_et_al", "Papakostas_et_al")
 #: One train step on the card against the same step on the CPU: the loss
 #: (relative), each parameter's update (relative to the update's L2 norm,
 #: plus a rounding floor, see ``_step_card_vs_cpu``), the BatchNorm
@@ -116,10 +131,24 @@ STEP_LOSS_RTOL, STEP_UPDATE_RTOL, STEP_STATS_TOL = 1e-3, 1e-2, 1e-3
 #: 0.1, which moves some updates by a few percent of their norm (3.0e-2
 #: on an H100 80GB HBM3 for this corpus and seed).
 STEP_AUDIO_UPDATE_RTOL = 1e-1
-#: The Lemaire optimizer's first lr (``train.optimizers``), the largest
-#: update a parameter element can take in one step (gradients clipped to
-#: norm 1 per tensor).
-STEP_LR = 0.002
+#: Jang-MTL's step with K2 inside: each update's bar.  Its mel-scale
+#: kernels read the standardized features directly, and a 67-frame row at
+#: the dB floor but for one frame standardizes to 0 where the row is
+#: exactly constant (the CPU's, say) and to sqrt(66) = 8.1 at that frame
+#: where it is not (the card's, 1e-6 dB off): the features differ by up
+#: to 8.1 in 34 rows of 24672, which moves melCl_P's update by 17% of its
+#: norm (an H100 80GB HBM3 for this corpus and seed).
+STEP_JANG_AUDIO_UPDATE_RTOL = 5e-1
+#: The biases that feed a BatchNorm have a gradient of 0 in exact
+#: arithmetic; their updates, rounding noise on both sides, are held to
+#: this share of the first lr per element.
+ZERO_GRAD_UPDATE = 1e-2
+#: The optimizer of the card-against-CPU steps of the image models: plain
+#: SGD (Papakostas's), whose update is lr * g, so that the update bars hold
+#: the gradients.  Jang's and Doukhan's Adam takes lr * g / (|g| + eps) at
+#: its first step, which turns a gradient that is 0 in exact arithmetic (a
+#: conv bias before a BatchNorm) into an update of ~lr of either sign.
+STEP_SGD = "Papakostas_et_al"
 #: Clips under this many frames take the short-clip kernels (K4, K3).
 SHORT_FRAMES = 2 * (21 // 2)
 #: Resynthesized signals, GPU run against the CPU run: max |delta| over the
@@ -368,11 +397,14 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     """K1, K2, K3 and K4 against their plain versions on the card, at edge
     geometries and at every launch shape of the paths: K1 at the 60 s
     Lemaire broadcast bucketed to 6024 frames, the 10-minute slabs (16394
-    and 16404 frames) and each evaluated file's length; K2 at n_fft 512 at
-    the bucketed 10 s (1081) and 60 s (6023) Jang broadcasts, the same
-    slabs and each evaluated file's length; K3 at the 60 s resynthesis
-    (201 bins, 5998 frames) and at 257 bins, every T under 20 (Jang's short
-    items); K4 at 201 bins, every T under 20 (Lemaire's short items).
+    and 16404 frames), each evaluated file's length and the training
+    launches; K2 at n_fft 512 at the bucketed 10 s (1081) and 60 s (6023)
+    Jang broadcasts, the same slabs and each evaluated file's length, at
+    n_fft 400 at Papakostas's served and evaluated lengths, and both at the
+    training launches; K3 at the 60 s resynthesis (201 bins, 5998 frames)
+    and at 257 and 201 bins, every T under 20 (Jang's and Papakostas's
+    short items); K4 at 201 bins, every T under 20 (Lemaire's short
+    items).
     K1 and K2 run through ``frontend.launch``, which launches the fused
     kernel at every length (the dispatchers send T < 20 to K4 and K3).
     ``eval_frames`` holds the evaluation's frame counts per kernel and the
@@ -419,6 +451,9 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
                 for T in (1, 7, 19, 21, 48, 98)]
     k2_cases += [(512, 21, 11, 1, T) for T in sorted(
         {1081, 6023, 16394, 16404} | eval_frames["K2"])]
+    k2_cases += [(400, 21, 11, 1, T) for T in sorted(eval_frames["K2_400"])]
+    k2_cases += [(n_fft, 21, 11, B, n_frames(N, n_fft, 160))
+                 for n_fft in (512, 400) for B, N in TRAIN_SHAPES]
     k2_err = 0.0
     for n_fft, lh, lp, B, T in k2_cases:
         y = audio(n_fft, B, T)
@@ -436,7 +471,8 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     k3_cases = [(mo, 21, 11, 2, 201, T) for mo in (False, True)
                 for T in (1, 19, 364, 365)]
     k3_cases += [(mo, 21, 11, 1, 201, 5998) for mo in (False, True)]
-    k3_cases += [(False, 21, 11, 1, 257, T) for T in range(1, SHORT_FRAMES)]
+    k3_cases += [(False, 21, 11, 1, F, T) for F in (257, 201)
+                 for T in range(1, SHORT_FRAMES)]
     k3_err = 0.0
     for mo, lh, lp, B, F, T in k3_cases:
         S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
@@ -550,6 +586,30 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             "device_ms": device_ms(run, "frontend_kernel"),
             "plain_ms": plain_ms[0], "bound_ms": bound, "bound_by": by}
     entries[0]["training_shapes"] = trained
+    # K2 at the same launches, for Jang-MTL (n_fft 512) and Papakostas-MTL
+    # (n_fft 400).
+    trained = {}
+    for n_fft in (512, 400):
+        for B, N in TRAIN_SHAPES:
+            T = n_frames(N, n_fft, 160)
+            y = torch.randn((B, N), generator=gen, device="cuda")
+            run = lambda: frontend.stft_hpss(y, n_fft=n_fft)  # noqa: E731
+            ms = cuda_ms(run, reps=50)
+            plain_ms = cuda_ms(
+                lambda: frontend.stft_hpss_plain(y, n_fft=n_fft), reps=3,
+                batches=3)
+            bound, by, _ = frontend_bound_ms(T, N, n_fft, shared[(21, 11)],
+                                             card, B=B)
+            trained[f"n_fft{n_fft}_{B}x{N}"] = {
+                "frames": T, "ms": ms[0], "ms_spread": ms[1:],
+                "device_ms": device_ms(run, "frontend_kernel"),
+                "plain_ms": plain_ms[0], "bound_ms": bound, "bound_by": by,
+                "blocks_per_sm": frontend.blocks_per_sm(
+                    fullres=True, n_fft=n_fft, hop_length=160, l_harm=21,
+                    l_perc=11),
+                **ptxas_report("frontend.cu",
+                               "frontend_kernelILi21ELi11ELb1E")}
+    entries[1]["training_shapes"] = trained
     # K3: the 60 s resynthesis (mask-only), on one resident input and on
     # a rotation of 12 inputs (58 MB, over the 50 MB L2), and Jang's most
     # frequent short evaluation item (1 x 257 x T, masked components).
@@ -970,10 +1030,10 @@ def classify(wav: str, weights: str, device: str) -> dict:
 def make_train_corpus(root: str) -> dict:
     """The training corpus: ``make_toy_musan`` with ``TRAIN_FILES`` files
     of ``TRAIN_SECONDS`` per class, and its folds where ``cli.mtl`` reads
-    them.  Returns the root, fold 0's training split, and the frames of
-    every item the host pipeline's featurizer can compute: each music and
-    speech file's length bucket (a mixture takes its speech file's
-    length), launched one item at a time."""
+    them.  Returns the root, fold 0's training split, and per n_fft (400,
+    512) the frames of every item the host pipeline's featurizer can
+    compute: each music and speech file's length bucket (a mixture takes
+    its speech file's length), launched one item at a time."""
     from sm_hpss_mtl_tpu_torch.cli.experiment import (load_or_create_folds,
                                                       split_train_val)
     from sm_hpss_mtl_tpu_torch.data import audio
@@ -985,45 +1045,66 @@ def make_train_corpus(root: str) -> dict:
                          duration_s=TRAIN_SECONDS, seed=SEED)
     cv = load_or_create_folds(ExperimentConfig(data_root=root))
     tr, _ = split_train_val(get_train_test_files(cv, 0)[0])
-    frames = {n_frames(bucket_length(len(audio.load_and_preprocess_signal(
-        os.path.join(root, c, f))[0])), 400, 160)
+    lengths = {bucket_length(len(audio.load_and_preprocess_signal(
+        os.path.join(root, c, f))[0]))
         for c in ("music", "speech")
         for f in os.listdir(os.path.join(root, c)) if f.endswith(".wav")}
-    return {"root": root, "train_files": tr, "frames": frames}
+    return {"root": root, "train_files": tr,
+            "frames": {n_fft: {n_frames(n, n_fft, 160) for n in lengths}
+                       for n_fft in (400, 512)}}
 
 
-def train_cli(corpus: dict, out: str, pipeline: str) -> dict:
-    """One ``cli.mtl`` run of fold 0 on the card (host clock around it);
-    its outputs checked, and K1 launched once per device-pipeline train
-    or eval step and once per featurized file, nothing else."""
-    from sm_hpss_mtl_tpu_torch.cli import mtl
+def model_kernel(model: str) -> str | None:
+    """The kernel a model's features launch: K1 for the Mel-HPSS families,
+    K2 for the full-resolution HPSS ones, none for the plain spectrograms
+    of the single-task baselines."""
+    from sm_hpss_mtl_tpu_torch.train.config import MODEL_PRESETS
+    name = MODEL_PRESETS[model]["feat_name"]
+    if "Harm" not in name and "Perc" not in name:
+        return None
+    return "K1" if "Mel" in name else "K2"
+
+
+def train_cli(corpus: dict, out: str, pipeline: str,
+              model: str = "Lemaire_et_al_MTL", extra: tuple = (),
+              epochs: int = TRAIN_EPOCHS) -> dict:
+    """One ``cli.mtl`` run (``cli.baseline`` for a single-task model) of
+    fold 0 on the card (host clock around it); its outputs checked, and the
+    model's kernel launched once per device-pipeline train or eval step and
+    once per featurized file (the statistics pass's too), nothing else."""
+    from sm_hpss_mtl_tpu_torch.cli import baseline, mtl
+    from sm_hpss_mtl_tpu_torch.models.zoo import MTL
+    main = mtl.main if MTL[model] else baseline.main
+    tag = f"{model} {pipeline} {' '.join(extra)}".strip()
     with recorded() as rec:
         t0 = time.perf_counter()
-        res = mtl.main(["--data", corpus["root"], "--output", out,
-                        "--pipeline", pipeline, "--epochs",
-                        str(TRAIN_EPOCHS), "--tr-steps", str(TRAIN_STEPS),
-                        "--v-steps", str(VAL_STEPS), "--lr-schedule-steps",
-                        "100000", "--folds", "0"])
+        res = main(["--data", corpus["root"], "--output", out, "--model",
+                    model, "--pipeline", pipeline, "--epochs", str(epochs),
+                    "--tr-steps", str(TRAIN_STEPS), "--v-steps",
+                    str(VAL_STEPS), "--lr-schedule-steps", "100000",
+                    "--folds", "0", *extra])
         total_s = time.perf_counter() - t0
     fold = res[0]
     row, hist = fold["row"], fold["fit"].history
-    check(fold["pipeline"] == pipeline, f"ran the {fold['pipeline']} "
-          f"pipeline, asked for {pipeline}")
-    check(len(hist) == TRAIN_EPOCHS, f"{pipeline}: {len(hist)} epochs")
+    check(fold["pipeline"] == pipeline, f"{tag}: ran the {fold['pipeline']} "
+          f"pipeline")
+    check(len(hist) == epochs, f"{tag}: {len(hist)} epochs")
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["val_loss"])
-              for h in hist), f"{pipeline}: losses not finite: {hist}")
+              for h in hist), f"{tag}: losses not finite: {hist}")
     check(np.isfinite(row["val_loss"]) and 0 <= row["accuracy"] <= 1,
-          f"{pipeline}: fold row {row}")
+          f"{tag}: fold row {row}")
     for name in ("Performance.csv", "fold0_log.csv",
                  "fold0_ckpt/state/model.npz"):
         check(os.path.exists(os.path.join(fold["op_dir"], name)),
-              f"{pipeline}: {name} not written")
+              f"{tag}: {name} not written")
     computes = fold["cache_stats"]["featurizer"]["computes"]
-    steps = TRAIN_EPOCHS * (TRAIN_STEPS + VAL_STEPS)
-    want = computes + (steps if pipeline == "device" else 0)
-    check(rec["launches"] == {"K1": want, "K2": 0, "K3": 0, "K4": 0},
-          f"{pipeline}: launches {rec['launches']}, want K1 {want} "
-          f"({computes} featurized files)")
+    steps = epochs * (TRAIN_STEPS + VAL_STEPS)
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    kernel = model_kernel(model)
+    if kernel:
+        want[kernel] = computes + (steps if pipeline == "device" else 0)
+    check(rec["launches"] == want, f"{tag}: launches {rec['launches']}, "
+          f"want {want} ({computes} featurized files)")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
             "total_s": total_s, "featurized_files": computes,
             "epoch_train_s": [h["epoch_train_s"] for h in hist],
@@ -1032,61 +1113,98 @@ def train_cli(corpus: dict, out: str, pipeline: str) -> dict:
             "history": hist}
 
 
+def _feature_config(model: str):
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
+    from sm_hpss_mtl_tpu_torch.train.config import (MODEL_PRESETS,
+                                                    preset_n_mels)
+    preset = MODEL_PRESETS[model]
+    return FeatureConfig(feat_name=preset["feat_name"], n_fft=preset["n_fft"],
+                         n_mels=preset_n_mels(preset))
+
+
 def _train_setup(device: str, net, seed: int, audio: bool = True,
-                 **step_kw):
-    """A copy of ``net`` on ``device``, its Lemaire optimizer and a train
-    step at full width: the device pipeline's (``audio``: 16 clips per
-    class, one 68-frame patch each, K1 inside) or the patch step."""
+                 model: str = "Lemaire_et_al_MTL",
+                 optimizer: str | None = None, **step_kw):
+    """A copy of ``net`` on ``device``, an optimizer (``model``'s, or that
+    of the ``optimizer`` family) and a train step at full width: the device
+    pipeline's (``audio``: 16 clips per class, one 68-frame patch each, the
+    model's kernel inside) or the patch step.  Also the first lr."""
     import copy
 
     import torch
-    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
+    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
     from sm_hpss_mtl_tpu_torch.train.endtoend import make_audio_train_step
     from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
     from sm_hpss_mtl_tpu_torch.train.state import TrainState, make_train_step
-    model = copy.deepcopy(net).to(device)
-    opt, _ = for_model("Lemaire_et_al_MTL", model.parameters(),
-                       tr_steps=100000)
+    model_ = copy.deepcopy(net).to(device)
+    opt, sched = for_model(optimizer or model, model_.parameters(),
+                           tr_steps=100000)
     kw = dict(generator=torch.Generator(device=device).manual_seed(seed),
               l2_reg=0.01, **step_kw)
-    step = (make_audio_train_step(model, opt, FeatureConfig(), patch_size=68,
-                                  patch_shift=68, n_patches_per_clip=1, **kw)
-            if audio else make_train_step(model, opt, mtl=True, **kw))
-    return model, TrainState(model, opt), step
+    step = (make_audio_train_step(model_, opt, _feature_config(model),
+                                  patch_size=68, patch_shift=68,
+                                  n_patches_per_clip=1,
+                                  input_kind=INPUT_KIND[model], **kw)
+            if audio else make_train_step(model_, opt, mtl=True, **kw))
+    return model_, TrainState(model_, opt), step, float(sched(0))
 
 
-def _crops(corpus: dict, seed: int):
+def _crops(corpus: dict, seed: int, model: str = "Lemaire_et_al_MTL"):
     from sm_hpss_mtl_tpu_torch.data.audiostream import (AudioCache,
                                                         AudioCropBatcher)
-    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
     return AudioCropBatcher(AudioCache(), corpus["root"],
-                            corpus["train_files"], FeatureConfig(),
+                            corpus["train_files"], _feature_config(model),
                             clips_per_class=16, n_patches_per_clip=1,
                             patch_size=68, seed=seed)
 
 
-def _step_card_vs_cpu(net, batch, labels, audio: bool,
-                      update_rtol: float) -> dict:
+def _bn_fed_biases(model) -> set[str]:
+    """The biases of the layers that feed a BatchNorm (``X.conv``/``X.dense``
+    before ``X.bn``, Jang's ``fc1`` before ``fc1_bn``): a train-mode
+    BatchNorm subtracts the batch mean, so their gradient is 0 in exact
+    arithmetic and what a step computes for them is rounding noise."""
+    import torch
+    names = set(model.state_dict())
+    out = set()
+    for path, mod in model.named_modules():
+        if not isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+            continue
+        base, _, leaf = path.rpartition(".")
+        feeds = ([f"{base}.conv", f"{base}.dense"] if leaf == "bn"
+                 else [path[:-len("_bn")]] if path.endswith("_bn") else [])
+        out |= {f"{f.lstrip('.')}.bias" for f in feeds} & names
+    return out
+
+
+def _step_card_vs_cpu(net, batch, labels, audio: bool, update_rtol: float,
+                      model: str = "Lemaire_et_al_MTL",
+                      optimizer: str | None = None) -> dict:
     """One train step of ``net`` on ``batch`` on the CPU and on the card:
     the loss, the BatchNorm statistics and every parameter's update (to
-    ``update_rtol`` of its norm) held to their bars."""
+    ``update_rtol`` of its norm) held to their bars; the biases that feed
+    a BatchNorm, whose updates are rounding noise on both sides, to
+    ``ZERO_GRAD_UPDATE`` of the first lr per element instead.  Every
+    violation is reported."""
     import torch
     from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
     before = {k: v.clone() for k, v in net.state_dict().items()}
+    noise = _bn_fed_biases(net)
     got = {}
     for dev in ("cpu", "cuda"):
-        model, state, step = _train_setup(dev, net, SEED, audio=audio)
+        model_, state, step, lr = _train_setup(dev, net, SEED, audio=audio,
+                                               model=model,
+                                               optimizer=optimizer)
         d = torch.device(dev)
         loss = float(step(state, to_device(batch, d),
                           to_device(labels, d))["loss"])
         got[dev] = (loss, {k: v.detach().cpu()
-                           for k, v in model.state_dict().items()})
+                           for k, v in model_.state_dict().items()})
     (loss_cpu, cpu), (loss_gpu, gpu) = got["cpu"], got["cuda"]
-    tag = "audio step" if audio else "patch step"
+    tag = f"{model} {'audio' if audio else 'patch'} step"
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    check(loss_rel <= STEP_LOSS_RTOL, f"{tag}: loss card {loss_gpu} vs "
-          f"CPU {loss_cpu}")
-    update_rel, stats_err, worst = 0.0, 0.0, ""
+    bad = [] if loss_rel <= STEP_LOSS_RTOL else [
+        f"loss card {loss_gpu} vs CPU {loss_cpu}"]
+    rels, stats_err, noise_max = {}, 0.0, 0.0
     for k, b in before.items():
         if k.endswith("num_batches_tracked"):
             continue
@@ -1094,28 +1212,88 @@ def _step_card_vs_cpu(net, batch, labels, audio: bool,
             err = float(((gpu[k] - cpu[k]).abs()
                          / cpu[k].abs().clamp_min(1.0)).max())
             stats_err = max(stats_err, err)
-            check(err <= STEP_STATS_TOL, f"{tag}: {k} card vs CPU {err:.3e}")
+            if err > STEP_STATS_TOL:
+                bad.append(f"{k} card vs CPU {err:.3e}")
             continue
         b = b.double()
         d_cpu, d_gpu = cpu[k].double() - b, gpu[k].double() - b
+        if k in noise:
+            bar = ZERO_GRAD_UPDATE * lr * b.numel() ** 0.5
+            norm = float(max(d_cpu.norm(), d_gpu.norm()))
+            noise_max = max(noise_max, norm / (lr * b.numel() ** 0.5))
+            if norm > bar:
+                bad.append(f"{k} (feeds a BatchNorm) update norm {norm:.3e} "
+                           f"over {bar:.3e}")
+            continue
         # Below the relative bar: two float32 ulps of the parameter, and
-        # 1e-6 of the largest update (the first lr) per element, where a
-        # gradient that is 0 in exact arithmetic (a dense bias before a
-        # BatchNorm) leaves its rounding noise.
-        floor = (2 * 2.0 ** -23 * b.norm()
-                 + 1e-6 * STEP_LR * b.numel() ** 0.5)
+        # 1e-6 of the largest update (the first lr) per element.
+        floor = 2 * 2.0 ** -23 * b.norm() + 1e-6 * lr * b.numel() ** 0.5
         tol = update_rtol * d_cpu.norm() + floor
         diff = (d_gpu - d_cpu).norm()
-        check(diff <= tol,
-              f"{tag}: {k} update card vs CPU |delta| {diff:.3e} over "
-              f"{tol:.3e} (update norm {d_cpu.norm():.3e})")
+        if diff > tol:
+            bad.append(f"{k} update card vs CPU |delta| {diff:.3e} over "
+                       f"{tol:.3e} (update norm {d_cpu.norm():.3e})")
         if d_cpu.norm() > floor:
-            rel = float(diff / d_cpu.norm())
-            if rel > update_rel:
-                update_rel, worst = rel, k
+            rels[k] = float(diff / d_cpu.norm())
+    top = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    check(not bad, f"{tag}: " + "; ".join(bad))
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
-            "loss_rel": loss_rel, "update_rel_max": update_rel,
-            "update_rel_max_at": worst, "stats_err_max": stats_err}
+            "loss_rel": loss_rel, "update_rel_max": top[0][1],
+            "update_rel_max_at": top[0][0], "update_rel_top": dict(top),
+            "stats_err_max": stats_err,
+            "bn_fed_bias_update_max_per_lr": noise_max}
+
+
+def _seeded(model: str, dropout: bool = True):
+    """``model`` at full width with Keras's initialisation from SEED; with
+    ``dropout=False`` every dropout's rate is 0."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.models import layers
+    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
+    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+    kw = {} if dropout or not model.startswith("Lemaire") else {
+        "dropout_rate": 0.0}
+    net = init_weights(get_model(model, **kw),
+                       torch.Generator().manual_seed(SEED))
+    if not dropout:
+        for m in net.modules():
+            if isinstance(m, layers.Dropout):
+                m.rate = 0.0
+    return net
+
+
+def _features_card_vs_cpu(audio, model: str) -> tuple[dict, "object"]:
+    """The device pipeline's patches of ``audio`` on the card (the model's
+    kernel) and on the CPU (the plain version): the CPU's patches and the
+    difference's statistics."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
+    from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
+    feats = {dev: device_featurize_patches(
+        to_device(audio, torch.device(dev)), _feature_config(model),
+        patch_size=68, patch_shift=68, max_patches=1,
+        input_kind=INPUT_KIND[model]).cpu() for dev in ("cpu", "cuda")}
+    fdiff = (feats["cuda"] - feats["cpu"]).abs()
+    rows = fdiff.amax(dim=1) if fdiff.ndim == 3 else fdiff.amax(dim=2)
+    return {"features_max_abs_delta": float(fdiff.max()),
+            "features_mean_abs_delta": float(fdiff.mean()),
+            "features_rows_over_1e-2": int((rows > 1e-2).sum())}, feats["cpu"]
+
+
+def _falls(model: str, net, audio, labels, steps: int = 20) -> list:
+    """``steps`` audio steps on one batch on the card with the model's own
+    optimizer; the loss stays finite and falls."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    _, state, step, _ = _train_setup("cuda", net, SEED, model=model)
+    dev = torch.device("cuda")
+    a, y = to_device(audio, dev), to_device(labels, dev)
+    losses = torch.stack([step(state, a, y)["loss"]
+                          for _ in range(steps)]).tolist()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{model}: {steps} steps on one batch: losses {losses}")
+    return losses
 
 
 def train_step_checks(corpus: dict) -> dict:
@@ -1125,67 +1303,66 @@ def train_step_checks(corpus: dict) -> dict:
     to every bar (loss, each update, BatchNorm statistics); one audio step
     (K1 inside on the card) on both, held to the same loss and statistics
     bars and to ``STEP_AUDIO_UPDATE_RTOL`` on each update.  Then 20 audio
-    steps on that batch on the card:
-    the loss stays finite and falls."""
-    import torch
-    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig
-    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
-    from sm_hpss_mtl_tpu_torch.models import layers
-    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
-    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
-    from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
-
-    audio, labels = next(_crops(corpus, SEED))
-    net = init_weights(get_model("Lemaire_et_al_MTL", dropout_rate=0.0),
-                       torch.Generator().manual_seed(SEED))
-    for m in net.modules():
-        if isinstance(m, layers.Dropout):
-            m.rate = 0.0
-    feats = {dev: device_featurize_patches(
-        to_device(audio, torch.device(dev)), FeatureConfig(), patch_size=68,
-        patch_shift=68, max_patches=1).cpu() for dev in ("cpu", "cuda")}
-    fdiff = (feats["cuda"] - feats["cpu"]).abs()
+    steps on that batch on the card: the loss stays finite and falls."""
+    model = "Lemaire_et_al_MTL"
+    audio, labels = next(_crops(corpus, SEED, model))
+    net = _seeded(model, dropout=False)
+    feat_stats, patches = _features_card_vs_cpu(audio, model)
     # Patch j of clip b is row j*B + b; one patch a clip, so the clips'
     # labels are the rows'.
-    patch = _step_card_vs_cpu(net, feats["cpu"], labels, audio=False,
+    patch = _step_card_vs_cpu(net, patches, labels, audio=False,
                               update_rtol=STEP_UPDATE_RTOL)
     audio_step = _step_card_vs_cpu(net, audio, labels, audio=True,
                                    update_rtol=STEP_AUDIO_UPDATE_RTOL)
-
-    model, state, step = _train_setup("cuda", net, SEED)
-    dev = torch.device("cuda")
-    a, y = to_device(audio, dev), to_device(labels, dev)
-    losses = torch.stack([step(state, a, y)["loss"]
-                          for _ in range(20)]).tolist()
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"20 steps on one batch: losses {losses}")
-    return {"features_max_abs_delta": float(fdiff.max()),
-            "features_mean_abs_delta": float(fdiff.mean()),
-            "features_rows_over_1e-2": int(
-                (fdiff.amax(dim=1) > 1e-2).sum()),
-            "patch_step": patch, "audio_step": audio_step,
-            "fixed_batch_losses": losses}
+    return {**feat_stats, "patch_step": patch, "audio_step": audio_step,
+            "fixed_batch_losses": _falls(model, net, audio, labels)}
 
 
-def time_device_steps(corpus: dict, steps: int = 30,
-                      profiled: int = 10) -> dict:
-    """Device-pipeline train steps at full width on the card, fed by the
-    crop batcher through the prefetcher, dropout and augmentation on.
-    Each step's period (its start to the next one's, CUDA events) and its
-    own span; over a further ``profiled`` steps, K1's device time and all
-    device time per step from ``torch.profiler``, against the host clock
-    around them."""
+def image_step_checks(corpus: dict) -> dict:
+    """Jang-MTL: the features on the card (K2, n_fft 512) against the
+    CPU's, one audio step (K2 inside on the card) on the card and on the
+    CPU with plain SGD (``STEP_SGD``) at the loss and statistics bars and
+    ``STEP_JANG_AUDIO_UPDATE_RTOL`` on each update, and 20
+    audio steps on one batch with its own Adam (the loss falls).
+    Papakostas-MTL: one patch step on the CPU's features (HarmPercSpec,
+    n_fft 400) on the card and on the CPU at the patch step's bars.  One
+    crop batch each, dropout and augmentation off."""
+    out = {}
+    jang = "Jang_et_al_MTL"
+    audio, labels = next(_crops(corpus, SEED, jang))
+    net = _seeded(jang, dropout=False)
+    feat_stats, _ = _features_card_vs_cpu(audio, jang)
+    out[jang] = {**feat_stats, "audio_step": _step_card_vs_cpu(
+        net, audio, labels, audio=True,
+        update_rtol=STEP_JANG_AUDIO_UPDATE_RTOL, model=jang,
+        optimizer=STEP_SGD),
+        "fixed_batch_losses": _falls(jang, net, audio, labels)}
+    del net
+    pap = "Papakostas_et_al_MTL"
+    audio, labels = next(_crops(corpus, SEED, pap))
+    net = _seeded(pap, dropout=False)
+    feat_stats, patches = _features_card_vs_cpu(audio, pap)
+    out[pap] = {**feat_stats, "patch_step": _step_card_vs_cpu(
+        net, patches, labels, audio=False, update_rtol=STEP_UPDATE_RTOL,
+        model=pap)}
+    return out
+
+
+def time_device_steps(corpus: dict, model: str = "Lemaire_et_al_MTL",
+                      steps: int = 30, profiled: int = 10) -> dict:
+    """Device-pipeline train steps of ``model`` at full width on the card,
+    fed by the crop batcher through the prefetcher, dropout and
+    augmentation on.  Each step's period (its start to the next one's, CUDA
+    events) and its own span; over a further ``profiled`` steps, the
+    kernel's (K1 or K2) device time and all device time per step from
+    ``torch.profiler``, against the host clock around them."""
     import torch
     from sm_hpss_mtl_tpu_torch.data.prefetch import DevicePrefetcher
-    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
-    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
     from torch.profiler import ProfilerActivity, profile
 
-    net = init_weights(get_model("Lemaire_et_al_MTL"),
-                       torch.Generator().manual_seed(SEED))
-    _, state, step = _train_setup("cuda", net, SEED,
-                                  augment_noise=True)
-    it = DevicePrefetcher(_crops(corpus, SEED + 100), "cuda")
+    _, state, step, _ = _train_setup("cuda", _seeded(model), SEED,
+                                     model=model, augment_noise=True)
+    it = DevicePrefetcher(_crops(corpus, SEED + 100, model), "cuda")
     try:
         marks = []
         for _ in range(steps):
@@ -1214,8 +1391,9 @@ def time_device_steps(corpus: dict, steps: int = 30,
     device = [e for e in prof.events()
               if e.device_type != torch.autograd.DeviceType.CPU]
     busy = sum(e.device_time_total for e in device) / 1e3
-    k1 = sum(e.device_time_total for e in device
-             if "frontend_kernel" in e.name) / 1e3
+    kern = sum(e.device_time_total for e in device
+               if "frontend_kernel" in e.name) / 1e3
+    k = model_kernel(model).lower()
     # Where the host's time goes: the operators with the most self CPU
     # time per step (the profiler's own cost is in them too).
     host_ops = sorted(prof.key_averages(),
@@ -1229,8 +1407,8 @@ def time_device_steps(corpus: dict, steps: int = 30,
             "profiled_wall_ms_per_step": wall_ms / profiled,
             "device_busy_ms_per_step": busy / profiled if device else None,
             "device_idle_share": 1 - busy / wall_ms if device else None,
-            "k1_device_ms_per_step": k1 / profiled if device else None,
-            "k1_share_of_step": (k1 / profiled) / period[mid]
+            f"{k}_device_ms_per_step": kern / profiled if device else None,
+            f"{k}_share_of_step": (kern / profiled) / period[mid]
             if device else None,
             "device_busy_share_of_step": (busy / profiled) / period[mid]
             if device else None,
@@ -1284,15 +1462,21 @@ def run() -> None:
         train_corpus = make_train_corpus(out("train_corpus"))
         lem_frames = eval_item_frames(corpus, 400, sweep=True)
         jang_frames = eval_item_frames(corpus, 512, sweep=False)
+        pap_frames = eval_item_frames(corpus, 400, sweep=False)
         n60 = len(load_and_preprocess_signal(wav60)[0])
         short = Counter(T for T in lem_frames if T < SHORT_FRAMES)
         check(short and any(T < SHORT_FRAMES for T in jang_frames),
               "the evaluation corpus has no short item")
+        served_400 = {n_frames(bucket_length(len(x)), 400, 160)
+                      for x in (x60, x10)}
         eval_frames = {
             "K1": {T for T in lem_frames if T >= SHORT_FRAMES}
             | {n_frames(bucket_length(n60), 400, 160)}
-            | train_corpus["frames"],
-            "K2": {T for T in jang_frames if T >= SHORT_FRAMES},
+            | train_corpus["frames"][400],
+            "K2": {T for T in jang_frames if T >= SHORT_FRAMES}
+            | train_corpus["frames"][512],
+            "K2_400": {T for T in pap_frames if T >= SHORT_FRAMES}
+            | served_400 | train_corpus["frames"][400],
             "K4_T": short.most_common(1)[0][0],
             "K3_T": Counter(T for T in jang_frames
                             if T < SHORT_FRAMES).most_common(1)[0][0]}
@@ -1304,7 +1488,8 @@ def run() -> None:
             for e in entries), flush=True)
 
         wpath = {}
-        for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL"):
+        for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
+                      "Papakostas_et_al_MTL"):
             wpath[model] = out(f"{model}.npz")
             net = init_weights(get_model(model),
                                torch.Generator().manual_seed(SEED))
@@ -1359,6 +1544,26 @@ def run() -> None:
               f"{j10['launches']['K2']}; 10 s tracks vs CPU max |delta| "
               f"{jang_track:.3e} (CPU run {j10_cpu['total_s']:.1f} s); "
               f"10 min features vs plain {jang_db:.5f} dB", flush=True)
+        pap = "Papakostas_et_al_MTL"
+        pw = wpath[pap]
+        runs["pap_60"] = p60 = serve(pap, wav60, pw, out("p60.npz"), "cuda",
+                                     x60)
+        runs["pap_10"] = p10 = serve(pap, wav10, pw, out("p10.npz"), "cuda",
+                                     x10)
+        p10_cpu = serve(pap, wav10, pw, out("q10.npz"), "cpu", x10)
+        for r in (p60, p10):
+            check(r["launches"]["K2"] == 1,
+                  f"a Papakostas run launched K2 {r['launches']['K2']} times")
+        pap_track = max(
+            float(np.abs(p10["tracks"][k] - p10_cpu["tracks"][k]).max())
+            for k in ("track_S", "track_M"))
+        check(pap_track <= TRACK_TOL,
+              f"Papakostas tracks: GPU vs CPU max |delta| {pap_track:.3e}")
+        p60_warm = serve(pap, wav60, pw, out("p60w.npz"), "cuda", x60)
+        print(f"[7 papakostas] {p60['frames']} + {p10['frames']} frames, one "
+              f"K2 launch each; 10 s tracks vs CPU max |delta| "
+              f"{pap_track:.3e} (CPU run {p10_cpu['total_s']:.1f} s); 60 s "
+              f"warm {p60_warm['total_s']:.3f} s", flush=True)
 
         runs["resynth_60"] = rs = resynth(wav60, out("rg"), "cuda")
         check(rs["launches"]["K3"] > 0, "resynthesis launched no K3")
@@ -1402,19 +1607,60 @@ def run() -> None:
               - j_short, f"Jang evaluation launches {jang_eval['launches']}"
                          f" for {j_short} short of "
                          f"{len(jang_eval['frames'])} items")
+        runs["eval_papakostas"] = pap_eval = evaluate(pap, corpus, pw,
+                                                      "cuda", sweep=False)
+        p_short = sum(T < SHORT_FRAMES for T in pap_eval["frames"])
+        check(pap_eval["launches"] == {
+            "K1": 0, "K2": len(pap_eval["frames"]) - p_short, "K3": p_short,
+            "K4": 0}, f"Papakostas evaluation launches "
+                      f"{pap_eval['launches']} for {p_short} short of "
+                      f"{len(pap_eval['frames'])} items")
         print(f"[9 evaluation] Lemaire {len(lem_eval['frames'])} items "
               f"({n_short} under {SHORT_FRAMES} frames), launches "
               f"{lem_eval['launches']}; predictions GPU vs CPU max |delta| "
               f"{eval_delta:.3e}, {len(ties)} near-ties; classifier 60 s "
               f"{clf_delta:.3e}; Jang {len(jang_eval['frames'])} items, "
-              f"launches {jang_eval['launches']}", flush=True)
+              f"launches {jang_eval['launches']}; Papakostas "
+              f"{len(pap_eval['frames'])} items, launches "
+              f"{pap_eval['launches']}", flush=True)
 
         runs["train_device"] = tdev = train_cli(train_corpus, out("td"),
                                                 "device")
         runs["train_host"] = thost = train_cli(train_corpus, out("th"),
                                                "host")
+        runs["train_lemaire_fls"] = tfls = train_cli(
+            train_corpus, out("tf"), "device",
+            extra=("--frame-level-scaling",))
         step_checks = train_step_checks(train_corpus)
         step_times = time_device_steps(train_corpus)
+        image = {}
+        for model in IMAGE_MTL:
+            image[model] = {"device_pipeline": train_cli(
+                train_corpus, out(f"t_{model}_d"), "device", model=model)}
+        runs["train_jang_device"] = image["Jang_et_al_MTL"]["device_pipeline"]
+        runs["train_jang_host"] = image["Jang_et_al_MTL"]["host_pipeline"] = \
+            train_cli(train_corpus, out("t_jang_h"), "host",
+                      model="Jang_et_al_MTL")
+        runs["train_papakostas"] = image[pap]["device_pipeline"]
+        runs["train_doukhan"] = image["Doukhan_et_al_MTL"]["device_pipeline"]
+        for model in BASELINES:
+            runs[f"train_{model}"] = train_cli(
+                train_corpus, out(f"t_{model}"), "device", model=model,
+                epochs=1)
+            image[model] = {"device_pipeline": runs[f"train_{model}"]}
+        image_checks = image_step_checks(train_corpus)
+        jang_times = time_device_steps(train_corpus, "Jang_et_al_MTL")
+        jang_step = image_checks["Jang_et_al_MTL"]["audio_step"]
+        pap_step = image_checks[pap]["patch_step"]
+        print("[10 image training] " + "; ".join(
+            f"{m}: " + ", ".join(f"{p} {r['launches']} val loss "
+                                 f"{r['val_loss']}" for p, r in v.items())
+            for m, v in image.items())
+            + f"; Jang one step card vs CPU (K2 inside): loss "
+              f"{jang_step['loss_rel']:.2e}, updates "
+              f"{jang_step['update_rel_max']:.2e}; Papakostas patch step "
+              f"updates {pap_step['update_rel_max']:.2e}; Jang step "
+              f"{jang_times['step_ms']:.3f} ms", flush=True)
         print(f"[10 training] device pipeline {tdev['launches']['K1']} K1 "
               f"launches, epochs {tdev['epoch_train_s']} s; host pipeline "
               f"{thost['launches']['K1']} K1 launches, epochs "
@@ -1443,9 +1689,12 @@ def run() -> None:
                                             j600["total_s"])}
 
     paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
-                    "classify_60", "train_device", "train_host"),
-             "K2": ("jang_60", "jang_600", "jang_10", "eval_jang"),
-             "K3": ("resynth_60", "eval_jang"),
+                    "classify_60", "train_device", "train_host",
+                    "train_lemaire_fls", "train_doukhan"),
+             "K2": ("jang_60", "jang_600", "jang_10", "eval_jang", "pap_60",
+                    "pap_10", "eval_papakostas", "train_jang_device",
+                    "train_jang_host", "train_papakostas"),
+             "K3": ("resynth_60", "eval_jang", "eval_papakostas"),
              "K4": ("eval_lemaire",)}
     for entry, (kernel, names) in zip(entries, paths.items()):
         entry["launches"] = sum(runs[n]["launches"][kernel] for n in names)
@@ -1464,6 +1713,12 @@ def run() -> None:
         "feature_max_abs_db": {"lemaire_mtl": db, "jang_mtl": jang_db},
         "jang_track_max_abs_delta_vs_cpu": jang_track,
         "jang_cpu_10s_total_ms": 1e3 * j10_cpu["total_s"],
+        "papakostas_mtl": {
+            "first_run_60s_total_ms": 1e3 * p60["total_s"],
+            "warm_60s_total_ms": 1e3 * p60_warm["total_s"],
+            "10s_total_ms": 1e3 * p10["total_s"],
+            "cpu_10s_total_ms": 1e3 * p10_cpu["total_s"],
+            "track_max_abs_delta_vs_cpu": pap_track},
         "build_s": build_s}}))
     print(json.dumps({"resynthesis": {
         "card": card, "audio_s": len(x60) / SR,
@@ -1492,8 +1747,17 @@ def run() -> None:
                      j_short, "audio_s": jang_eval["samples"] / SR,
                      "test_model_ms": 1e3 * jang_eval["test_model_s"],
                      "featurize_ms": 1e3 * jang_eval["featurize_s"],
-                     "launches": jang_eval["launches"]}}}))
+                     "launches": jang_eval["launches"]},
+        "papakostas_mtl": {"items": len(pap_eval["frames"]), "short_items":
+                           p_short, "audio_s": pap_eval["samples"] / SR,
+                           "test_model_ms": 1e3 * pap_eval["test_model_s"],
+                           "featurize_ms": 1e3 * pap_eval["featurize_s"],
+                           "launches": pap_eval["launches"]}}}))
     k1_train = entries[0]["training_shapes"]
+
+    def brief(run):
+        return {k: v for k, v in run.items() if k not in ("shapes",
+                                                          "history")}
     print(json.dumps({"training": {
         "card": card, "model": lem, "width": "32 filters, 3 stacks, Nd 8, "
         "D 240, patch 68, head width 16, 16 clips per class",
@@ -1510,7 +1774,14 @@ def run() -> None:
         "k1_at_12x43760": k1_train["12x43760"],
         "one_step_card_vs_cpu": {k: v for k, v in step_checks.items()
                                  if k != "fixed_batch_losses"},
-        "fixed_batch_losses": step_checks["fixed_batch_losses"]}}))
+        "fixed_batch_losses": step_checks["fixed_batch_losses"],
+        "frame_level_scaling": brief(tfls),
+        **{model: {**{p: brief(r) for p, r in image[model].items()},
+                   **image_checks.get(model, {}),
+                   **({"device_steps": jang_times}
+                      if model == "Jang_et_al_MTL" else {})}
+           for model in IMAGE_MTL + BASELINES},
+        "k2_training_shapes": entries[1]["training_shapes"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

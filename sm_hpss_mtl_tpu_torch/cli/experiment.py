@@ -7,9 +7,17 @@ Two input pipelines, as in the JAX package:
 
 - **device**: the host streams raw-audio crops (``data.audiostream``), and
   each step featurizes them on the device (``train.endtoend``; on CUDA
-  through kernel K1);
+  through kernel K1 for the Mel-HPSS families, K2 for the full-resolution
+  ones);
 - **host**: ``Featurizer`` computes whole-file features (on its device;
-  K1 on CUDA) and ``BalancedBatcher`` streams patch batches.
+  K1 or K2 on CUDA) and ``BalancedBatcher`` streams patch batches.
+
+Every model of ``models.zoo`` trains here: the MTL models on the S/M/R/3C
+labels with the heads' l2 penalty, the single-task ones on the one-hot
+classes alone and without it, as the JAX runner does.  With
+``frame_level_scaling`` the fold's corpus statistics (``data.stats``, one
+featurization of every training file) replace the row standardization in
+both pipelines and the tester.
 
 ``pipeline='auto'`` is the device pipeline on CUDA and the host pipeline on
 the CPU.  Everything runs on ``device``, CUDA unless the caller asks for
@@ -32,14 +40,15 @@ from ..data.featurize import Featurizer
 from ..data.folds import (create_cv_folds, get_train_test_files,
                           load_cv_folds, save_cv_folds)
 from ..data.prefetch import DevicePrefetcher
+from ..data.stats import load_or_compute_fold_stats
 from ..device import resolve_device
 from ..eval.metrics import accuracy
 from ..eval.tester import FileWiseTester
 from ..models.lemaire import init_weights
-from ..models.zoo import get_model
+from ..models.zoo import MTL, ModelSpec, get_spec
 from ..train.checkpoint import (checkpoint_exists, restore_checkpoint,
                                 update_metadata)
-from ..train.config import ExperimentConfig
+from ..train.config import MODEL_PRESETS, ExperimentConfig
 from ..train.endtoend import make_audio_eval_step, make_audio_train_step
 from ..train.loop import (EARLY_STOP_MIN_DELTA, EARLY_STOP_PATIENCE,
                           FitResult, evaluate_generator, fit)
@@ -124,27 +133,52 @@ def _class_subset(files: dict, n_classes: int) -> dict:
 
 
 def _check_ported(config: ExperimentConfig) -> None:
-    if config.model != "Lemaire_et_al_MTL":
-        item = "2c" if config.model.startswith("Jang") else "7"
+    if config.model in MODEL_PRESETS and config.model not in MTL:
         raise NotImplementedError(
             f"training {config.model!r} is not ported yet (ROADMAP §1, "
-            f"item {item})")
-    if config.frame_level_scaling:
-        raise NotImplementedError(
-            "frame_level_scaling: data/stats.py is not ported yet (ROADMAP "
-            "§1, item 2c)")
-    if config.skewness_vector:
-        raise NotImplementedError(
-            "skewness_vector: ops/stats.py is not ported yet (ROADMAP §1, "
-            "item 2c)")
+            "item 7)")
+    if config.model not in MTL:
+        raise ValueError(f"unknown model {config.model!r}")
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r}: bf16 compute is not "
             "ported yet (ROADMAP §1, item 2c)")
 
 
-def _device_pipeline(config, feat_cfg, tr_files, va_files, data_seed,
-                     model, optimizer, device, generator):
+def model_spec(config: ExperimentConfig) -> ModelSpec:
+    """The fold's model with Keras's initialisation from ``config.seed``,
+    built as the JAX runner builds it: a preset with ``n_mels = -1``
+    (Jang's, Papakostas's) leaves the model its own mel geometry; the input
+    rows are the features' and, with ``skewness_vector``, a patch is one
+    skewness vector, ``(1, D)`` per row ('Row') or ``(W, 1)`` per column
+    ('Col'), which only the time-major models take."""
+    feat_cfg = config.feature_config()
+    mels_kw = {"n_mels": feat_cfg.n_mels} if feat_cfg.n_mels > 0 else {}
+    in_dim, patch_size = feat_cfg.dim, config.patch_size
+    if config.skewness_vector:
+        if config.input_kind != "time_mel":
+            raise ValueError("skewness vectors feed only the time-major "
+                             f"Lemaire models, not {config.model!r}")
+        if config.skewness_vector == "Row":
+            patch_size = 1
+        else:
+            in_dim = 1
+    spec = get_spec(config.model, n_classes=config.n_classes,
+                    patch_size=patch_size, in_dim=in_dim,
+                    dropout_rate=config.dropout_rate, **mels_kw,
+                    **(config.arch_kwargs or {}))
+    init_weights(spec.module, torch.Generator().manual_seed(config.seed))
+    return spec
+
+
+def _label_map(batches, mtl: bool):
+    """A single-task model takes only the one-hot class labels."""
+    for x, labels in batches:
+        yield (x, labels) if mtl else (x, labels["3C"])
+
+
+def _device_pipeline(config, spec, feat_cfg, tr_files, va_files, data_seed,
+                     optimizer, device, generator, fold_stats, l2_reg):
     """The device pipeline's raw-audio crop streams and audio steps."""
     k = resolve_clip_patches(config, tr_files)
     clips = max(1, -(-config.batch_size // k))
@@ -162,33 +196,34 @@ def _device_pipeline(config, feat_cfg, tr_files, va_files, data_seed,
 
     train_iter = DevicePrefetcher(batcher(tr_files, data_seed + 100), device)
     val_iter = DevicePrefetcher(batcher(va_files, data_seed + 1), device)
+    if fold_stats is not None:
+        fold_stats = tuple(torch.as_tensor(a, device=device)
+                           for a in fold_stats)
     step_kw = dict(patch_size=config.patch_size,
                    patch_shift=config.patch_shift,
-                   input_kind=config.input_kind, mtl=True,
-                   loss_weights=config.loss_weights, n_patches_per_clip=k)
+                   input_kind=spec.input_kind, mtl=spec.mtl,
+                   skewness_vector=config.skewness_vector,
+                   fold_stats=fold_stats, loss_weights=config.loss_weights,
+                   n_patches_per_clip=k)
     train_step = make_audio_train_step(
-        model, optimizer, feat_cfg, generator=generator,
-        l2_reg=config.l2_reg, augment_noise=config.augment_noise, **step_kw)
-    eval_step = make_audio_eval_step(model, feat_cfg, **step_kw)
+        spec.module, optimizer, feat_cfg, generator=generator,
+        l2_reg=l2_reg, augment_noise=config.augment_noise, **step_kw)
+    eval_step = make_audio_eval_step(spec.module, feat_cfg, **step_kw)
     return train_iter, val_iter, train_step, eval_step
 
 
 def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
              verbose: bool = True, resume: bool = True,
              device: str | torch.device = "cuda") -> dict:
-    """Train and evaluate one fold of Lemaire-MTL; returns the results row
-    and what produced it.  ``resume=True``: a finished fold's checkpoint is
-    restored instead of retrained, an interrupted one continues for the
-    remaining epochs."""
+    """Train and evaluate one fold of ``config.model``; returns the results
+    row and what produced it.  ``resume=True``: a finished fold's
+    checkpoint is restored instead of retrained, an interrupted one
+    continues for the remaining epochs."""
     device = resolve_device(device)
     _check_ported(config)
     feat_cfg = config.feature_config()
-    model = get_model(config.model, n_classes=config.n_classes,
-                      n_mels=feat_cfg.n_mels, patch_size=config.patch_size,
-                      dropout_rate=config.dropout_rate,
-                      **(config.arch_kwargs or {}))
-    model = init_weights(model, torch.Generator().manual_seed(config.seed))
-    model.to(device)
+    spec = model_spec(config)
+    model = spec.module.to(device)
     cache_dir = (os.path.join(config.feature_dir, config.model,
                               feat_cfg.feat_name)
                  if config.feature_dir else None)
@@ -201,17 +236,27 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     tr_files, va_files = split_train_val(train_files, seed=config.seed)
     data_seed = config.seed
 
+    fold_stats = None
+    if config.frame_level_scaling:
+        stats_cache = os.path.join(
+            config.feature_dir or config.output_dir,
+            f"{config.model}_{feat_cfg.feat_name}_fold{fold}_stats.npz")
+        fold_stats = load_or_compute_fold_stats(
+            stats_cache, fz, config.data_root, train_files)
+
     optimizer, _ = for_model(config.model, model.parameters(),
                              tr_steps=max(config.lr_schedule_steps
                                           or config.tr_steps, 1))
     generator = torch.Generator(device=device).manual_seed(config.seed)
+    l2_reg = config.l2_reg if spec.mtl else 0.0
     bcfg = BatcherConfig(
         batch_size=config.batch_size, patch_size=config.patch_size,
         patch_shift=config.patch_shift, feat_name=feat_cfg.feat_name,
-        input_kind=config.input_kind,
+        input_kind=spec.input_kind,
         # Augmentation runs on the device inside the train step; the host
         # stream stays clean (and the val stream always is).
-        augment_noise=False, seed=data_seed)
+        augment_noise=False, frame_level_scaling=config.frame_level_scaling,
+        skewness_vector=config.skewness_vector, seed=data_seed)
 
     pipeline = config.pipeline
     if pipeline == "auto":
@@ -220,18 +265,20 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     train_batchers = []
     if pipeline == "device":
         train_iter, val_iter, train_step, eval_step = _device_pipeline(
-            config, feat_cfg, tr_files, va_files, data_seed, model,
-            optimizer, device, generator)
+            config, spec, feat_cfg, tr_files, va_files, data_seed,
+            optimizer, device, generator, fold_stats, l2_reg)
         step_overrides = {"train_step": train_step, "eval_step": eval_step}
     elif pipeline == "host":
         train_batchers = [
             BalancedBatcher(fz, config.data_root, tr_files,
-                            replace(bcfg, seed=data_seed + 100 + w))
+                            replace(bcfg, seed=data_seed + 100 + w),
+                            fold_stats=fold_stats)
             for w in range(max(config.prefetch_workers, 1))]
         train_iter = DevicePrefetcher(train_batchers, device)
         val_iter = DevicePrefetcher(
             BalancedBatcher(fz, config.data_root, va_files,
-                            replace(bcfg, seed=data_seed + 1)), device)
+                            replace(bcfg, seed=data_seed + 1),
+                            fold_stats=fold_stats), device)
     else:
         raise ValueError(f"unknown pipeline {config.pipeline!r}")
 
@@ -249,8 +296,9 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     csv_log = os.path.join(op_dir, f"fold{fold}_log.csv")
 
     def _run_fit(state=None, initial_epoch=0, initial_best=float("inf")):
-        result = fit(model, optimizer, train_iter, val_iter, mtl=True,
-                     l2_reg=config.l2_reg,
+        result = fit(model, optimizer, _label_map(train_iter, spec.mtl),
+                     _label_map(val_iter, spec.mtl), mtl=spec.mtl,
+                     l2_reg=l2_reg,
                      augment_noise=config.augment_noise,
                      epochs=config.epochs,
                      steps_per_epoch=max(config.tr_steps, 1),
@@ -302,8 +350,10 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     tester = FileWiseTester(
         featurizer=fz, predict_fn=lambda x: predict(result.state, x),
         folder=config.data_root, feat_name=feat_cfg.feat_name,
-        input_kind=config.input_kind, patch_size=config.patch_size,
-        test_patch_shift=config.test_patch_shift)
+        input_kind=spec.input_kind, patch_size=config.patch_size,
+        test_patch_shift=config.test_patch_shift,
+        frame_level_scaling=config.frame_level_scaling,
+        fold_stats=fold_stats, skewness_vector=config.skewness_vector)
     test_res = tester.test_model(test_files, verbose=verbose)
 
     row = {"val_loss": round(result.best_val_loss, 4),
@@ -321,10 +371,12 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
             eval_steps = config.max_eval_steps
         test_iter = DevicePrefetcher(
             BalancedBatcher(fz, config.data_root, test_files,
-                            replace(bcfg, seed=config.seed + 2)), device)
+                            replace(bcfg, seed=config.seed + 2),
+                            fold_stats=fold_stats), device)
         try:
-            gen = evaluate_generator(model, result.state, test_iter,
-                                     eval_steps, mtl=True,
+            gen = evaluate_generator(model, result.state,
+                                     _label_map(test_iter, spec.mtl),
+                                     eval_steps, mtl=spec.mtl,
                                      loss_weights=config.loss_weights)
         finally:
             test_iter.close()

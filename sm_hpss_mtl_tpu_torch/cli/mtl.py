@@ -1,9 +1,12 @@
-"""The paper's proposed work: train and test Lemaire-MTL on HPSS features
+"""The paper's proposed work: train and test an MTL model on HPSS features
 (counterpart of ``sm_hpss_mtl_tpu/cli/mtl.py``, the same flags, plus
-``--device``).
+``--device``).  ``--model``: ``Lemaire_et_al_MTL`` (default),
+``Jang_et_al_MTL``, ``Papakostas_et_al_MTL``, ``Doukhan_et_al_MTL``, or a
+single-task model (``cli.baseline``'s).
 
     python -m sm_hpss_mtl_tpu_torch.cli.mtl --data /path/to/musan \\
-        --epochs 50 --folds 0 1 2 [--smr-sweep] [--device cpu]
+        --epochs 50 --folds 0 1 2 [--model Jang_et_al_MTL] [--smr-sweep] \\
+        [--frame-level-scaling] [--skewness-vector Row] [--device cpu]
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 """
@@ -39,9 +42,11 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
     p.add_argument("--loss-weights", default=None,
                    help="e.g. 'S:0.5,M:0.5,R:0.5,3C:1.0'")
     p.add_argument("--skewness-vector", choices=["Row", "Col"], default=None,
-                   help="not ported yet (ROADMAP §1, item 2c)")
+                   help="feed each patch's skewness per row or column "
+                        "(Lemaire models)")
     p.add_argument("--frame-level-scaling", action="store_true",
-                   help="not ported yet (ROADMAP §1, item 2c)")
+                   help="scale frames by the fold's corpus statistics "
+                        "instead of standardizing rows per file")
     p.add_argument("--bf16", action="store_true",
                    help="mixed-precision compute: not ported yet (ROADMAP "
                         "§1, item 2c)")

@@ -1,10 +1,11 @@
 """Streaming segmentation entry point: long-audio speech/music detection.
 
 Counterpart of ``python -m sm_hpss_mtl_tpu.cli.segment``: featurize a
-broadcast on the GPU (kernel K1 for Lemaire-MTL's Mel-HPSS features,
-kernel K2 for Jang-MTL's full-resolution ones), run shift-1 windows of the
-model over it in chunks, median-smooth the S or M track, optionally score
-against an interval CSV, and write per-frame labels.
+broadcast on the GPU (kernel K1 for the Mel-HPSS features of Lemaire-MTL
+and Doukhan-MTL, kernel K2 for the full-resolution ones of Jang-MTL and
+Papakostas-MTL), run shift-1 windows of the model over it in chunks,
+median-smooth the S or M track, optionally score against an interval
+CSV, and write per-frame labels.
 
     python -m sm_hpss_mtl_tpu_torch.cli.segment broadcast.wav \\
         --weights W.npz [--model Jang_et_al_MTL] [--head S] \\
@@ -29,13 +30,14 @@ from ..eval.metrics import get_performance
 from ..eval.segment import (StreamingSegmenter,
                             interval_annotations_to_markers,
                             read_interval_csv)
-from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, load_model
+from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, MTL, load_model
 from ..ops.featuregram import featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
 from ..train.config import MODEL_PRESETS, preset_n_mels
 
-#: Models this entry point serves.
-MODELS = ("Lemaire_et_al_MTL", "Jang_et_al_MTL")
+#: Models this entry point serves: the MTL models with S and M heads.
+MODELS = ("Lemaire_et_al_MTL", "Jang_et_al_MTL", "Papakostas_et_al_MTL",
+          "Doukhan_et_al_MTL")
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -60,13 +62,17 @@ def _featurize_broadcast(x: np.ndarray, preset: dict,
 
 
 def check_model(name: str) -> None:
-    """Raise unless ``name`` is a model this entry point serves, naming
-    the item of ROADMAP §1 where it waits."""
+    """Raise unless ``name`` is a model this entry point serves: a
+    single-task model has no S or M head to segment by; another model
+    waits in ROADMAP §1, whose item the error names."""
+    if name in MTL and name not in MODELS:
+        raise ValueError(
+            f"--model {name}: a single-task model has no S or M head to "
+            f"segment by; served: {', '.join(MODELS)}")
     if name not in MODELS:
-        item = 3 if name == "Papakostas_et_al_MTL" else 7
         raise NotImplementedError(
             f"--model {name}: not ported to cli.segment yet (ROADMAP §1, "
-            f"item {item}); ported: {', '.join(MODELS)}")
+            f"item 7); ported: {', '.join(MODELS)}")
 
 
 def segmenter(model: str, predict_fn, *, patch_size: int = 68,

@@ -16,7 +16,9 @@ Semantics follow the reference's ``generator``:
 - Per-file row standardization (split per HPSS component) is the port's
   ``ops.patches.standardize_rows`` (constant rows centred to 0), which
   equals the JAX package's native host kernel; or frame-level corpus
-  scaling with per-fold statistics.
+  scaling with per-fold statistics.  Optionally each patch is replaced by
+  its skewness vector per row ('Row') or column ('Col',
+  ``ops.stats.patch_statistics``).
 - Optional Gaussian noise augmentation, scale drawn from {5e-3, 1e-3,
   5e-4, 1e-4}, from the batcher's numpy generator (the JAX package draws
   the field from its native sampler; the training runner keeps this off
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.patches import extract_patches_np, standardize_rows
+from ..ops.stats import skewness_vectors
 from ..train.state import NOISE_SCALES
 from .featurize import Featurizer
 
@@ -61,7 +64,7 @@ class BatcherConfig:
     input_kind: str = "time_mel"
     augment_noise: bool = True
     frame_level_scaling: bool = False
-    #: None | 'Row' | 'Col' (not ported: raises)
+    #: None | 'Row' | 'Col'
     skewness_vector: str | None = None
     #: {'harm_input', 'perc_input'} dict batches (not ported: raises)
     dual_tower: bool = False
@@ -192,10 +195,6 @@ class BalancedBatcher:
 
     def __init__(self, featurizer: Featurizer, folder: str, file_list: dict,
                  config: BatcherConfig, fold_stats: tuple | None = None):
-        if config.skewness_vector:
-            raise NotImplementedError(
-                "skewness_vector: ops/stats.py is not ported yet (ROADMAP "
-                "§1, item 2c)")
         if config.dual_tower:
             raise NotImplementedError(
                 "dual_tower: intermediate fusion is not ported yet (ROADMAP "
@@ -291,6 +290,9 @@ class BalancedBatcher:
             out.append(extract_patches_np(part, cfg.patch_size,
                                           cfg.patch_shift))
         patches = np.concatenate(out, axis=1) if dual else out[0]
+        if cfg.skewness_vector:
+            patches = skewness_vectors(torch.from_numpy(np.ascontiguousarray(
+                patches, np.float32)), cfg.skewness_vector).numpy()
         patches = np.asarray(patches, dtype=np.float32)
         if cfg.input_kind == "time_mel":
             # Stored in the model's (N, T, D) layout, so batch assembly is

@@ -25,6 +25,7 @@ from ..data.batcher import scale_frames
 from ..data.featurize import Featurizer
 from ..models.zoo import IMAGE_BATCH_WINDOWS
 from ..ops.patches import extract_patches_np, standardize_rows
+from ..ops.stats import skewness_vectors
 from .metrics import get_performance
 
 
@@ -49,17 +50,15 @@ class FileWiseTester:
             raise NotImplementedError(
                 "dual_tower: intermediate fusion (LemaireMTLIntermediate"
                 "Fusion) is not ported yet (ROADMAP §1, item 7)")
-        if self.skewness_vector:
-            raise NotImplementedError(
-                "skewness_vector: ops/stats.py is not ported yet (ROADMAP "
-                "§1, item 2c)")
         if self.input_kind not in ("time_mel", "image"):
             raise ValueError(f"unknown input_kind {self.input_kind!r}")
 
     def file_patches(self, classname: str, sp_path: str = "",
                      mu_path: str = "", target_db=None) -> np.ndarray:
         """One item's test patches: ``(N, patch_size, D)`` for 'time_mel',
-        ``(N, D, patch_size, 1)`` for 'image', float32 on the host."""
+        ``(N, D, patch_size, 1)`` for 'image', float32 on the host; with
+        ``skewness_vector`` each patch's skewness per row ('Row') or column
+        ('Col') in its place, as the batchers do."""
         fv = self.featurizer.featuregram(classname, sp_path, mu_path,
                                          target_db, save_feat=False)
         if self.frame_level_scaling and self.fold_stats is not None:
@@ -75,6 +74,9 @@ class FileWiseTester:
             out.append(extract_patches_np(part, self.patch_size,
                                           self.test_patch_shift))
         patches = np.concatenate(out, axis=1) if dual else out[0]
+        if self.skewness_vector:
+            patches = skewness_vectors(torch.from_numpy(np.ascontiguousarray(
+                patches, np.float32)), self.skewness_vector).numpy()
         if self.input_kind == "time_mel":
             patches = np.transpose(patches, (0, 2, 1))
         else:

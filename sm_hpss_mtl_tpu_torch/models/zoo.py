@@ -1,8 +1,12 @@
 """Model registry (counterpart of ``sm_hpss_mtl_tpu/models/zoo.py``).
-Ported: the paper's proposed model ``Lemaire_et_al_MTL`` and Jang's
-mel-scale CNN, ``Jang_et_al`` and ``Jang_et_al_MTL``."""
+Ported: Lemaire's TCN models ``Lemaire_et_al`` and ``Lemaire_et_al_MTL``,
+and every image-family model: Doukhan's and Papakostas's CNNs and Jang's
+mel-scale CNN, each single-task and MTL.  Lemaire's Cascaded, 5-class and
+intermediate-fusion variants are not (ROADMAP §1, item 7)."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -10,28 +14,47 @@ from torch import nn
 from ..ops.featuregram import feature_dim
 from ..train.config import MODEL_PRESETS, input_kind_of, preset_n_mels
 from ..weights import from_flax, load_npz
+from .cnn import DoukhanCNN, PapakostasCNN
 from .jang import JangCNN
-from .lemaire import LemaireMTL
+from .lemaire import LemaireMTL, LemaireTCN
+
+#: ``mtl`` of each ported model: MTL heads, or one softmax output.
+MTL = {"Lemaire_et_al": False, "Lemaire_et_al_MTL": True,
+       "Doukhan_et_al": False, "Doukhan_et_al_MTL": True,
+       "Papakostas_et_al": False, "Papakostas_et_al_MTL": True,
+       "Jang_et_al": False, "Jang_et_al_MTL": True}
 
 #: ``input_kind`` of each ported model (``train.config.input_kind_of``).
-INPUT_KIND = {name: input_kind_of(name) for name in
-              ("Lemaire_et_al_MTL", "Jang_et_al", "Jang_et_al_MTL")}
+INPUT_KIND = {name: input_kind_of(name) for name in MTL}
 
 #: Windows per model call for 'image' models: a whole 10000-window chunk
 #: of Jang-MTL holds ~21 GB in its first conv block alone (~2 MB a window).
 IMAGE_BATCH_WINDOWS = 1024
 
 
-def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
+@dataclass(frozen=True)
+class ModelSpec:
+    """A built model with what the runner needs to feed it: its patch
+    layout ('time_mel' or 'image') and whether it has MTL heads (JAX's
+    ``ModelSpec`` without the head names)."""
+    module: nn.Module
+    input_kind: str
+    mtl: bool
+
+
+def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
               patch_size: int = 68, dropout_rate: float = 0.275,
-              **arch_kwargs) -> nn.Module:
-    """Build a model by its reference name.  Lemaire-MTL is sized for its
-    preset's features (``D = 2 * n_mels`` for LogMelHarmPercSpec); for
-    Jang-MTL ``n_mels`` is the mel-scale layer's band count (the JAX zoo
-    builds the single-task Jang model with 64 bands whatever it is
-    given).  ``arch_kwargs`` (Lemaire-MTL only, as in the JAX zoo):
-    ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``, ``head_width``."""
-    if name not in INPUT_KIND:
+              in_dim: int | None = None, **arch_kwargs) -> nn.Module:
+    """Build a model by its reference name, sized for ``patch_size``-frame
+    patches of ``in_dim`` feature rows (default: its preset's features at
+    ``n_mels`` bands, by default the preset's, 120 where that is -1; flax
+    infers both from the data).  For Jang-MTL
+    ``n_mels`` is the mel-scale layer's band count (the JAX zoo builds the
+    single-task Jang model with 64 bands whatever it is given), and the
+    rows are its n_fft's.  ``arch_kwargs`` (the Lemaire family only, as in
+    the JAX zoo): ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``,
+    ``head_width`` (MTL)."""
+    if name not in MTL:
         raise ValueError(f"model {name!r} is not ported")
     if arch_kwargs and not name.startswith("Lemaire"):
         raise ValueError(f"arch_kwargs not supported for {name!r}")
@@ -40,21 +63,38 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int = 120,
     # digits, so both TF32 switches are turned off where a model is built.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if name == "Jang_et_al":
-        return JangCNN(n_classes=n_classes, n_mels=64, patch_size=patch_size)
-    if name == "Jang_et_al_MTL":
-        return JangCNN(n_classes=n_classes, mtl=True, n_mels=n_mels,
+    preset = MODEL_PRESETS[name]
+    if n_mels is None:
+        n_mels = preset_n_mels(preset)
+    if name.startswith("Jang"):
+        return JangCNN(n_classes=n_classes, mtl=MTL[name],
+                       n_mels=n_mels if MTL[name] else 64,
                        patch_size=patch_size)
-    in_dim = feature_dim(MODEL_PRESETS[name]["feat_name"], n_mels=n_mels)
-    return LemaireMTL(in_dim, patch_size=patch_size, n_classes=n_classes,
+    if in_dim is None:
+        in_dim = feature_dim(preset["feat_name"], n_fft=preset["n_fft"],
+                             n_mels=n_mels)
+    cnn = {"Doukhan": DoukhanCNN, "Papakostas": PapakostasCNN}.get(
+        name.split("_")[0])
+    if cnn is not None:
+        return cnn(in_dim, patch_size=patch_size, n_classes=n_classes,
+                   mtl=MTL[name])
+    if MTL[name]:
+        return LemaireMTL(in_dim, patch_size=patch_size, n_classes=n_classes,
+                          dropout_rate=dropout_rate, **arch_kwargs)
+    arch_kwargs.pop("head_width", None)
+    return LemaireTCN(in_dim, patch_size=patch_size, n_classes=n_classes,
                       dropout_rate=dropout_rate, **arch_kwargs)
+
+
+def get_spec(name: str, **kwargs) -> ModelSpec:
+    """:func:`get_model` with the model's input kind and ``mtl``."""
+    return ModelSpec(get_model(name, **kwargs), INPUT_KIND[name], MTL[name])
 
 
 def load_model(weights: str, device: torch.device, model: str,
                patch_size: int = 68) -> nn.Module:
     """The named model, sized by its preset, in eval mode on ``device``
     with weights from an npz (flax keys)."""
-    net = get_model(model, n_mels=preset_n_mels(MODEL_PRESETS[model]),
-                    patch_size=patch_size)
+    net = get_model(model, patch_size=patch_size)
     net.load_state_dict(from_flax(load_npz(weights)))
     return net.to(device).eval()

@@ -1,14 +1,14 @@
 """Model presets and the experiment configuration (counterpart of
 ``sm_hpss_mtl_tpu/train/config.py``).
 
-``MODEL_PRESETS`` holds the feature settings each ported model is trained
-and served with.  ``n_mels = -1`` marks a full-resolution feature family;
-the mel-scale layer of Jang's models is then built with 120 bands, as the
-JAX CLI does.  :class:`ExperimentConfig` has the JAX fields and defaults,
-which are the reference's values (Tw 25 ms, Ts 10 ms, W 68, batch 16 per
-class, 3 folds, 50 epochs, SMR levels -5..20 dB, the TR/V/TS step counts
-derived from the corpus duration), but for ``dft_precision``: the port
-serves only ``'highest'``.
+``MODEL_PRESETS`` holds the feature settings each model of the JAX zoo is
+trained and served with (the JAX table).  ``n_mels = -1`` marks a
+full-resolution feature family; the mel-scale layer of Jang's models is
+then built with 120 bands, as the JAX CLI does.  :class:`ExperimentConfig`
+has the JAX fields and defaults, which are the reference's values (Tw 25
+ms, Ts 10 ms, W 68, batch 16 per class, 3 folds, 50 epochs, SMR levels
+-5..20 dB, the TR/V/TS step counts derived from the corpus duration), but
+for ``dft_precision``: the port serves only ``'highest'``.
 """
 
 from __future__ import annotations
@@ -19,8 +19,21 @@ from dataclasses import dataclass, replace
 from ..data.featurize import FeatureConfig
 
 MODEL_PRESETS = {
+    "Lemaire_et_al": dict(feat_name="LogMelSpec", n_fft=400, n_mels=120),
     "Lemaire_et_al_MTL": dict(feat_name="LogMelHarmPercSpec", n_fft=400,
                               n_mels=120),
+    "Lemaire_et_al_Cascaded_MTL": dict(feat_name="LogMelHarmSpec", n_fft=400,
+                                       n_mels=120),
+    "Lemaire_et_al_MTL_5class": dict(feat_name="LogMelHarmPercSpec",
+                                     n_fft=400, n_mels=120),
+    "Lemaire_et_al_MTL_IF": dict(feat_name="LogMelHarmPercSpec", n_fft=400,
+                                 n_mels=120),
+    "Doukhan_et_al": dict(feat_name="MelSpec", n_fft=400, n_mels=21),
+    "Doukhan_et_al_MTL": dict(feat_name="MelHarmPercSpec", n_fft=400,
+                              n_mels=120),
+    "Papakostas_et_al": dict(feat_name="Spec", n_fft=400, n_mels=-1),
+    "Papakostas_et_al_MTL": dict(feat_name="HarmPercSpec", n_fft=400,
+                                 n_mels=-1),
     "Jang_et_al": dict(feat_name="LogSpec", n_fft=512, n_mels=-1),
     "Jang_et_al_MTL": dict(feat_name="LogHarmPercSpec", n_fft=512, n_mels=-1),
 }

@@ -3,14 +3,16 @@ step on the card (counterpart of ``sm_hpss_mtl_tpu/train/endtoend.py``).
 
 The host streams raw-audio crops (``data.audiostream``); each train or
 eval step featurizes them on the device (``ops.featuregram``: on CUDA the
-fused STFT + HPSS + mel kernel K1 over the whole ``(B, L)`` batch in one
-launch), standardizes each HPSS component's rows over the crop, cuts the
-patches and runs the model.  The features carry no gradient: the audio
-needs none, so K1 has no backward.
+fused STFT + HPSS kernel over the whole ``(B, L)`` batch in one launch, K1
+for the Mel-HPSS families, K2 for the full-resolution ones), standardizes
+each HPSS component's rows over the crop (or scales the frames by the
+fold's corpus statistics), cuts the patches and runs the model.  The
+features carry no gradient: the audio needs none, so the kernels have no
+backward.
 
-Batch convention: ``audio (B, n_samples)`` with per-clip labels; every
-clip yields the same number of patches ``k``, which take their clip's
-labels.
+Batch convention: ``audio (B, n_samples)`` with per-clip labels (a dict of
+heads, or the one-hot classes of a single-task model); every clip yields
+the same number of patches ``k``, which take their clip's labels.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ..data.featurize import FeatureConfig
 from ..ops import featuregram as fg
 from ..ops.patches import extract_patches, standardize_rows
+from ..ops.stats import skewness_vectors
 from .state import make_eval_step, make_train_step
 
 
@@ -36,18 +39,13 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
     device.
 
     Rows are standardized per featuregram (per HPSS component for the
-    HarmPerc families) over all the crop's frames; ``max_patches`` then
-    keeps the first ``k`` windows of each clip.  Patch ``j`` of clip ``b``
-    is row ``j*B + b``.  Frame-level scaling (``fold_stats``), skewness
-    vectors and the 'dual' input are not ported and raise."""
-    if fold_stats is not None:
-        raise NotImplementedError(
-            "fold_stats: frame-level scaling (data/stats.py) is not ported "
-            "yet (ROADMAP §1, item 2c)")
-    if skewness_vector:
-        raise NotImplementedError(
-            "skewness_vector: ops/stats.py is not ported yet (ROADMAP §1, "
-            "item 2c)")
+    HarmPerc families) over all the crop's frames, unless ``fold_stats =
+    (mean, stdev)`` is given: the corpus frame-level scaling
+    ``(fv - mean) / (stdev + 1e-10)`` then replaces it, as in the host
+    batcher.  ``max_patches`` keeps the first ``k`` windows of each clip.
+    Patch ``j`` of clip ``b`` is row ``j*B + b``.  ``skewness_vector``
+    ('Row' or 'Col') replaces each patch by its skewness vector, as the
+    host batcher does.  The 'dual' input is not ported and raises."""
     if input_kind not in ("time_mel", "image"):
         raise NotImplementedError(
             f"input_kind {input_kind!r}: intermediate fusion is not ported "
@@ -57,7 +55,11 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
                         hop_length=cfg.hop_length, n_mels=cfg.n_mels,
                         l_harm=cfg.l_harm, l_perc=cfg.l_perc,
                         dft_precision=cfg.dft_precision)      # (B, D, T)
-    if "HarmPerc" in cfg.feat_name:
+    if fold_stats is not None:
+        mean, stdev = (torch.as_tensor(a, dtype=torch.float32,
+                                       device=fv.device) for a in fold_stats)
+        fv = (fv - mean[:, None]) / (stdev[:, None] + 1e-10)
+    elif "HarmPerc" in cfg.feat_name:
         half = fv.shape[1] // 2
         fv = torch.cat([standardize_rows(fv[:, :half]),
                         standardize_rows(fv[:, half:])], dim=1)
@@ -68,20 +70,26 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
     if max_patches is not None:
         patches = patches[:max_patches]
     patches = patches.reshape((-1,) + patches.shape[2:])
+    if skewness_vector:
+        patches = skewness_vectors(patches, skewness_vector)
     if input_kind == "time_mel":
         return patches.transpose(1, 2).contiguous()
     return patches[..., None]
 
 
-def _broadcast_labels(labels: dict, k: int) -> dict:
-    """Per-clip labels -> per-patch, in :func:`device_featurize_patches`'s
-    ``(k, B)`` order: clip ``b``'s labels at rows ``j*B + b``."""
-    return {key: y.repeat((k,) + (1,) * (y.ndim - 1))
-            for key, y in labels.items()}
+def _broadcast_labels(labels, k: int):
+    """Per-clip labels (a dict of heads, or one tensor) -> per-patch, in
+    :func:`device_featurize_patches`'s ``(k, B)`` order: clip ``b``'s
+    labels at rows ``j*B + b``."""
+    def tile(y):
+        return y.repeat((k,) + (1,) * (y.ndim - 1))
+    if isinstance(labels, dict):
+        return {key: tile(y) for key, y in labels.items()}
+    return tile(labels)
 
 
 def _featurizer(cfg: FeatureConfig, **patch_kw) -> Callable:
-    def featurize(audio: torch.Tensor, labels: dict):
+    def featurize(audio: torch.Tensor, labels):
         batch = device_featurize_patches(audio, cfg, **patch_kw)
         return batch, _broadcast_labels(labels, batch.shape[0]
                                         // audio.shape[0])

@@ -26,6 +26,9 @@ A kernel is mapped by its module: the mel-scale layers (``melCl``,
 kernel and keeps its layout under the same name; every other kernel is a
 convolution's or a dense layer's ``weight``.  A BatchNorm is any module
 with running statistics, whatever its name (``bn``, Jang's ``fc1_bn``).
+The image models (``models/jang.py``, ``models/cnn.py``) flatten their
+activations in flax's NHWC order before the first dense layer, so that
+layer's kernel maps like any other dense kernel.
 """
 
 from __future__ import annotations

@@ -424,10 +424,29 @@ def test_tester_refuses_what_is_not_ported():
               feat_name="LogMelHarmPercSpec")
     with pytest.raises(NotImplementedError, match="item 7"):
         ttester.FileWiseTester(dual_tower=True, **kw)
-    with pytest.raises(NotImplementedError, match="ops/stats.py"):
-        ttester.FileWiseTester(skewness_vector="Row", **kw)
     with pytest.raises(ValueError, match="input_kind"):
         ttester.FileWiseTester(input_kind="dual", **kw)
+    # Skewness vectors are ported (ops/stats.py).
+    assert ttester.FileWiseTester(skewness_vector="Row", **kw
+                                  ).skewness_vector == "Row"
+
+
+@pytest.mark.parametrize("skew", ["Row", "Col"])
+def test_tester_skewness_patches_match_jax(corpus, skew):
+    """Each 68-frame test patch as its skewness vector, per row (a
+    ``(1, D)`` time-major patch) or per column (``(68, 1)``)."""
+    root, _ = corpus
+    cfg = dict(n_mels=40)
+    want, got = _testers(root, _lemaire(40), jfeat.FeatureConfig(**cfg),
+                         tfeat.FeatureConfig(**cfg), "time_mel")
+    for t in (want, got):
+        t.skewness_vector = skew
+    sp = os.path.join(root, "speech", "speech-toy-0001.wav")
+    g = got.file_patches("speech", sp)
+    w = want.file_patches("speech", sp)
+    assert g.shape == w.shape
+    assert g.shape[1:] == ((1, 80) if skew == "Row" else (68, 1))
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
 
 
 # --- Classifier -------------------------------------------------------------

@@ -31,7 +31,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "train.optimizers", "train.state", "train.checkpoint",
                 "train.loop", "train.config", "train.endtoend",
                 "data.prefetch", "data.audiostream", "utils.results",
-                "cli.experiment", "cli.mtl", "models.layers"):
+                "cli.experiment", "cli.mtl", "models.layers",
+                "models.cnn", "ops.stats", "data.stats", "cli.baseline"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -82,6 +83,14 @@ def test_classifier_and_featurizer_without_device_cpu_raise_when_no_gpu(
         Featurizer(FeatureConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Classifier.from_weights(str(tmp_path / "missing.npz"))
+
+
+def test_baseline_cli_without_device_cpu_raises_when_no_gpu(monkeypatch,
+                                                            tmp_path):
+    from sm_hpss_mtl_tpu_torch.cli import baseline as tcli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["--data", str(tmp_path), "--model", "Jang_et_al"])
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",

@@ -271,11 +271,48 @@ def test_segmenter_image_windows_match_jax(jax_constant_rows_fixed):
                                     torch.tensor(fv))
 
 
-@pytest.mark.parametrize("model,item", [("Papakostas_et_al_MTL", 3),
-                                        ("Doukhan_et_al_MTL", 7),
-                                        ("Jang_et_al", 7)])
+@pytest.mark.parametrize("model,item", [("Lemaire_et_al_Cascaded_MTL", 7),
+                                        ("Lemaire_et_al_MTL_5class", 7),
+                                        ("Lemaire_et_al_MTL_IF", 7)])
 def test_cli_segment_names_the_queue_of_other_models(tmp_path, model, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tcli.main([str(tmp_path / "b.wav"), "--weights",
                    str(tmp_path / "w.npz"), "--model", model,
                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model", ["Jang_et_al", "Papakostas_et_al",
+                                   "Doukhan_et_al", "Lemaire_et_al"])
+def test_cli_segment_refuses_single_task_models(tmp_path, model):
+    with pytest.raises(ValueError, match="no S or M head"):
+        tcli.main([str(tmp_path / "b.wav"), "--weights",
+                   str(tmp_path / "w.npz"), "--model", model,
+                   "--device", "cpu"])
+
+
+@pytest.mark.parametrize("model,rows,patch", [
+    ("Papakostas_et_al_MTL", 402, 16), ("Doukhan_et_al_MTL", 240, 68)])
+def test_cli_segment_cnn_mtl_matches_jax_cli(tmp_path,
+                                             jax_constant_rows_fixed,
+                                             monkeypatch, model, rows, patch):
+    # Papakostas-MTL: HarmPercSpec at n_fft 400 (402 rows, K2 on the card);
+    # Doukhan-MTL: MelHarmPercSpec (240 rows, K1).  1.4 s: 138 frames,
+    # chunks of 32 windows in model calls of at most 20.
+    wav = str(tmp_path / "b.wav")
+    wavfile.write(wav, 16000,
+                  (_broadcast(1.4, 7) * 32767).astype(np.int16))
+    ckpt, npz = _jax_checkpoint(tmp_path, model, (2, rows, patch, 1), 8)
+    monkeypatch.setattr(tcli, "IMAGE_BATCH_WINDOWS", 20)
+    common = [wav, "--model", model, "--head", "M", "--patch-size",
+              str(patch), "--chunk-frames", "32", "--smooth-win", "11"]
+    jprob, jlab = jcli.main(common + ["--ckpt", ckpt,
+                                      "--out", str(tmp_path / "j.npz")])
+    tprob, tlab = tcli.main(common + ["--weights", npz, "--device", "cpu",
+                                      "--out", str(tmp_path / "t.npz")])
+    assert tprob.shape == jprob.shape == (138 - patch + 1,)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tlab, jlab)
+    with np.load(tmp_path / "j.npz") as j, np.load(tmp_path / "t.npz") as t:
+        for k in ("track_S", "track_M", "track_R", "track_3C"):
+            assert t[k].shape == j[k].shape
+            np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-4)

@@ -14,6 +14,7 @@ labels bit for bit.  The model is a narrow Lemaire-MTL: 8 filters, 1
 stack, dilations (1, 2), 16 mel bands, 16-frame patches, 2 per class.
 """
 
+import contextlib
 import os
 
 import flax.linen as fnn
@@ -29,9 +30,11 @@ from sm_hpss_mtl_tpu.data import audiostream as jstream
 from sm_hpss_mtl_tpu.data import batcher as jbatcher
 from sm_hpss_mtl_tpu.data import featurize as jfeat
 from sm_hpss_mtl_tpu.data import folds as jfolds
+from sm_hpss_mtl_tpu.models import cnn as jcnn
 from sm_hpss_mtl_tpu.models import get_model as jget_model
 from sm_hpss_mtl_tpu.models.heads import BN_KW as JBN_KW
 from sm_hpss_mtl_tpu.ops import patches as jpatches
+from sm_hpss_mtl_tpu.ops import stats as jopstats
 from sm_hpss_mtl_tpu.train import endtoend as jendtoend
 from sm_hpss_mtl_tpu.train import losses as jlosses
 from sm_hpss_mtl_tpu.train import optimizers as joptim
@@ -42,10 +45,13 @@ from sm_hpss_mtl_tpu_torch.data import audiostream as tstream
 from sm_hpss_mtl_tpu_torch.data import batcher as tbatcher
 from sm_hpss_mtl_tpu_torch.data import featurize as tfeat
 from sm_hpss_mtl_tpu_torch.data import prefetch as tprefetch
+from sm_hpss_mtl_tpu_torch.data import stats as tstats
 from sm_hpss_mtl_tpu_torch.models import layers
 from sm_hpss_mtl_tpu_torch.models.heads import BN_KW, HeadBlock
 from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+from sm_hpss_mtl_tpu_torch.ops import featuregram as tfg
 from sm_hpss_mtl_tpu_torch.ops import patches as tpatches
+from sm_hpss_mtl_tpu_torch.ops import stats as topstats
 from sm_hpss_mtl_tpu_torch.train import checkpoint as tckpt
 from sm_hpss_mtl_tpu_torch.train import endtoend as tendtoend
 from sm_hpss_mtl_tpu_torch.train import losses as tlosses
@@ -471,6 +477,265 @@ def test_audio_train_and_eval_step_match_jax(jax_dropout_off,
         ts, _t(audio), tl), jm)
 
 
+# --- the image-family models and single-task steps --------------------------
+
+#: One step of each model family against JAX: (model, input rows, patch
+#: width, zoo kwargs).  Heights are cut from the presets' (402, 240, 21
+#: rows at 68 frames) to keep the CPU run short.
+STEP_CASES = [("Papakostas_et_al_MTL", 48, 48, {}),
+              ("Doukhan_et_al_MTL", 40, 68, {"n_mels": 20}),
+              ("Papakostas_et_al", 48, 48, {})]
+
+
+@pytest.fixture
+def jax_float64(monkeypatch):
+    """The JAX step in float64, for the image models' step tests.
+
+    Their four to six BatchNorms in series at batch 6 amplify float32
+    rounding to ~1e-5 of the outputs: the port's own float32 run against
+    its float64 run differs by up to 1.5e-5 on Doukhan-MTL's R head and
+    1.1e-5 on Papakostas-MTL's (tools/cnn_step_precision.py), where the
+    step's bars stand, so no two float32 programs meet them.  In float64
+    the two packages agree to ~1e-12 and a fault of semantics still moves
+    them by 1e-3 or more.
+    The JAX LRN casts to float32 inside; here it keeps its input's dtype
+    (the same formula, patched, not edited)."""
+    def lrn(x, depth_radius=5, bias=1.0, alpha=1e-4, beta=0.75):
+        i = jnp.arange(x.shape[-1])
+        band = (jnp.abs(i[:, None] - i[None, :]) <= depth_radius)
+        summed = jnp.einsum("...c,cd->...d", x * x, band.astype(x.dtype),
+                            precision=jax.lax.Precision.HIGHEST)
+        return x / (bias + alpha * summed) ** beta
+
+    monkeypatch.setattr(jcnn, "local_response_normalization", lrn)
+    with jax.enable_x64(True):
+        yield
+
+
+def _f64(tree):
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, dtype=np.float64), tree)
+
+
+def _image_models(name, rows, width, kw, seed):
+    """The flax model with its variables in float64 (dropout off through
+    the fixture), and the port's in float64 with the same weights and
+    dropout rate 0."""
+    module = jget_model(name, **kw).module
+    v = jax.jit(lambda k: module.init({"params": k, "dropout": k + 1},
+                                      jnp.zeros((1, rows, width, 1)),
+                                      train=False))(jax.random.PRNGKey(seed))
+    v = _f64(dict(v))
+    net = get_model(name, in_dim=rows, patch_size=width, **kw)
+    net.load_state_dict(weights.from_flax(v))
+    for m in net.modules():
+        if isinstance(m, layers.Dropout):
+            m.rate = 0.0
+    return module, v, net.double()
+
+
+def _optimizers(name, net):
+    """The model's optimizer on both sides, but plain SGD (Papakostas's)
+    for the Adam models: Adam's first update is lr * g / (|g| + eps), which
+    turns the rounding noise of a gradient that is 0 in exact arithmetic
+    (a conv bias before a BatchNorm) into updates of ~lr whose sign is
+    noise.  Adam itself is held to optax in test_optimizers_match_optax."""
+    family = name if name.startswith("Papakostas") else "Papakostas_et_al"
+    jopt, _ = joptim.for_model(family, tr_steps=1)
+    opt, _ = toptim.for_model(family, net.parameters(), tr_steps=1)
+    return jopt, opt
+
+
+def _jax_state(v, jopt):
+    return jstate.TrainState(params=v["params"],
+                             batch_stats=v["batch_stats"],
+                             opt_state=jopt.init(v["params"]),
+                             step=jnp.zeros((), jnp.int32))
+
+
+@pytest.mark.parametrize("name,rows,width,kw", STEP_CASES,
+                         ids=[c[0] for c in STEP_CASES])
+def test_image_model_train_step_matches_jax(jax_dropout_off, jax_float64,
+                                            name, rows, width, kw):
+    module, v, net = _image_models(name, rows, width, kw, 4)
+    mtl = name.endswith("_MTL")
+    rng, labels = _batch(12, 3 * BS)
+    labels = _f64(labels if mtl else labels["3C"])
+    x = rng.standard_normal((3 * BS, rows, width, 1))
+    jopt, opt = _optimizers(name, net)
+    jl = jax.tree_util.tree_map(jnp.asarray, labels)
+    l2 = 0.01 if mtl else 0.0           # the runner's rule, as in JAX
+    # Doukhan's JAX step runs eagerly: jitted on XLA:CPU, its gradient of
+    # c4's conv bias, which feeds a train-mode BatchNorm and so is 0 in
+    # exact arithmetic (the loss moves by float32 noise under a finite
+    # difference), comes out 0.29 against 3e-7 eagerly and in the port,
+    # and the error runs back through c1-c3 (tools/cnn_step_precision.py,
+    # ROADMAP §3).
+    jit = contextlib.nullcontext() if name.startswith("Papakostas") else \
+        jax.disable_jit()
+    with jit:
+        js, jm = jstate.make_train_step(module, jopt, mtl=mtl, l2_reg=l2)(
+            _jax_state(v, jopt), jnp.asarray(x), jl, jax.random.PRNGKey(2))
+    ts = tstate.TrainState(net, opt)
+    tl = {k: _t(a) for k, a in labels.items()} if mtl else _t(labels)
+    tm = tstate.make_train_step(net, opt, mtl=mtl, l2_reg=l2,
+                                generator=torch.Generator())(ts, _t(x), tl)
+    assert ("3C_accuracy" in tm) == mtl and ("accuracy" in tm) != mtl
+    _same_metrics(tm, jm)
+    _same_state(net, js)
+    jm = jstate.make_eval_step(module, mtl=mtl)(js, jnp.asarray(x), jl)
+    _same_metrics(tstate.make_eval_step(net, mtl=mtl)(ts, _t(x), tl), jm)
+
+
+def test_jang_mtl_audio_step_matches_jax(jax_dropout_off,
+                                         jax_standardize_fixed,
+                                         monkeypatch):
+    """Jang-MTL's device-pipeline step: LogHarmPercSpec at n_fft 512 (K2's
+    features on the card), row standardization per HPSS component, the
+    patches into the image model, the labels tiled, and the l2 of the heads
+    and the mel-scale kernels; 24 mel bands, 16-frame patches.  Both steps
+    take the same featuregram (the port's plain float32 one, in float64,
+    see ``jax_float64``); that the featuregrams agree is
+    ``test_device_patches_scaled_and_skewness_match_jax[jang]``'s."""
+    B = 3 * BS
+    audio = _audio(10, B, n=(2 * W - 1) * 160 + 400)
+    fv = tfg.featuregram(_t(audio), feat_name="LogHarmPercSpec",
+                         n_fft=512)                        # (B, 514, T)
+
+    def features(y, *, feat_name, n_fft, **kw):
+        assert (y.shape, feat_name, n_fft) == (audio.shape,
+                                               "LogHarmPercSpec", 512)
+        return fv
+
+    monkeypatch.setattr(tendtoend.fg, "featuregram", features)
+    monkeypatch.setattr(jendtoend.fg, "featuregram",
+                        lambda y, use_pallas=None, **kw: jnp.asarray(
+                            features(y, **kw).numpy()))
+    module = jget_model("Jang_et_al_MTL", n_mels=24).module
+    v = jax.jit(lambda k: module.init({"params": k, "dropout": k + 1},
+                                      jnp.zeros((1, 514, W, 1)),
+                                      train=False))(jax.random.PRNGKey(5))
+    v = jax.tree_util.tree_map(np.asarray, dict(v))
+    net = get_model("Jang_et_al_MTL", n_mels=24, patch_size=W)
+    net.load_state_dict(weights.from_flax(v))
+    for m in net.modules():
+        if isinstance(m, layers.Dropout):
+            m.rate = 0.0
+    _, labels = _batch(0, B)
+    kw = dict(patch_size=W, patch_shift=W, mtl=True, input_kind="image")
+    feat = dict(feat_name="LogHarmPercSpec", n_fft=512)
+    jcfg = jfeat.FeatureConfig(dft_precision="highest", **feat)
+    jopt, opt = _optimizers("Jang_et_al_MTL", net)
+    jl = {k: jnp.asarray(a) for k, a in labels.items()}
+    # Eagerly, as Doukhan's (test_image_model_train_step_matches_jax):
+    # jitted, the gradient of b3's conv bias (0 in exact arithmetic) is
+    # 0.20 against 1.5e-7 eagerly (tools/cnn_step_precision.py), and the
+    # first block's BatchNorm shift ends 9e-4 off the port's.
+    with jax.disable_jit():
+        js, jm = jendtoend.make_audio_train_step(
+            module, jopt, jcfg, l2_reg=0.01, use_pallas=False, **kw)(
+            _jax_state(v, jopt), jnp.asarray(audio), jl,
+            jax.random.PRNGKey(0))
+    cfg = tfeat.FeatureConfig(**feat)
+    ts = tstate.TrainState(net, opt)
+    tl = {k: _t(a) for k, a in labels.items()}
+    tm = tendtoend.make_audio_train_step(
+        net, opt, cfg, l2_reg=0.01, generator=torch.Generator(), **kw)(
+        ts, _t(audio), tl)
+    regularized = {id(p) for p in tstate.l2_kernels(net)}
+    assert {n for n, p in net.named_parameters() if id(p) in regularized
+            and "melCl" in n} == {"melCl_H.kernel", "melCl_P.kernel"}
+    _same_metrics(tm, jm)
+    _same_state(net, js)
+    jm = jendtoend.make_audio_eval_step(module, jcfg, use_pallas=False,
+                                        **kw)(js, jnp.asarray(audio), jl)
+    _same_metrics(tendtoend.make_audio_eval_step(net, cfg, **kw)(
+        ts, _t(audio), tl), jm)
+
+
+@pytest.mark.parametrize("option", ["fold_stats", "Row", "Col", "jang"])
+def test_device_patches_scaled_and_skewness_match_jax(jax_standardize_fixed,
+                                                      option):
+    """Frame-level scaling, skewness vectors, and Jang-MTL's image patches
+    of LogHarmPercSpec at n_fft 512 (an 11120-sample crop frames to 67
+    frames at n_fft 512, whose 68-frame patch takes the tiling rule)."""
+    audio = _audio(13, 3, n=11120 if option == "jang" else 16000)
+    D = 2 * N_MELS
+    rng = np.random.default_rng(14)
+    stats = ((rng.standard_normal(D) * 10 - 30).astype(np.float32),
+             rng.uniform(5, 15, D).astype(np.float32))
+    feat = dict(n_mels=N_MELS)
+    kw = dict(patch_size=W, patch_shift=W, max_patches=2)
+    if option == "jang":
+        feat = dict(feat_name="LogHarmPercSpec", n_fft=512)
+        kw = dict(patch_size=68, patch_shift=68, max_patches=1,
+                  input_kind="image")
+    elif option == "fold_stats":
+        kw["fold_stats"] = stats
+    else:
+        kw["skewness_vector"] = option
+    got = tendtoend.device_featurize_patches(
+        _t(audio), tfeat.FeatureConfig(**feat), **kw)
+    want = jendtoend.device_featurize_patches(
+        jnp.asarray(audio), jfeat.FeatureConfig(dft_precision="highest",
+                                                **feat),
+        use_pallas=False, **kw)
+    shape = {"Row": (6, 1, D), "Col": (6, W, 1), "fold_stats": (6, W, D),
+             "jang": (3, 514, 68, 1)}[option]
+    assert got.shape == want.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+    if option == "jang":
+        assert tstream.crop_samples(1, 68, tfeat.FeatureConfig(**feat)) == \
+            11120
+        # 67 frames, tiled to 68: the first frame again at the end.
+        fv = tendtoend.fg.featuregram(_t(audio), feat_name="LogHarmPercSpec",
+                                      n_fft=512)
+        assert fv.shape[-1] == 67
+        torch.testing.assert_close(got[:, :, 67, 0], got[:, :, 0, 0])
+    # The statistics may also be tensors on the audio's device.
+    if option == "fold_stats":
+        kw["fold_stats"] = tuple(torch.from_numpy(a) for a in stats)
+        torch.testing.assert_close(tendtoend.device_featurize_patches(
+            _t(audio), tfeat.FeatureConfig(**feat), **kw), got,
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("Papakostas_et_al_MTL", dict(in_dim=48, patch_size=48)),
+    ("Doukhan_et_al_MTL", dict(n_mels=20)),
+    ("Papakostas_et_al", dict(in_dim=48, patch_size=48)),
+    ("Jang_et_al", {})])
+def test_l2_kernels_of_the_image_models(name, kw):
+    """The l2 set of the JAX rule (``kernel`` leaves under ``heads`` or
+    ``melCl``): the MTL CNNs' head kernels only, none in the single-task
+    CNNs, Jang's mel-scale kernel (which the runner's single-task rule
+    then leaves unregularized, l2 being 0 there)."""
+    net = get_model(name, **kw)
+    chosen = {id(p) for p in tstate.l2_kernels(net)}
+    names = {n for n, p in net.named_parameters() if id(p) in chosen}
+    tree = weights._flatten(weights.to_flax(net.state_dict())["params"])
+    want = {path for path in tree if path[-1] == "kernel" and any(
+        "heads" in q or "melCl" in q for q in path)}
+    assert len(names) == len(want)
+    assert {n.replace(".weight", ".kernel").replace(".", "/")
+            for n in names} == {"/".join(p) for p in want}
+    if name.endswith("_MTL"):
+        assert len(names) == 7 and all(n.startswith("heads.") for n in names)
+    else:
+        assert names == ({"melCl.kernel"} if name == "Jang_et_al" else set())
+
+
+def test_broadcast_labels_take_a_single_task_array():
+    """A single-task model's labels are one ``(B, C)`` array, which JAX
+    tiles like a dict's leaves."""
+    onehot = torch.eye(3)[[0, 2, 1, 1]]
+    got = tendtoend._broadcast_labels(onehot, 3)
+    want = jendtoend._broadcast_labels(jnp.asarray(onehot.numpy()), 3)
+    assert got.shape == (12, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_broadcast_labels_keep_the_patch_order():
     labels = {"3C": torch.eye(3), "S": torch.tensor([0.0, 1.0, 0.0])}
     got = tendtoend._broadcast_labels(labels, 2)
@@ -564,9 +829,75 @@ def test_balanced_batcher_matches_jax(toy5):
         for k in wl:
             np.testing.assert_array_equal(gl[k], wl[k])
     assert got.cache_stats == want.cache_stats
-    with pytest.raises(NotImplementedError, match="item 2c"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tbatcher.BalancedBatcher(None, root, files, tbatcher.BatcherConfig(
-            skewness_vector="Row"))
+            dual_tower=True))
+
+
+@pytest.mark.parametrize("option", ["Row", "Col", "fold_stats"])
+def test_balanced_batcher_skewness_and_scaling_match_jax(toy5, option):
+    """Frame-level scaling by fold statistics in place of the per-file
+    standardization, compared directly; skewness-vector batches as the
+    skewness of the batcher's own patches, in both packages, whose patches
+    agree.  (The skewness of a 16-frame row is ill-conditioned where the
+    row barely moves within the window: the two packages' patches, 1e-5
+    apart, then give skewness vectors up to 1.3e-4 apart; the statistic
+    itself is held in ``test_torch_stats``, at the same atol 1e-5 as
+    here.)  The fold statistics are the corpus's (``data.stats``)."""
+    root, cv = toy5
+    files, _ = jfolds.get_train_test_files(cv, 1)    # as the test above
+    D = 2 * N_MELS
+    scaled = option == "fold_stats"
+    fold_stats = tstats.get_data_stats(
+        tfeat.Featurizer(tfeat.FeatureConfig(n_mels=N_MELS), device="cpu"),
+        root, files) if scaled else None
+
+    def batchers(skew):
+        kw = dict(batch_size=BS, patch_size=W, patch_shift=W,
+                  augment_noise=False, seed=7, skewness_vector=skew,
+                  frame_level_scaling=scaled)
+        return (tbatcher.BalancedBatcher(
+                    tfeat.Featurizer(tfeat.FeatureConfig(n_mels=N_MELS),
+                                     device="cpu"),
+                    root, files, tbatcher.BatcherConfig(**kw),
+                    fold_stats=fold_stats),
+                jbatcher.BalancedBatcher(
+                    jfeat.Featurizer(jfeat.FeatureConfig(n_mels=N_MELS),
+                                     use_pallas=False),
+                    root, files, jbatcher.BatcherConfig(**kw),
+                    fold_stats=fold_stats))
+
+    got, want = batchers(None)
+    if not scaled:
+        got_s, want_s = batchers(option)
+        axis = 1 if option == "Row" else 0
+    for _ in range(3):
+        (gx, gl), (wx, wl) = next(got), next(want)
+        assert gx.shape == wx.shape == (3 * BS, W, D)
+        np.testing.assert_allclose(gx, wx, rtol=0, atol=1e-4)
+        for k in wl:
+            np.testing.assert_array_equal(gl[k], wl[k])
+        if scaled:
+            continue
+        (gs, gsl), (ws, wsl) = next(got_s), next(want_s)
+        shape = (1, D) if option == "Row" else (W, 1)
+        assert gs.shape == ws.shape == (3 * BS,) + shape
+        # Each package's skewness batch is the skewness of its own patches
+        # (the batches hold them time-major, (N, W, D)).
+        skew_of = {"torch": topstats.patch_statistics(torch.from_numpy(
+                       np.ascontiguousarray(np.swapaxes(gx, 1, 2))),
+                       axis=axis),
+                   "jax": np.asarray(jopstats.patch_statistics(
+                       np.ascontiguousarray(np.swapaxes(wx, 1, 2)),
+                       axis=axis))}
+        np.testing.assert_allclose(gs.reshape(3 * BS, -1),
+                                   np.asarray(skew_of["torch"]), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(ws.reshape(3 * BS, -1), skew_of["jax"],
+                                   rtol=0, atol=1e-5)
+        for k in wl:
+            np.testing.assert_array_equal(gsl[k], wl[k])
+            np.testing.assert_array_equal(wsl[k], wl[k])
 
 
 # --- prefetcher and checkpoints ----------------------------------------------
