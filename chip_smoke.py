@@ -24,17 +24,26 @@ Phases, each of which must pass:
    and on the CPU (tracks within 1e-3), and the 10-minute features through
    K2 against the plain version (<= 0.02 dB); Papakostas-MTL serving (K2
    at n_fft 400): the 60 s broadcast on the card, the 10 s one on the card
-   and on the CPU (tracks within 1e-3);
+   and on the CPU (tracks within 1e-3); Lemaire's variants,
+   ``--model Lemaire_et_al_Cascaded_MTL`` (``LogMelHarmSpec``, K1 with its
+   harmonic half kept) and ``--model Lemaire_et_al_MTL_5class``, on the
+   60 s broadcast on the card and on the CPU (tracks within 1e-3);
 8. HPSS resynthesis: ``cli.hpss_resynth.main`` on the 60 s broadcast on
    the card (masks through K3) and on the CPU;
-9. file-wise evaluation: on a MUSAN-shaped toy corpus (3-30 s files and
-   clips of 0.12-0.2 s), ``FileWiseTester.test_model`` and ``smr_sweep``
-   with Lemaire-MTL through ``Featurizer(bucket=False)`` (K1, and K4 for
-   items under 20 frames) on the card and on the CPU (predictions within
-   1e-3, labels and confusion matrices equal but for near-ties);
-   ``Classifier.classify_file`` on the 60 s broadcast on both; one Jang-MTL
-   ``test_model`` on the card (K2, and K3 for short items), and one
-   Papakostas-MTL ``test_model`` (K2 at n_fft 400, K3 for short items);
+9. file-wise evaluation: on a MUSAN-shaped toy corpus (3-30 s files of
+   music, speech and noise, and clips of 0.12-0.2 s),
+   ``FileWiseTester.test_model`` and ``smr_sweep`` with Lemaire-MTL through
+   ``Featurizer(bucket=False)`` (K1, and K4 for items under 20 frames) on
+   the card and on the CPU (predictions within 1e-3, labels and confusion
+   matrices equal but for near-ties); ``Classifier.classify_file`` on the
+   60 s broadcast on both; one Jang-MTL ``test_model`` on the card (K2,
+   and K3 for short items), and one Papakostas-MTL ``test_model`` (K2 at
+   n_fft 400, K3 for short items); on the card and on the CPU as
+   Lemaire-MTL's, a 5-class ``test_model`` (noise singles and
+   speech+noise pairs, a (5, 5) confusion matrix), an intermediate-fusion
+   ``test_model`` (``dual_tower``), and ``cli.fuse_late.main`` over two
+   checkpoints (``LogMelHarmSpec`` and ``LogMelPercSpec`` models; the
+   driver's bucketed featurizer, K1 once per item and leg);
 10. training at full width on a ``make_toy_musan`` corpus (9 files of 4 s
    per class), each through ``cli.mtl.main`` or ``cli.baseline.main`` for
    fold 0: Lemaire-MTL (2 epochs of 10 train and 2 val steps) by the
@@ -44,16 +53,24 @@ Phases, each of which must pass:
    training file); Jang-MTL by both pipelines (K2 at n_fft 512: 67 frames
    a clip), Papakostas-MTL (K2 at n_fft 400) and Doukhan-MTL (K1) by the
    device pipeline; the single-task Jang and Papakostas models through
-   ``cli.baseline`` for one epoch (no kernel).  One Lemaire-MTL train step
+   ``cli.baseline`` for one epoch (no kernel); after ``cli.make_folds
+   --with-noise``, Lemaire's variants by the device pipeline:
+   Cascaded-MTL through ``cli.mtl``, the 5-class model through
+   ``cli.five_class`` (K1 at 80 clips x 11120 samples) and the
+   intermediate-fusion model through ``cli.fuse_intermediate`` (by the
+   host pipeline too, the dual batcher).  One Lemaire-MTL train step
    from the same weights on the card and on the CPU (loss, every update,
    BatchNorm statistics), and with K1 inside; the same for Jang-MTL with
-   K2 inside and for Papakostas-MTL on patches; 20 steps on one batch for
-   Lemaire-MTL and Jang-MTL (the loss falls); the device pipeline's step
-   time (CUDA events) and the kernel's and the device's share of it
-   (profiler), for Lemaire-MTL and Jang-MTL;
+   K2 inside and for Papakostas-MTL on patches, the intermediate-fusion
+   model with K1 inside and the 5-class model on patches; 20 steps on one
+   batch for Lemaire-MTL, Jang-MTL and the intermediate-fusion model (the
+   loss falls); the device pipeline's step time (CUDA events) and the
+   kernel's and the device's share of it (profiler), for Lemaire-MTL,
+   Jang-MTL, the intermediate-fusion and the 5-class models;
 11. checks on the launch counts, and that every launch shape of phases 4-10
    was checked in phase 3 (K1 and K2 also at 12 clips x 43760 samples, the
-   device pipeline's launch on a corpus of MUSAN's size).
+   device pipeline's launch on a corpus of MUSAN's size, and K1 at 20 x
+   43760, the 5-class model's there).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -65,10 +82,11 @@ own networks; K3 its times on a rotation of inputs larger than L2 and at
 Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
 and K4) against K1 at the same length.  Every bound prices the medians
 at the shared-core networks' count, the least work known.  Prints a
-``{"kernels": [...]}`` line, a serving-times line, a
-resynthesis line, an evaluation line, a training line, the card line,
-and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and prints no result, if any
-phase fails or no GPU is present.  Imports nothing of JAX.
+``{"kernels": [...]}`` line, a serving-times line, a resynthesis line,
+an evaluation line, a training line, the script's total seconds, the card
+line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
+prints no result, if any phase fails or no GPU is present.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -117,6 +135,14 @@ TRAIN_EPOCHS, TRAIN_STEPS, VAL_STEPS = 2, 10, 2
 #: (a corpus of MUSAN's size resolves it to 4).  The crop is framed for a
 #: 400-sample window: at n_fft 512 it holds 67 and 271 frames.
 TRAIN_SHAPES = ((48, 11120), (12, 43760))
+#: K1's launches in the 5-class device pipeline: the same crops for five
+#: classes.
+FIVE_CLASS_SHAPES = ((80, 11120), (20, 43760))
+#: Lemaire's variants: Cascaded-MTL, the 5-class model, intermediate fusion.
+CASCADED, FIVE, IF = ("Lemaire_et_al_Cascaded_MTL",
+                      "Lemaire_et_al_MTL_5class", "Lemaire_et_al_MTL_IF")
+#: The five classes of the 5-class folds, in batch order.
+FIVE_CLASSES = ["music", "speech", "speech+music", "noise", "speech+noise"]
 #: The models phase 10 trains beside Lemaire-MTL, and their run names.
 IMAGE_MTL = ("Jang_et_al_MTL", "Papakostas_et_al_MTL", "Doukhan_et_al_MTL")
 BASELINES = ("Jang_et_al", "Papakostas_et_al")
@@ -139,6 +165,14 @@ STEP_AUDIO_UPDATE_RTOL = 1e-1
 #: to 8.1 in 34 rows of 24672, which moves melCl_P's update by 17% of its
 #: norm (an H100 80GB HBM3 for this corpus and seed).
 STEP_JANG_AUDIO_UPDATE_RTOL = 5e-1
+#: The intermediate-fusion model's step with K1 inside: each update's bar.
+#: Its two towers read the same standardized features as Lemaire-MTL, near-
+#: floor rows up to 0.1 apart card vs CPU, and carry them further: on an
+#: H100 80GB HBM3 for this corpus and seed the largest update, a bias of
+#: the percussive tower whose update is 4.5% of the lr, moves by 0.108 of
+#: its norm (Lemaire-MTL's largest: 3.0e-2), while the same model's patch
+#: step on the CPU's features holds the patch bars.
+STEP_IF_AUDIO_UPDATE_RTOL = 3e-1
 #: The biases that feed a BatchNorm have a gradient of 0 in exact
 #: arithmetic; their updates, rounding noise on both sides, are held to
 #: this share of the first lr per element.
@@ -398,8 +432,9 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     geometries and at every launch shape of the paths: K1 at the 60 s
     Lemaire broadcast bucketed to 6024 frames, the 10-minute slabs (16394
     and 16404 frames), each evaluated file's length and the training
-    launches; K2 at n_fft 512 at the bucketed 10 s (1081) and 60 s (6023)
-    Jang broadcasts, the same slabs and each evaluated file's length, at
+    launches (the 5-class model's at 80 and 20 clips among them); K2 at
+    n_fft 512 at the bucketed 10 s (1081) and 60 s (6023) Jang
+    broadcasts, the same slabs and each evaluated file's length, at
     n_fft 400 at Papakostas's served and evaluated lengths, and both at the
     training launches; K3 at the 60 s resynthesis (201 bins, 5998 frames)
     and at 257 and 201 bins, every T under 20 (Jang's and Papakostas's
@@ -431,7 +466,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     k1_cases += [(400, 21, 11, 1, T) for T in sorted(
         {6024, 16384, 16394, 16404} | eval_frames["K1"])]
     k1_cases += [(400, 21, 11, B, n_frames(N, 400, 160))
-                 for B, N in TRAIN_SHAPES]
+                 for B, N in TRAIN_SHAPES + FIVE_CLASS_SHAPES]
     k1_err = 0.0
     for n_fft, lh, lp, B, T in k1_cases:
         y = audio(n_fft, B, T)
@@ -568,11 +603,12 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             "bound_comparators_per_output": shared[(21, 11)],
             "bound_ms_at_own_networks": per_window[0],
             "timed_shape": list(y.shape)})
-    # K1 at the device training pipeline's batched launches.
+    # K1 at the device training pipeline's batched launches, the 5-class
+    # model's among them.
     M = bank(400)
     nnz = int((M != 0).sum())
     trained = {}
-    for B, N in TRAIN_SHAPES:
+    for B, N in TRAIN_SHAPES + FIVE_CLASS_SHAPES:
         T = n_frames(N, 400, 160)
         y = audio(400, B, T)
         run = lambda: frontend.stft_hpss_mel(y, M)  # noqa: E731
@@ -887,18 +923,21 @@ def resynth_delta(got: np.ndarray, want: np.ndarray, n_fft: int = 400,
 
 
 def make_eval_corpus(root: str) -> dict:
-    """The evaluation corpus: ``make_toy_musan`` music and speech of 3-30 s,
-    and ``EVAL_SHORT`` clips of 0.12-0.2 s per class beside them with their
-    annotation rows (stratum 'short', so fold 0 holds one of each).
-    Returns the corpus root, fold 0's test files, and each test file's
-    length in samples after the loader's chain (silence removal may
+    """The evaluation corpus: ``make_toy_musan`` music, speech and noise of
+    3-30 s, and ``EVAL_SHORT`` clips of 0.12-0.2 s per class of music and
+    speech beside them with their annotation rows (stratum 'short', so fold
+    0 holds one of each); its 3-class folds saved where ``cli.fuse_late``
+    reads them.  Returns the corpus root, fold 0's test files of the
+    3-class folds (``test``) and of the 5-class ones (``test5``), and each
+    file's length in samples after the loader's chain (silence removal may
     shorten a file), from which every launch shape of the phase follows."""
     from sm_hpss_mtl_tpu_torch.data import audio
     from sm_hpss_mtl_tpu_torch.data.folds import (create_cv_folds,
-                                                  get_train_test_files)
+                                                  get_train_test_files,
+                                                  save_cv_folds)
     from sm_hpss_mtl_tpu_torch.ops.mixing import normalize_signal_np
     audio.make_toy_musan(root, n_per_class=EVAL_FILES,
-                         duration_s=(3.0, 30.0), seed=SEED)
+                         duration_s=(3.0, 30.0), with_noise=True, seed=SEED)
     rng = np.random.default_rng(SEED + 3)
     for cls, synth in (("music", audio._synth_music),
                        ("speech", audio._synth_speech)):
@@ -909,32 +948,48 @@ def make_eval_corpus(root: str) -> dict:
                 audio.write_wav(os.path.join(root, cls, name + ".wav"),
                                 normalize_signal_np(synth(rng, n, SR)))
                 f.write(f"{name},short\n")
-    _, test = get_train_test_files(create_cv_folds(root, seed=SEED), 0)
+    cv = create_cv_folds(root, seed=SEED)
+    save_cv_folds(cv, os.path.join(root, "cv_info"))
+    _, test = get_train_test_files(cv, 0)
+    _, test5 = get_train_test_files(
+        create_cv_folds(root, with_noise=True, seed=SEED), 0,
+        class_names=FIVE_CLASSES)
     samples = {os.path.join(root, c, f): len(
         audio.load_and_preprocess_signal(os.path.join(root, c, f))[0])
-        for c in ("music", "speech") for f in test[c]}
-    return {"root": root, "test": test, "samples": samples}
+        for c in ("music", "speech", "noise")
+        for f in os.listdir(os.path.join(root, c)) if f.endswith(".wav")}
+    return {"root": root, "test": test, "test5": test5, "samples": samples}
 
 
-def eval_item_frames(corpus: dict, n_fft: int, sweep: bool) -> list[int]:
+def eval_item_frames(corpus: dict, n_fft: int, sweep: bool,
+                     test: str = "test", bucketed: bool = False
+                     ) -> list[int]:
     """Frames of every item the tester featurizes, in order: test_model's
-    single files and pairs (a mixture takes its speech file's length),
-    then, with ``sweep``, the pairs again at each SMR level."""
+    single files and pairs of fold 0's ``test`` files (a mixture takes its
+    speech file's length), then, with ``sweep``, the speech+music pairs
+    again at each SMR level; with ``bucketed``, at the length bucket a
+    bucketed featurizer launches."""
+    from sm_hpss_mtl_tpu_torch.data.featurize import bucket_length
     from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
-    root, test, samples = corpus["root"], corpus["test"], corpus["samples"]
+    root, files, samples = corpus["root"], corpus[test], corpus["samples"]
     singles = [samples[os.path.join(root, c, f)]
-               for c in ("music", "speech") for f in test[c]]
+               for c in ("music", "speech", "noise") for f in files.get(c, [])]
     pairs = [samples[os.path.join(root, "speech", p["speech"])]
-             for p in test["speech+music"]]
-    items = singles + pairs + (pairs * len(SMR_LEVELS) if sweep else [])
-    return [n_frames(n, n_fft, 160) for n in items]
+             for k in ("speech+music", "speech+noise")
+             for p in files.get(k, [])]
+    swept = [samples[os.path.join(root, "speech", p["speech"])]
+             for p in files["speech+music"]] * len(SMR_LEVELS)
+    items = singles + pairs + (swept if sweep else [])
+    return [n_frames(bucket_length(n) if bucketed else n, n_fft, 160)
+            for n in items]
 
 
 def evaluate(model: str, corpus: dict, weights: str, device: str,
              sweep: bool) -> dict:
     """``FileWiseTester.test_model`` (and ``smr_sweep``) of ``model`` on
     fold 0 of the corpus through ``Featurizer(bucket=False)`` on
-    ``device``; the host clock around each, the time inside the
+    ``device`` (the 5-class model on the 5-class folds, the fusion model
+    with ``dual_tower``); the host clock around each, the time inside the
     featurizer, and the frames of each featurized item."""
     from sm_hpss_mtl_tpu_torch.cli import segment as cli
     from sm_hpss_mtl_tpu_torch.data.featurize import (FeatureConfig,
@@ -965,30 +1020,58 @@ def evaluate(model: str, corpus: dict, weights: str, device: str,
 
     feat._compute, feat.featuregram = counted, timed
     net = load_model(weights, resolve_device(device), model)
+    dual = INPUT_KIND[model] == "dual"
+    test, n_classes = ("test5", 5) if model == FIVE else ("test", 3)
     tester = FileWiseTester(featurizer=feat, predict_fn=net,
                             folder=corpus["root"], feat_name=cfg.feat_name,
-                            input_kind=INPUT_KIND[model])
+                            input_kind="time_mel" if dual
+                            else INPUT_KIND[model], dual_tower=dual)
     with recorded() as rec:
         t0 = time.perf_counter()
-        res = tester.test_model(corpus["test"])
+        res = tester.test_model(corpus[test])
         t1 = time.perf_counter()
-        swept = (tester.smr_sweep(corpus["test"], levels=SMR_LEVELS)
+        swept = (tester.smr_sweep(corpus[test], levels=SMR_LEVELS)
                  if sweep else {})
         t2 = time.perf_counter()
     for r in [res] + [swept[db] for db in SMR_LEVELS if db in swept]:
         p = r["Predictions"]
-        check(p.ndim == 2 and p.shape[1] == 3 and len(p) == len(
+        check(p.ndim == 2 and p.shape[1] == n_classes and len(p) == len(
             r["PtdLabels"]) == len(r["GroundTruth"]), "prediction shapes")
         check(bool(np.isfinite(p).all()), "predictions not finite")
         check(bool((np.abs(p.sum(axis=1) - 1) < 1e-4).all()),
-              "3C probabilities do not sum to 1")
-    want = eval_item_frames(corpus, cfg.n_fft, sweep)
+              "class probabilities do not sum to 1")
+    check(res["ConfMat"].shape == (n_classes, n_classes),
+          f"{model}: confusion matrix {res['ConfMat'].shape}")
+    want = eval_item_frames(corpus, cfg.n_fft, sweep, test)
     check(sorted(seen["frames"]) == sorted(want),
           f"{model}: featurized frames {sorted(seen['frames'])}, planned "
           f"{sorted(want)}")
     return {"result": res, "sweep": swept, "launches": rec["launches"],
             "shapes": rec["shapes"], "test_model_s": t1 - t0,
             "sweep_s": t2 - t1, **seen}
+
+
+def fuse_late(corpus: dict, ckpts: tuple, out: str, device: str) -> dict:
+    """``cli.fuse_late.main`` on fold 0 of the corpus's 3-class folds over
+    the harmonic-feature and percussive-feature checkpoints on ``device``
+    (host clock around it); its row and results checked, K1 launched once
+    per item and leg at the items' length buckets."""
+    from sm_hpss_mtl_tpu_torch.cli import fuse_late as cli
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        res = cli.main(["--data", corpus["root"], "--ckpt-harm", ckpts[0],
+                        "--ckpt-perc", ckpts[1], "--output", out,
+                        "--device", device])
+        total_s = time.perf_counter() - t0
+    check(res["ConfMat"].shape == (3, 3) and bool(np.isfinite(
+        res["Predictions"]).all()), f"fuse_late results {res['ConfMat']}")
+    check(os.path.exists(os.path.join(out, "Late_Fusion",
+                                      "Lemaire_et_al_MTL",
+                                      "Performance.csv")),
+          "fuse_late wrote no Performance.csv")
+    return {"result": res, "launches": rec["launches"],
+            "shapes": rec["shapes"], "total_s": total_s,
+            "items": len(eval_item_frames(corpus, 400, sweep=False))}
 
 
 def same_labels(tag: str, got: dict, want: dict) -> tuple[float, list]:
@@ -1029,11 +1112,13 @@ def classify(wav: str, weights: str, device: str) -> dict:
 
 def make_train_corpus(root: str) -> dict:
     """The training corpus: ``make_toy_musan`` with ``TRAIN_FILES`` files
-    of ``TRAIN_SECONDS`` per class, and its folds where ``cli.mtl`` reads
-    them.  Returns the root, fold 0's training split, and per n_fft (400,
-    512) the frames of every item the host pipeline's featurizer can
-    compute: each music and speech file's length bucket (a mixture takes
-    its speech file's length), launched one item at a time."""
+    of ``TRAIN_SECONDS`` per class of music, speech and noise, and its
+    3-class folds where ``cli.mtl`` reads them (the 5-class ones are
+    ``cli.make_folds``'s, in phase 10).  Returns the root, fold 0's
+    training split, and per n_fft (400, 512) the frames of every item the
+    host pipeline's featurizer can compute: each music, speech and noise
+    file's length bucket (a mixture takes its speech file's length),
+    launched one item at a time."""
     from sm_hpss_mtl_tpu_torch.cli.experiment import (load_or_create_folds,
                                                       split_train_val)
     from sm_hpss_mtl_tpu_torch.data import audio
@@ -1042,16 +1127,38 @@ def make_train_corpus(root: str) -> dict:
     from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
     from sm_hpss_mtl_tpu_torch.train.config import ExperimentConfig
     audio.make_toy_musan(root, n_per_class=TRAIN_FILES,
-                         duration_s=TRAIN_SECONDS, seed=SEED)
+                         duration_s=TRAIN_SECONDS, with_noise=True, seed=SEED)
     cv = load_or_create_folds(ExperimentConfig(data_root=root))
     tr, _ = split_train_val(get_train_test_files(cv, 0)[0])
     lengths = {bucket_length(len(audio.load_and_preprocess_signal(
         os.path.join(root, c, f))[0]))
-        for c in ("music", "speech")
+        for c in ("music", "speech", "noise")
         for f in os.listdir(os.path.join(root, c)) if f.endswith(".wav")}
     return {"root": root, "train_files": tr,
             "frames": {n_fft: {n_frames(n, n_fft, 160) for n in lengths}
                        for n_fft in (400, 512)}}
+
+
+def make_five_class_folds(corpus: dict) -> None:
+    """``cli.make_folds --with-noise`` into ``<root>/cv_info_5_class``,
+    where ``cli.five_class`` reads them (host work only: no kernel may
+    launch); adds fold 0's 5-class training split to ``corpus`` as
+    ``train_files5``."""
+    from sm_hpss_mtl_tpu_torch.cli import make_folds
+    from sm_hpss_mtl_tpu_torch.cli.experiment import split_train_val
+    from sm_hpss_mtl_tpu_torch.data.folds import (get_train_test_files,
+                                                  load_cv_folds)
+    out = os.path.join(corpus["root"], "cv_info_5_class")
+    with recorded() as rec:
+        make_folds.main(["--data", corpus["root"], "--with-noise",
+                         "--output", out])
+    check(not any(rec["launches"].values()),
+          f"make_folds launched {rec['launches']}")
+    cv5 = load_cv_folds(out)
+    check(all(cv5[k]["fold0"] for k in FIVE_CLASSES),
+          "the 5-class folds lack a class")
+    corpus["train_files5"], _ = split_train_val(
+        get_train_test_files(cv5, 0, class_names=FIVE_CLASSES)[0])
 
 
 def model_kernel(model: str) -> str | None:
@@ -1068,13 +1175,18 @@ def model_kernel(model: str) -> str | None:
 def train_cli(corpus: dict, out: str, pipeline: str,
               model: str = "Lemaire_et_al_MTL", extra: tuple = (),
               epochs: int = TRAIN_EPOCHS) -> dict:
-    """One ``cli.mtl`` run (``cli.baseline`` for a single-task model) of
-    fold 0 on the card (host clock around it); its outputs checked, and the
-    model's kernel launched once per device-pipeline train or eval step and
-    once per featurized file (the statistics pass's too), nothing else."""
-    from sm_hpss_mtl_tpu_torch.cli import baseline, mtl
+    """One run of fold 0 on the card (host clock around it) through the
+    model's driver: ``cli.five_class`` for the 5-class model,
+    ``cli.fuse_intermediate`` for the fusion model, ``cli.mtl`` for the
+    other MTL models and ``cli.baseline`` for a single-task one; its
+    outputs checked, and the model's kernel launched once per
+    device-pipeline train or eval step and once per featurized file (the
+    statistics pass's too), nothing else."""
+    from sm_hpss_mtl_tpu_torch.cli import (baseline, five_class,
+                                           fuse_intermediate, mtl)
     from sm_hpss_mtl_tpu_torch.models.zoo import MTL
-    main = mtl.main if MTL[model] else baseline.main
+    main = {FIVE: five_class.main, IF: fuse_intermediate.main}.get(
+        model, mtl.main if MTL[model] else baseline.main)
     tag = f"{model} {pipeline} {' '.join(extra)}".strip()
     with recorded() as rec:
         t0 = time.perf_counter()
@@ -1093,6 +1205,9 @@ def train_cli(corpus: dict, out: str, pipeline: str,
               for h in hist), f"{tag}: losses not finite: {hist}")
     check(np.isfinite(row["val_loss"]) and 0 <= row["accuracy"] <= 1,
           f"{tag}: fold row {row}")
+    n_classes = 5 if model == FIVE else 3
+    check(fold["test"]["ConfMat"].shape == (n_classes, n_classes),
+          f"{tag}: confusion matrix {fold['test']['ConfMat'].shape}")
     for name in ("Performance.csv", "fold0_log.csv",
                  "fold0_ckpt/state/model.npz"):
         check(os.path.exists(os.path.join(fold["op_dir"], name)),
@@ -1150,10 +1265,13 @@ def _train_setup(device: str, net, seed: int, audio: bool = True,
 
 
 def _crops(corpus: dict, seed: int, model: str = "Lemaire_et_al_MTL"):
+    """The device pipeline's crop batches of fold 0's training files (the
+    5-class split for the 5-class model)."""
     from sm_hpss_mtl_tpu_torch.data.audiostream import (AudioCache,
                                                         AudioCropBatcher)
+    files = corpus["train_files5" if model == FIVE else "train_files"]
     return AudioCropBatcher(AudioCache(), corpus["root"],
-                            corpus["train_files"], _feature_config(model),
+                            files, _feature_config(model),
                             clips_per_class=16, n_patches_per_clip=1,
                             patch_size=68, seed=seed)
 
@@ -1264,17 +1382,26 @@ def _seeded(model: str, dropout: bool = True):
 
 def _features_card_vs_cpu(audio, model: str) -> tuple[dict, "object"]:
     """The device pipeline's patches of ``audio`` on the card (the model's
-    kernel) and on the CPU (the plain version): the CPU's patches and the
-    difference's statistics."""
+    kernel) and on the CPU (the plain version): the CPU's patches (a dict
+    of two for the fusion model) and the difference's statistics."""
     import torch
     from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
     from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
     from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
-    feats = {dev: device_featurize_patches(
+    def host(f):
+        return ({k: v.cpu() for k, v in f.items()} if isinstance(f, dict)
+                else f.cpu())
+
+    feats = {dev: host(device_featurize_patches(
         to_device(audio, torch.device(dev)), _feature_config(model),
         patch_size=68, patch_shift=68, max_patches=1,
-        input_kind=INPUT_KIND[model]).cpu() for dev in ("cpu", "cuda")}
-    fdiff = (feats["cuda"] - feats["cpu"]).abs()
+        input_kind=INPUT_KIND[model])) for dev in ("cpu", "cuda")}
+
+    def joined(f):                  # the fusion model's two inputs, as one
+        return torch.cat([f["harm_input"], f["perc_input"]], dim=-1) \
+            if isinstance(f, dict) else f
+
+    fdiff = (joined(feats["cuda"]) - joined(feats["cpu"])).abs()
     rows = fdiff.amax(dim=1) if fdiff.ndim == 3 else fdiff.amax(dim=2)
     return {"features_max_abs_delta": float(fdiff.max()),
             "features_mean_abs_delta": float(fdiff.mean()),
@@ -1348,6 +1475,37 @@ def image_step_checks(corpus: dict) -> dict:
     return out
 
 
+def variant_step_checks(corpus: dict) -> dict:
+    """Lemaire's variants, one crop batch each, dropout and augmentation
+    off.  The intermediate-fusion model: the features on the card (K1)
+    against the CPU's; one patch step on the CPU's features (a dict of the
+    two towers' inputs) on the card and on the CPU at the patch step's
+    bars; one audio step (K1 inside on the card) on both at the loss and
+    statistics bars and ``STEP_IF_AUDIO_UPDATE_RTOL`` on each update; and
+    20 audio steps on one batch (the loss falls).  The 5-class model: one
+    patch step on the CPU's features on the card and on the CPU at the
+    patch step's bars."""
+    out = {}
+    audio, labels = next(_crops(corpus, SEED, IF))
+    net = _seeded(IF, dropout=False)
+    feat_stats, patches = _features_card_vs_cpu(audio, IF)
+    out[IF] = {**feat_stats, "patch_step": _step_card_vs_cpu(
+        net, patches, labels, audio=False, update_rtol=STEP_UPDATE_RTOL,
+        model=IF), "audio_step": _step_card_vs_cpu(
+        net, audio, labels, audio=True,
+        update_rtol=STEP_IF_AUDIO_UPDATE_RTOL, model=IF),
+        "fixed_batch_losses": _falls(IF, net, audio, labels)}
+    del net
+    audio, labels = next(_crops(corpus, SEED, FIVE))
+    check(audio.shape == (5 * 16, 11120), f"5-class crops {audio.shape}")
+    net = _seeded(FIVE, dropout=False)
+    feat_stats, patches = _features_card_vs_cpu(audio, FIVE)
+    out[FIVE] = {**feat_stats, "patch_step": _step_card_vs_cpu(
+        net, patches, labels, audio=False, update_rtol=STEP_UPDATE_RTOL,
+        model=FIVE)}
+    return out
+
+
 def time_device_steps(corpus: dict, model: str = "Lemaire_et_al_MTL",
                       steps: int = 30, profiled: int = 10) -> dict:
     """Device-pipeline train steps of ``model`` at full width on the card,
@@ -1417,6 +1575,27 @@ def time_device_steps(corpus: dict, model: str = "Lemaire_et_al_MTL",
                 for e in host_ops[:8]}}
 
 
+def late_fusion_checkpoints(root: str) -> tuple[str, str]:
+    """Fold checkpoints of two full-width Lemaire-MTL models from seeded
+    inits, one on ``LogMelHarmSpec`` and one on ``LogMelPercSpec`` (120
+    rows each), as ``cli.mtl --feat-name ...`` writes them; the paths that
+    ``cli.fuse_late`` takes."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.models.lemaire import init_weights
+    from sm_hpss_mtl_tpu_torch.models.zoo import get_model
+    from sm_hpss_mtl_tpu_torch.train.checkpoint import save_checkpoint
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    from sm_hpss_mtl_tpu_torch.train.state import TrainState
+    paths = []
+    for k, feat in enumerate(("LogMelHarmSpec", "LogMelPercSpec")):
+        net = init_weights(get_model("Lemaire_et_al_MTL", in_dim=120),
+                           torch.Generator().manual_seed(SEED + k))
+        opt, _ = for_model("Lemaire_et_al_MTL", net.parameters(), tr_steps=1)
+        paths.append(os.path.join(root, feat, "fold0_ckpt"))
+        save_checkpoint(paths[-1], TrainState(net, opt), {"epoch": 0})
+    return tuple(paths)
+
+
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source at once, one nvcc process each; load the
     libraries.  Returns the wall time and the ptxas reports."""
@@ -1434,6 +1613,7 @@ def build_all() -> tuple[float, list[str]]:
 
 def run() -> None:
     import torch
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[1 card] {card}", flush=True)
 
@@ -1463,6 +1643,10 @@ def run() -> None:
         lem_frames = eval_item_frames(corpus, 400, sweep=True)
         jang_frames = eval_item_frames(corpus, 512, sweep=False)
         pap_frames = eval_item_frames(corpus, 400, sweep=False)
+        five_frames = eval_item_frames(corpus, 400, sweep=False,
+                                       test="test5")
+        late_frames = eval_item_frames(corpus, 400, sweep=False,
+                                       bucketed=True)
         n60 = len(load_and_preprocess_signal(wav60)[0])
         short = Counter(T for T in lem_frames if T < SHORT_FRAMES)
         check(short and any(T < SHORT_FRAMES for T in jang_frames),
@@ -1470,9 +1654,9 @@ def run() -> None:
         served_400 = {n_frames(bucket_length(len(x)), 400, 160)
                       for x in (x60, x10)}
         eval_frames = {
-            "K1": {T for T in lem_frames if T >= SHORT_FRAMES}
+            "K1": {T for T in lem_frames + five_frames if T >= SHORT_FRAMES}
             | {n_frames(bucket_length(n60), 400, 160)}
-            | train_corpus["frames"][400],
+            | set(late_frames) | train_corpus["frames"][400],
             "K2": {T for T in jang_frames if T >= SHORT_FRAMES}
             | train_corpus["frames"][512],
             "K2_400": {T for T in pap_frames if T >= SHORT_FRAMES}
@@ -1489,12 +1673,13 @@ def run() -> None:
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
-                      "Papakostas_et_al_MTL"):
+                      "Papakostas_et_al_MTL", CASCADED, FIVE, IF):
             wpath[model] = out(f"{model}.npz")
             net = init_weights(get_model(model),
                                torch.Generator().manual_seed(SEED))
             weights.save_npz(wpath[model], weights.to_flax(net.state_dict()))
             del net
+        late_ckpts = late_fusion_checkpoints(out("late"))
 
         lem = "Lemaire_et_al_MTL"
         runs["lemaire_60"] = whole = serve(lem, wav60, wpath[lem],
@@ -1564,6 +1749,32 @@ def run() -> None:
               f"K2 launch each; 10 s tracks vs CPU max |delta| "
               f"{pap_track:.3e} (CPU run {p10_cpu['total_s']:.1f} s); 60 s "
               f"warm {p60_warm['total_s']:.3f} s", flush=True)
+        variants_serving = {}
+        for model, tag in ((CASCADED, "cascaded"), (FIVE, "five")):
+            runs[f"{tag}_60"] = g = serve(model, wav60, wpath[model],
+                                          out(f"{tag}_g60.npz"), "cuda", x60)
+            c = serve(model, wav60, wpath[model], out(f"{tag}_c60.npz"),
+                      "cpu", x60)
+            check(g["launches"]["K1"] > 0 and not any(
+                g["launches"][k] for k in ("K2", "K3", "K4")),
+                  f"{model} serving launches {g['launches']}")
+            d = max(float(np.abs(g["tracks"][k] - c["tracks"][k]).max())
+                    for k in ("track_S", "track_M"))
+            check(d <= TRACK_TOL, f"{model} tracks: GPU vs CPU max |delta| "
+                                  f"{d:.3e}")
+            if model == FIVE:
+                check(g["tracks"]["track_N"].shape[1] == 1
+                      and g["tracks"]["track_3C"].shape[1] == 5,
+                      "5-class tracks")
+            variants_serving[model] = {
+                "first_run_60s_total_ms": 1e3 * g["total_s"],
+                "cpu_60s_total_ms": 1e3 * c["total_s"],
+                "launches": g["launches"],
+                "track_max_abs_delta_vs_cpu": d}
+        print("[7 variants] 60 s, " + "; ".join(
+            f"{m}: launches {v['launches']}, tracks vs CPU max |delta| "
+            f"{v['track_max_abs_delta_vs_cpu']:.3e}"
+            for m, v in variants_serving.items()), flush=True)
 
         runs["resynth_60"] = rs = resynth(wav60, out("rg"), "cuda")
         check(rs["launches"]["K3"] > 0, "resynthesis launched no K3")
@@ -1615,6 +1826,49 @@ def run() -> None:
             "K4": 0}, f"Papakostas evaluation launches "
                       f"{pap_eval['launches']} for {p_short} short of "
                       f"{len(pap_eval['frames'])} items")
+        variants_eval, variant_ties = {}, []
+        for model, tag in ((FIVE, "eval_five"), (IF, "eval_if")):
+            runs[tag] = r = evaluate(model, corpus, wpath[model], "cuda",
+                                     sweep=False)
+            c = evaluate(model, corpus, wpath[model], "cpu", sweep=False)
+            short_n = sum(T < SHORT_FRAMES for T in r["frames"])
+            check(r["launches"] == {"K1": len(r["frames"]) - short_n,
+                                    "K2": 0, "K3": 0, "K4": short_n},
+                  f"{model} evaluation launches {r['launches']} for "
+                  f"{short_n} short of {len(r['frames'])} items")
+            d, t = same_labels(f"{model} test_model", r["result"],
+                               c["result"])
+            variant_ties += t
+            variants_eval[model] = {
+                "items": len(r["frames"]), "short_items": short_n,
+                "audio_s": r["samples"] / SR,
+                "test_model_ms": 1e3 * r["test_model_s"],
+                "cpu_test_model_ms": 1e3 * c["test_model_s"],
+                "featurize_ms": 1e3 * r["featurize_s"],
+                "launches": r["launches"],
+                "conf_mat_shape": list(r["result"]["ConfMat"].shape),
+                "predictions_max_abs_delta_vs_cpu": d}
+        runs["fuse_late"] = fl = fuse_late(corpus, late_ckpts, out("fl_g"),
+                                           "cuda")
+        fl_cpu = fuse_late(corpus, late_ckpts, out("fl_c"), "cpu")
+        check(fl["launches"] == {"K1": 2 * fl["items"], "K2": 0, "K3": 0,
+                                 "K4": 0},
+              f"fuse_late launches {fl['launches']} for {fl['items']} "
+              "items in two legs")
+        d, t = same_labels("fuse_late", fl["result"], fl_cpu["result"])
+        variant_ties += t
+        variants_eval["late_fusion"] = {
+            "items": fl["items"], "total_ms": 1e3 * fl["total_s"],
+            "cpu_total_ms": 1e3 * fl_cpu["total_s"],
+            "launches": fl["launches"],
+            "predictions_max_abs_delta_vs_cpu": d}
+        for tie in variant_ties:
+            print(f"near-tie, label differs: {tie}", flush=True)
+        print("[9 variants] " + "; ".join(
+            f"{m}: launches {v['launches']}, predictions vs CPU max |delta| "
+            f"{v['predictions_max_abs_delta_vs_cpu']:.3e}"
+            for m, v in variants_eval.items())
+            + f"; {len(variant_ties)} near-ties", flush=True)
         print(f"[9 evaluation] Lemaire {len(lem_eval['frames'])} items "
               f"({n_short} under {SHORT_FRAMES} frames), launches "
               f"{lem_eval['launches']}; predictions GPU vs CPU max |delta| "
@@ -1650,6 +1904,40 @@ def run() -> None:
             image[model] = {"device_pipeline": runs[f"train_{model}"]}
         image_checks = image_step_checks(train_corpus)
         jang_times = time_device_steps(train_corpus, "Jang_et_al_MTL")
+        make_five_class_folds(train_corpus)
+        variants = {model: {"device_pipeline": train_cli(
+            train_corpus, out(f"t_{model}_d"), "device", model=model)}
+            for model in (CASCADED, FIVE, IF)}
+        variants[IF]["host_pipeline"] = train_cli(
+            train_corpus, out("t_if_h"), "host", model=IF)
+        runs["train_cascaded"] = variants[CASCADED]["device_pipeline"]
+        runs["train_five"] = variants[FIVE]["device_pipeline"]
+        runs["train_if_device"] = variants[IF]["device_pipeline"]
+        runs["train_if_host"] = variants[IF]["host_pipeline"]
+        variant_checks = variant_step_checks(train_corpus)
+        for model in (IF, FIVE):
+            variants[model]["device_steps"] = time_device_steps(train_corpus,
+                                                                model)
+        if_step = variant_checks[IF]["audio_step"]
+        five_step = variant_checks[FIVE]["patch_step"]
+        print("[10 variants] " + "; ".join(
+            f"{m}: " + ", ".join(f"{p} {r['launches']} val loss "
+                                 f"{r['val_loss']}" for p, r in v.items()
+                                 if p != "device_steps")
+            for m, v in variants.items())
+            + f"; fusion one step card vs CPU on the same patches: updates "
+              f"{variant_checks[IF]['patch_step']['update_rel_max']:.2e};"
+              f" with K1 inside: loss "
+              f"{if_step['loss_rel']:.2e}, updates "
+              f"{if_step['update_rel_max']:.2e}, statistics "
+              f"{if_step['stats_err_max']:.2e}; 20 steps "
+              f"{variant_checks[IF]['fixed_batch_losses'][0]:.4f} -> "
+              f"{variant_checks[IF]['fixed_batch_losses'][-1]:.4f}; 5-class "
+              f"patch step loss {five_step['loss_rel']:.2e}, updates "
+              f"{five_step['update_rel_max']:.2e}; steps "
+              f"{variants[IF]['device_steps']['step_ms']:.3f} ms (fusion), "
+              f"{variants[FIVE]['device_steps']['step_ms']:.3f} ms "
+              "(5-class)", flush=True)
         jang_step = image_checks["Jang_et_al_MTL"]["audio_step"]
         pap_step = image_checks[pap]["patch_step"]
         print("[10 image training] " + "; ".join(
@@ -1690,12 +1978,15 @@ def run() -> None:
 
     paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
                     "classify_60", "train_device", "train_host",
-                    "train_lemaire_fls", "train_doukhan"),
+                    "train_lemaire_fls", "train_doukhan", "cascaded_60",
+                    "five_60", "eval_five", "eval_if", "fuse_late",
+                    "train_cascaded", "train_five", "train_if_device",
+                    "train_if_host"),
              "K2": ("jang_60", "jang_600", "jang_10", "eval_jang", "pap_60",
                     "pap_10", "eval_papakostas", "train_jang_device",
                     "train_jang_host", "train_papakostas"),
              "K3": ("resynth_60", "eval_jang", "eval_papakostas"),
-             "K4": ("eval_lemaire",)}
+             "K4": ("eval_lemaire", "eval_five", "eval_if")}
     for entry, (kernel, names) in zip(entries, paths.items()):
         entry["launches"] = sum(runs[n]["launches"][kernel] for n in names)
         check(entry["launches"] > 0, f"{kernel} never launched on its path")
@@ -1719,6 +2010,7 @@ def run() -> None:
             "10s_total_ms": 1e3 * p10["total_s"],
             "cpu_10s_total_ms": 1e3 * p10_cpu["total_s"],
             "track_max_abs_delta_vs_cpu": pap_track},
+        "variants": variants_serving,
         "build_s": build_s}}))
     print(json.dumps({"resynthesis": {
         "card": card, "audio_s": len(x60) / SR,
@@ -1752,7 +2044,8 @@ def run() -> None:
                            p_short, "audio_s": pap_eval["samples"] / SR,
                            "test_model_ms": 1e3 * pap_eval["test_model_s"],
                            "featurize_ms": 1e3 * pap_eval["featurize_s"],
-                           "launches": pap_eval["launches"]}}}))
+                           "launches": pap_eval["launches"]},
+        "variants": variants_eval}}))
     k1_train = entries[0]["training_shapes"]
 
     def brief(run):
@@ -1781,7 +2074,15 @@ def run() -> None:
                    **({"device_steps": jang_times}
                       if model == "Jang_et_al_MTL" else {})}
            for model in IMAGE_MTL + BASELINES},
+        "variants": {model: {
+            **{p: (brief(r) if p != "device_steps" else r)
+               for p, r in v.items()},
+            **variant_checks.get(model, {})}
+            for model, v in variants.items()},
+        "k1_at_80x11120": k1_train["80x11120"],
+        "k1_at_20x43760": k1_train["20x43760"],
         "k2_training_shapes": entries[1]["training_shapes"]}}))
+    print(f"[12 total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

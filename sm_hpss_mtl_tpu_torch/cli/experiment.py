@@ -13,8 +13,10 @@ Two input pipelines, as in the JAX package:
   K1 or K2 on CUDA) and ``BalancedBatcher`` streams patch batches.
 
 Every model of ``models.zoo`` trains here: the MTL models on the S/M/R/3C
-labels with the heads' l2 penalty, the single-task ones on the one-hot
-classes alone and without it, as the JAX runner does.  With
+labels (the 5-class model also on N, on the ``cv_info_5_class`` folds)
+with the heads' l2 penalty, the single-task ones on the one-hot classes
+alone and without it, as the JAX runner does.  The intermediate-fusion
+model takes each batch as its two towers' inputs.  With
 ``frame_level_scaling`` the fold's corpus statistics (``data.stats``, one
 featurization of every training file) replace the row standardization in
 both pipelines and the tester.
@@ -48,7 +50,7 @@ from ..models.lemaire import init_weights
 from ..models.zoo import MTL, ModelSpec, get_spec
 from ..train.checkpoint import (checkpoint_exists, restore_checkpoint,
                                 update_metadata)
-from ..train.config import MODEL_PRESETS, ExperimentConfig
+from ..train.config import ExperimentConfig
 from ..train.endtoend import make_audio_eval_step, make_audio_train_step
 from ..train.loop import (EARLY_STOP_MIN_DELTA, EARLY_STOP_PATIENCE,
                           FitResult, evaluate_generator, fit)
@@ -133,10 +135,6 @@ def _class_subset(files: dict, n_classes: int) -> dict:
 
 
 def _check_ported(config: ExperimentConfig) -> None:
-    if config.model in MODEL_PRESETS and config.model not in MTL:
-        raise NotImplementedError(
-            f"training {config.model!r} is not ported yet (ROADMAP §1, "
-            "item 7)")
     if config.model not in MTL:
         raise ValueError(f"unknown model {config.model!r}")
     if config.compute_dtype != "float32":
@@ -151,7 +149,8 @@ def model_spec(config: ExperimentConfig) -> ModelSpec:
     (Jang's, Papakostas's) leaves the model its own mel geometry; the input
     rows are the features' and, with ``skewness_vector``, a patch is one
     skewness vector, ``(1, D)`` per row ('Row') or ``(W, 1)`` per column
-    ('Col'), which only the time-major models take."""
+    ('Col'), which only the time-major models take.  The intermediate-
+    fusion model's towers take half the rows each."""
     feat_cfg = config.feature_config()
     mels_kw = {"n_mels": feat_cfg.n_mels} if feat_cfg.n_mels > 0 else {}
     in_dim, patch_size = feat_cfg.dim, config.patch_size
@@ -249,10 +248,14 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
                                           or config.tr_steps, 1))
     generator = torch.Generator(device=device).manual_seed(config.seed)
     l2_reg = config.l2_reg if spec.mtl else 0.0
+    # The intermediate-fusion model ('dual'): the batchers and the tester
+    # cut time-major patches and split them in two, the device pipeline
+    # featurizes with input_kind='dual'.
+    dual = spec.input_kind == "dual"
     bcfg = BatcherConfig(
         batch_size=config.batch_size, patch_size=config.patch_size,
         patch_shift=config.patch_shift, feat_name=feat_cfg.feat_name,
-        input_kind=spec.input_kind,
+        input_kind=config.input_kind, dual_tower=dual,
         # Augmentation runs on the device inside the train step; the host
         # stream stays clean (and the val stream always is).
         augment_noise=False, frame_level_scaling=config.frame_level_scaling,
@@ -350,7 +353,8 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     tester = FileWiseTester(
         featurizer=fz, predict_fn=lambda x: predict(result.state, x),
         folder=config.data_root, feat_name=feat_cfg.feat_name,
-        input_kind=spec.input_kind, patch_size=config.patch_size,
+        input_kind=config.input_kind, dual_tower=dual,
+        patch_size=config.patch_size,
         test_patch_shift=config.test_patch_shift,
         frame_level_scaling=config.frame_level_scaling,
         fold_stats=fold_stats, skewness_vector=config.skewness_vector)

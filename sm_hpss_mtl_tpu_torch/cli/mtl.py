@@ -1,8 +1,11 @@
 """The paper's proposed work: train and test an MTL model on HPSS features
 (counterpart of ``sm_hpss_mtl_tpu/cli/mtl.py``, the same flags, plus
 ``--device``).  ``--model``: ``Lemaire_et_al_MTL`` (default),
-``Jang_et_al_MTL``, ``Papakostas_et_al_MTL``, ``Doukhan_et_al_MTL``, or a
-single-task model (``cli.baseline``'s).
+``Lemaire_et_al_Cascaded_MTL``, ``Jang_et_al_MTL``,
+``Papakostas_et_al_MTL``, ``Doukhan_et_al_MTL``, or a single-task model
+(``cli.baseline``'s); the 5-class and intermediate-fusion models have
+drivers of their own (``cli.five_class``, ``cli.fuse_intermediate``),
+which take these flags.
 
     python -m sm_hpss_mtl_tpu_torch.cli.mtl --data /path/to/musan \\
         --epochs 50 --folds 0 1 2 [--model Jang_et_al_MTL] [--smr-sweep] \\

@@ -1,11 +1,11 @@
 """Streaming segmentation entry point: long-audio speech/music detection.
 
 Counterpart of ``python -m sm_hpss_mtl_tpu.cli.segment``: featurize a
-broadcast on the GPU (kernel K1 for the Mel-HPSS features of Lemaire-MTL
-and Doukhan-MTL, kernel K2 for the full-resolution ones of Jang-MTL and
-Papakostas-MTL), run shift-1 windows of the model over it in chunks,
-median-smooth the S or M track, optionally score against an interval
-CSV, and write per-frame labels.
+broadcast on the GPU (kernel K1 for the Mel-HPSS features of the Lemaire
+MTL models and Doukhan-MTL, kernel K2 for the full-resolution ones of
+Jang-MTL and Papakostas-MTL), run shift-1 windows of the model over it in
+chunks, median-smooth the S or M track, optionally score against an
+interval CSV, and write per-frame labels.
 
     python -m sm_hpss_mtl_tpu_torch.cli.segment broadcast.wav \\
         --weights W.npz [--model Jang_et_al_MTL] [--head S] \\
@@ -35,9 +35,11 @@ from ..ops.featuregram import featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
 from ..train.config import MODEL_PRESETS, preset_n_mels
 
-#: Models this entry point serves: the MTL models with S and M heads.
-MODELS = ("Lemaire_et_al_MTL", "Jang_et_al_MTL", "Papakostas_et_al_MTL",
-          "Doukhan_et_al_MTL")
+#: Models this entry point serves: the MTL models with S and M heads that
+#: take one featuregram.
+MODELS = ("Lemaire_et_al_MTL", "Lemaire_et_al_Cascaded_MTL",
+          "Lemaire_et_al_MTL_5class", "Jang_et_al_MTL",
+          "Papakostas_et_al_MTL", "Doukhan_et_al_MTL")
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -63,16 +65,23 @@ def _featurize_broadcast(x: np.ndarray, preset: dict,
 
 def check_model(name: str) -> None:
     """Raise unless ``name`` is a model this entry point serves: a
-    single-task model has no S or M head to segment by; another model
-    waits in ROADMAP §1, whose item the error names."""
+    single-task model has no S or M head to segment by, and the
+    intermediate-fusion model takes two inputs where the segmenter has one
+    featuregram (the JAX CLI fails on it too: its template state is built
+    from one array, which the model indexes by 'harm_input')."""
+    if name == "Lemaire_et_al_MTL_IF":
+        raise ValueError(
+            f"--model {name}: the intermediate-fusion model takes "
+            "{'harm_input', 'perc_input'}, the segmenter feeds one "
+            "featuregram; the JAX CLI cannot serve it either (a TypeError "
+            "where it indexes an array by 'harm_input')")
     if name in MTL and name not in MODELS:
         raise ValueError(
             f"--model {name}: a single-task model has no S or M head to "
             f"segment by; served: {', '.join(MODELS)}")
     if name not in MODELS:
-        raise NotImplementedError(
-            f"--model {name}: not ported to cli.segment yet (ROADMAP §1, "
-            f"item 7); ported: {', '.join(MODELS)}")
+        raise ValueError(f"--model {name}: unknown model; served: "
+                         f"{', '.join(MODELS)}")
 
 
 def segmenter(model: str, predict_fn, *, patch_size: int = 68,

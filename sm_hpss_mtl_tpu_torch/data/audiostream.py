@@ -25,6 +25,7 @@ Semantics against the host batcher (documented deltas, not quirks):
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
@@ -85,7 +86,10 @@ class AudioCache:
         if not os.path.exists(npy):
             os.makedirs(os.path.dirname(npy), exist_ok=True)
             audio = self._compute(classname, sp_path, mu_path, smr)
-            tmp = npy + f".tmp{os.getpid()}.npy"
+            # One temporary file per thread: the train and val streams'
+            # prefetch threads may write the same item at once (a tiny
+            # corpus's split puts a class's one file on both sides).
+            tmp = npy + f".tmp{os.getpid()}-{threading.get_ident()}.npy"
             np.save(tmp, audio)
             os.replace(tmp, npy)
         mm = np.load(npy, mmap_mode="r")

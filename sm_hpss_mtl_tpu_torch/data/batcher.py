@@ -23,7 +23,9 @@ Semantics follow the reference's ``generator``:
   5e-4, 1e-4}, from the batcher's numpy generator (the JAX package draws
   the field from its native sampler; the training runner keeps this off
   and augments on the device).
-- Lemaire models take (N, T, D) patches ('time_mel'), CNNs (N, D, W, 1).
+- Lemaire models take (N, T, D) patches ('time_mel'), CNNs (N, D, W, 1);
+  with ``dual_tower`` a batch is ``{"harm_input", "perc_input"}``, the
+  two halves of the features (the intermediate-fusion model).
 """
 
 from __future__ import annotations
@@ -66,11 +68,22 @@ class BatcherConfig:
     frame_level_scaling: bool = False
     #: None | 'Row' | 'Col'
     skewness_vector: str | None = None
-    #: {'harm_input', 'perc_input'} dict batches (not ported: raises)
+    #: {'harm_input', 'perc_input'} dict batches (intermediate fusion)
     dual_tower: bool = False
     seed: int = 0
     #: LRU byte budget for per-file extracted patches (0 disables).
     patch_cache_mb: int = 512
+
+
+def split_dual(x: np.ndarray, input_kind: str) -> dict:
+    """A batch of stacked [harmonic; percussive] patches as the twin
+    towers' ``{"harm_input", "perc_input"}``: split along the features,
+    the last axis of 'time_mel' patches, the second of 'image' ones."""
+    if input_kind == "time_mel":
+        d = x.shape[-1] // 2
+        return {"harm_input": x[..., :d], "perc_input": x[..., d:]}
+    h = x.shape[1] // 2
+    return {"harm_input": x[:, :h], "perc_input": x[:, h:]}
 
 
 def class_streams(file_list: dict) -> list[str]:
@@ -195,10 +208,6 @@ class BalancedBatcher:
 
     def __init__(self, featurizer: Featurizer, folder: str, file_list: dict,
                  config: BatcherConfig, fold_stats: tuple | None = None):
-        if config.dual_tower:
-            raise NotImplementedError(
-                "dual_tower: intermediate fusion is not ported yet (ROADMAP "
-                "§1, item 7)")
         self.fz = featurizer
         self.folder = folder
         self.cfg = config
@@ -328,4 +337,6 @@ class BalancedBatcher:
             scale = float(self.rng.choice(NOISE_SCALES))
             x += (self.rng.standard_normal(x.shape, dtype=np.float32)
                   * np.float32(scale))
+        if self.cfg.dual_tower:
+            x = split_dual(x, self.cfg.input_kind)
         return x, mtl_labels(bs, dbs)

@@ -21,7 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data.batcher import scale_frames
+from ..data.batcher import scale_frames, split_dual
 from ..data.featurize import Featurizer
 from ..models.zoo import IMAGE_BATCH_WINDOWS
 from ..ops.patches import extract_patches_np, standardize_rows
@@ -32,8 +32,9 @@ from .metrics import get_performance
 @dataclass
 class FileWiseTester:
     featurizer: Featurizer
-    #: model call: a tensor of patches on the featurizer's device -> a dict
-    #: of head outputs, or one ``(B, C)`` tensor of class probabilities
+    #: model call: a tensor of patches on the featurizer's device (a dict of
+    #: two with ``dual_tower``) -> a dict of head outputs, or one ``(B, C)``
+    #: tensor of class probabilities
     predict_fn: Callable[[torch.Tensor], object]
     folder: str
     feat_name: str
@@ -43,13 +44,11 @@ class FileWiseTester:
     frame_level_scaling: bool = False
     fold_stats: tuple | None = None
     skewness_vector: str | None = None
+    #: feed the model ``{"harm_input", "perc_input"}``, the two halves of
+    #: each patch's features (the intermediate-fusion model)
     dual_tower: bool = False
 
     def __post_init__(self):
-        if self.dual_tower:
-            raise NotImplementedError(
-                "dual_tower: intermediate fusion (LemaireMTLIntermediate"
-                "Fusion) is not ported yet (ROADMAP §1, item 7)")
         if self.input_kind not in ("time_mel", "image"):
             raise ValueError(f"unknown input_kind {self.input_kind!r}")
 
@@ -94,7 +93,10 @@ class FileWiseTester:
         n = patches.shape[0]
         step = IMAGE_BATCH_WINDOWS if self.input_kind == "image" else n
         with torch.inference_mode():
-            outs = [self.predict_fn(patches[b0:b0 + step])
+            outs = [self.predict_fn(split_dual(patches[b0:b0 + step],
+                                               self.input_kind)
+                                    if self.dual_tower
+                                    else patches[b0:b0 + step])
                     for b0 in range(0, n, step)]
 
         def host(vs):

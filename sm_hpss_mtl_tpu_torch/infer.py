@@ -34,9 +34,15 @@ class Classifier:
     @classmethod
     def from_weights(cls, weights: str, *, model: str = "Lemaire_et_al_MTL",
                      device: str | torch.device = "cuda") -> "Classifier":
-        """A 3-class classifier for ``model`` with weights from a ``.npz``
+        """A classifier for ``model`` (3 classes; 5 for
+        ``Lemaire_et_al_MTL_5class``) with weights from a ``.npz``
         (flax keys), on 68-frame patches at shift 68, featurizing with the
-        model's preset, bucketed, on ``device``."""
+        model's preset, bucketed, on ``device``.  The intermediate-fusion
+        model is refused, as the JAX ``Classifier`` fails on it (its
+        template state is built from one array)."""
+        if INPUT_KIND[model] == "dual":
+            raise ValueError(f"model {model!r} takes two inputs; the "
+                             "Classifier feeds one featuregram's patches")
         device = resolve_device(device)
         preset = MODEL_PRESETS[model]
         feat_cfg = FeatureConfig(feat_name=preset["feat_name"],

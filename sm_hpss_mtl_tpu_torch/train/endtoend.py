@@ -12,7 +12,9 @@ backward.
 
 Batch convention: ``audio (B, n_samples)`` with per-clip labels (a dict of
 heads, or the one-hot classes of a single-task model); every clip yields
-the same number of patches ``k``, which take their clip's labels.
+the same number of patches ``k``, which take their clip's labels.  The
+intermediate-fusion model's patches are a dict of its two inputs
+(``input_kind='dual'``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
                              skewness_vector: str | None = None,
                              fold_stats=None,
                              max_patches: int | None = None
-                             ) -> torch.Tensor:
+                             ) -> torch.Tensor | dict[str, torch.Tensor]:
     """``(B, n) audio -> (B*k, ...) model-ready patches`` on the audio's
     device.
 
@@ -45,11 +47,11 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
     batcher.  ``max_patches`` keeps the first ``k`` windows of each clip.
     Patch ``j`` of clip ``b`` is row ``j*B + b``.  ``skewness_vector``
     ('Row' or 'Col') replaces each patch by its skewness vector, as the
-    host batcher does.  The 'dual' input is not ported and raises."""
-    if input_kind not in ("time_mel", "image"):
-        raise NotImplementedError(
-            f"input_kind {input_kind!r}: intermediate fusion is not ported "
-            "yet (ROADMAP §1, item 7)")
+    host batcher does.  ``input_kind='dual'`` (the intermediate-fusion
+    model) returns ``{"harm_input", "perc_input"}``: the time-major
+    patches' harmonic and percussive halves."""
+    if input_kind not in ("time_mel", "image", "dual"):
+        raise ValueError(f"unknown input_kind {input_kind!r}")
     fv = fg.featuregram(audio, feat_name=cfg.feat_name, sr=cfg.sr,
                         n_fft=cfg.n_fft, win_length=cfg.win_length,
                         hop_length=cfg.hop_length, n_mels=cfg.n_mels,
@@ -72,6 +74,10 @@ def device_featurize_patches(audio: torch.Tensor, cfg: FeatureConfig, *,
     patches = patches.reshape((-1,) + patches.shape[2:])
     if skewness_vector:
         patches = skewness_vectors(patches, skewness_vector)
+    if input_kind == "dual":
+        half = patches.shape[1] // 2
+        return {"harm_input": patches[:, :half].transpose(1, 2).contiguous(),
+                "perc_input": patches[:, half:].transpose(1, 2).contiguous()}
     if input_kind == "time_mel":
         return patches.transpose(1, 2).contiguous()
     return patches[..., None]
@@ -91,7 +97,8 @@ def _broadcast_labels(labels, k: int):
 def _featurizer(cfg: FeatureConfig, **patch_kw) -> Callable:
     def featurize(audio: torch.Tensor, labels):
         batch = device_featurize_patches(audio, cfg, **patch_kw)
-        return batch, _broadcast_labels(labels, batch.shape[0]
+        rows = next(iter(batch.values())) if isinstance(batch, dict) else batch
+        return batch, _broadcast_labels(labels, rows.shape[0]
                                         // audio.shape[0])
     return featurize
 

@@ -40,16 +40,25 @@ def _scales_on(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(NOISE_SCALES, device=device, dtype=dtype)
 
 
-def augment(batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def augment(batch, generator: torch.Generator):
     """The reference's noise augmentation on the device: one scale drawn
     from :data:`NOISE_SCALES` per step, then Gaussian noise over the whole
-    batch, both from ``generator`` (no host round trip)."""
-    scales = _scales_on(batch.device, batch.dtype)
+    batch, both from ``generator`` (no host round trip).  A dict batch (the
+    intermediate-fusion model's two inputs) takes the one scale and its
+    own noise per input, in sorted key order, as the JAX ``_augment``."""
+    first = next(iter(batch.values())) if isinstance(batch, dict) else batch
+    scales = _scales_on(first.device, first.dtype)
     i = torch.randint(len(NOISE_SCALES), (), generator=generator,
-                      device=batch.device)
-    noise = torch.randn(batch.shape, generator=generator,
-                        device=batch.device, dtype=batch.dtype)
-    return batch + scales[i] * noise
+                      device=first.device)
+
+    def leaf(x):
+        noise = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+        return x + scales[i] * noise
+
+    if isinstance(batch, dict):
+        return {k: leaf(v) for k, v in sorted(batch.items())}
+    return leaf(batch)
 
 
 def l2_kernels(model: nn.Module) -> list[torch.Tensor]:

@@ -129,10 +129,8 @@ def test_lemaire_single_task_matches_flax():
 
 def test_zoo_holds_the_jax_specs():
     from sm_hpss_mtl_tpu.models.zoo import MODEL_NAMES
+    assert set(MTL) == set(MODEL_NAMES)      # every model of the JAX zoo
     for name in MODEL_NAMES:
-        if name not in MTL:            # Lemaire's variants: ROADMAP item 7
-            assert name.startswith("Lemaire_et_al_")
-            continue
         kw = {"n_mels": 20} if name == "Doukhan_et_al_MTL" else {}
         want = jget_model(name, **kw)
         assert (INPUT_KIND[name], MTL[name]) == (want.input_kind, want.mtl)

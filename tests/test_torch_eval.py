@@ -422,8 +422,9 @@ def test_tester_refuses_what_is_not_ported():
     f = tfeat.Featurizer(tfeat.FeatureConfig(), device="cpu")
     kw = dict(featurizer=f, predict_fn=None, folder="",
               feat_name="LogMelHarmPercSpec")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttester.FileWiseTester(dual_tower=True, **kw)
+    # Intermediate fusion is ported: the twin inputs are the patches'
+    # two halves (held to JAX by test_torch_fusion).
+    assert ttester.FileWiseTester(dual_tower=True, **kw).dual_tower
     with pytest.raises(ValueError, match="input_kind"):
         ttester.FileWiseTester(input_kind="dual", **kw)
     # Skewness vectors are ported (ops/stats.py).

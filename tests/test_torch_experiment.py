@@ -198,12 +198,14 @@ def test_cli_mtl_needs_device_cpu_without_a_gpu(monkeypatch, tmp_path):
         tmtl.main(argv + ["--device", "cpu", "--bf16"])
     with pytest.raises(SystemExit):                 # argparse refuses it
         tmtl.main(argv + ["--device", "cpu", "--dft-precision", "bf16x3"])
-    # What waits: bf16 (above) and Lemaire's variants.
-    for extra, item in ((["--model", "Lemaire_et_al_Cascaded_MTL"], "7"),
-                        (["--model", "Lemaire_et_al_MTL_5class"], "7"),
-                        (["--model", "Lemaire_et_al_MTL_IF"], "7")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tmtl.main(argv + ["--device", "cpu"] + extra)
+    # What waits: bf16 (above).  Lemaire's variants are ported (ROADMAP
+    # §1 item 7): the runner takes them, the folds then fail on the empty
+    # corpus.
+    for model in ("Lemaire_et_al_Cascaded_MTL", "Lemaire_et_al_MTL_5class",
+                  "Lemaire_et_al_MTL_IF"):
+        texp._check_ported(tconfig.ExperimentConfig(model=model))
+        with pytest.raises(FileNotFoundError):
+            tmtl.main(argv + ["--device", "cpu", "--model", model])
     with pytest.raises(ValueError, match="unknown model"):
         tmtl.main(argv + ["--device", "cpu", "--model", "Lemaire_MTL"])
 

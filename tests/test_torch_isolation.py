@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "train.loop", "train.config", "train.endtoend",
                 "data.prefetch", "data.audiostream", "utils.results",
                 "cli.experiment", "cli.mtl", "models.layers",
-                "models.cnn", "ops.stats", "data.stats", "cli.baseline"):
+                "models.cnn", "ops.stats", "data.stats", "cli.baseline",
+                "cli.five_class", "cli.fuse_intermediate", "cli.fuse_late",
+                "cli.make_folds", "eval.fusion"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -91,6 +93,19 @@ def test_baseline_cli_without_device_cpu_raises_when_no_gpu(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(["--data", str(tmp_path), "--model", "Jang_et_al"])
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("five_class", []), ("fuse_intermediate", []),
+    ("fuse_intermediate", ["--pipeline", "host"]),
+    ("fuse_late", ["--ckpt-harm", "h", "--ckpt-perc", "p"])])
+def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
+        monkeypatch, tmp_path, cli, argv):
+    import importlib
+    mod = importlib.import_module(f"sm_hpss_mtl_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(["--data", str(tmp_path), *argv])
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",

@@ -829,9 +829,19 @@ def test_balanced_batcher_matches_jax(toy5):
         for k in wl:
             np.testing.assert_array_equal(gl[k], wl[k])
     assert got.cache_stats == want.cache_stats
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbatcher.BalancedBatcher(None, root, files, tbatcher.BatcherConfig(
-            dual_tower=True))
+    # The dual batches (intermediate fusion, ported) are the same batches'
+    # two halves (held to JAX by test_torch_lemaire_variants).
+    single = tbatcher.BalancedBatcher(
+        tfeat.Featurizer(tfeat.FeatureConfig(n_mels=N_MELS), device="cpu"),
+        root, files, tbatcher.BatcherConfig(**kw))
+    dual = tbatcher.BalancedBatcher(
+        tfeat.Featurizer(tfeat.FeatureConfig(n_mels=N_MELS), device="cpu"),
+        root, files, tbatcher.BatcherConfig(dual_tower=True, **kw))
+    (sx, sl), (dx, dl) = next(single), next(dual)
+    np.testing.assert_array_equal(np.concatenate(
+        [dx["harm_input"], dx["perc_input"]], axis=-1), sx)
+    for k in sl:
+        np.testing.assert_array_equal(dl[k], sl[k])
 
 
 @pytest.mark.parametrize("option", ["Row", "Col", "fold_stats"])
