@@ -11,7 +11,12 @@ Phases, each of which must pass:
 3. kernels: K1 and K2 (``frontend.launch``, the fused kernel at any
    length), K3 (``hpss``, ``hpss_masks``) and K4 (``hpss_mel``) against
    their plain PyTorch versions on the card, at every launch shape of the
-   paths below and at edge geometries;
+   paths below and at edge geometries; then at every median pair of
+   ``ops/hpss.py::KERNEL_MEDIANS`` (the tuner's l_harm 11-51 and l_perc
+   21-51) at the edge lengths of each pair's half width and of K1's tile,
+   the training and tuning launches, 20 and 60 mel bands, short and long
+   clips, with times, bounds, registers, spills and blocks per SM per
+   pair (``phase_pairs``);
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -66,11 +71,22 @@ Phases, each of which must pass:
    batch for Lemaire-MTL, Jang-MTL and the intermediate-fusion model (the
    loss falls); the device pipeline's step time (CUDA events) and the
    kernel's and the device's share of it (profiler), for Lemaire-MTL,
-   Jang-MTL, the intermediate-fusion and the 5-class models;
+   Jang-MTL, the intermediate-fusion and the 5-class models; tuning on the
+   same corpus through ``cli.tune.main`` with no ``--device``: the l_harm
+   and l_perc grids by the device pipeline (K1 at each width's pair), the
+   loss-weight grid with ``--vmap`` and two seed replicates (the
+   multi-trial program, host pipeline), and a Bayesian search over the
+   MTL heads, each writing the JAX CLI's ``Performance_Tuning.csv``; one
+   four-trial step from the same stacked weights on the card and on the
+   CPU at the patch step's bars, and the step time of four trials against
+   one; ``cli.featurize`` over the corpus on the card (K1 once per bucket
+   batch) and on the CPU (features within 0.02 dB); ``cli.tsne``'s
+   device part (``collect_class_patches``, ``--stat Row``) on the card
+   against the CPU (the GPU machine has no sklearn for its embedding);
 11. checks on the launch counts, and that every launch shape of phases 4-10
    was checked in phase 3 (K1 and K2 also at 12 clips x 43760 samples, the
    device pipeline's launch on a corpus of MUSAN's size, and K1 at 20 x
-   43760, the 5-class model's there).
+   43760, the 5-class model's there); the launches per median pair.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -82,9 +98,10 @@ own networks; K3 its times on a rotation of inputs larger than L2 and at
 Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
 and K4) against K1 at the same length.  Every bound prices the medians
 at the shared-core networks' count, the least work known.  Prints a
-``{"kernels": [...]}`` line, a serving-times line, a resynthesis line,
-an evaluation line, a training line, the script's total seconds, the card
-line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
+``{"kernels": [...]}`` line (each kernel with a record per median pair
+under ``pairs``), a serving-times line, a resynthesis line, an evaluation
+line, a training line, a tuning line, the script's total seconds, the
+card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or no GPU is present.  Imports
 nothing of JAX.
 """
@@ -92,6 +109,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -185,6 +203,42 @@ ZERO_GRAD_UPDATE = 1e-2
 STEP_SGD = "Papakostas_et_al"
 #: Clips under this many frames take the short-clip kernels (K4, K3).
 SHORT_FRAMES = 2 * (21 // 2)
+#: The tuning phase's runs of ``cli.tune.main`` on the training corpus:
+#: name, arguments, and the rows each writes; every run takes one epoch of
+#: TUNE_STEPS train steps and one val step.
+TUNE_STEPS = 3
+TUNE_RUNS = (
+    ("tune_l_harm", ("--mode", "grid", "--param", "l_harm"), 5),
+    ("tune_l_perc", ("--mode", "grid", "--param", "l_perc"), 5),
+    ("tune_vmap", ("--mode", "grid", "--param", "loss_weights", "--vmap"), 4),
+    ("tune_seeds", ("--mode", "seeds", "--trials", "2"), 2),
+    ("tune_bayes", ("--mode", "search", "--space", "mtl-heads", "--algo",
+                    "bayes", "--trials", "3"), 3))
+#: The ``Performance_Tuning.csv`` header of each run, as the JAX CLI writes
+#: it (``sm_hpss_mtl_tpu/cli/tune.py::main``'s rows).
+TUNE_HEADERS = {
+    "tune_l_harm": "fold\tl_harm\tval_loss\taccuracy",
+    "tune_l_perc": "fold\tl_perc\tval_loss\taccuracy",
+    "tune_vmap": "fold\ttrial\tloss_weights\tval_loss\taccuracy\tbest_epoch",
+    "tune_seeds": "fold\ttrial\tseed\tval_loss\taccuracy\tbest_epoch",
+    "tune_bayes": "fold\ttrial\thead_layers\thead_width\tval_loss\taccuracy"}
+#: ``cli.featurize``'s default batch: items a launch.
+FEATURIZE_BATCH = 16
+#: ``cli.tsne``'s skewness vectors, card vs CPU: each row's skewness is
+#: held to the largest change that its featuregram's difference can make
+#: (``skew_bars``).  With d the row's deviations from its mean over the
+#: patch, std their RMS, and the difference's deviations at most eta:
+#: the perturbed std lies in std -+ eta, the third moment moves by at most
+#: (std + eta)^3 - std^3, and the skewness m3 / std^3 moves by at most its
+#: largest change over those corners.  eta takes TSNE_ROUNDING of the row's
+#: largest magnitude besides (float32 standardization), and the bar adds
+#: the float32 rounding of the moments over the patch's frames.  A row
+#: whose std is not above eta is held to nothing: its skewness is not set
+#: by its values to that precision (a row flat at the dB floor but for
+#: one frame reads 8.1 where that frame stays above the floor and 0 where
+#: it rounds onto it).  A single absolute bar (1e-3, then 1e-2 in rows
+#: of at least 1 dB spread) failed on such rows or left them unheld.
+TSNE_ROUNDING = 2.0 ** -20
 #: Resynthesized signals, GPU run against the CPU run: max |delta| over the
 #: CPU signal's peak, both weighted by min(1, overlap-added squared window)
 #: (see ``resynth_delta``).  The two runs differ by float32 summation
@@ -321,6 +375,7 @@ def median_comparators() -> tuple[dict, dict]:
     work known for the medians; every bound prices them with it."""
     import re
     from sm_hpss_mtl_tpu_torch.ops import _nvcc
+    from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
     head = (_nvcc.CSRC / "median.cuh").read_text()
     unit = (_nvcc.CSRC / "hpss.cu").read_text()
 
@@ -340,7 +395,7 @@ def median_comparators() -> tuple[dict, dict]:
 
     return ({w: n for (w,), n in single.items()},
             {(lh, lp): shared(lh, qt) + shared(lp, qf)
-             for lh, lp in ((21, 11), (11, 5))})
+             for lh, lp in KERNEL_MEDIANS})
 
 
 def frontend_bound_ms(T: int, N: int, n_fft: int, comparators: float,
@@ -390,13 +445,13 @@ def k4_bound_ms(B: int, F: int, T: int, n_mels: int, mel_nnz: int,
     return _bound(nbytes, ops, card)
 
 
-def ptxas_report(source: str, kernel: str) -> dict:
+def ptxas_report(source: str, kernel: str, pair=(21, 11)) -> dict:
     """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
-    entry function of ``csrc/<source>`` whose mangled name contains
-    ``kernel``."""
+    entry function of ``csrc/<source>``'s library for the median ``pair``
+    whose mangled name contains ``kernel``."""
     from sm_hpss_mtl_tpu_torch.ops import _nvcc
-    return parse_ptxas(
-        Path(str(_nvcc.library_path(source)) + ".log").read_text(), kernel)
+    return parse_ptxas(Path(str(_nvcc.library_path(source, pair))
+                            + ".log").read_text(), kernel)
 
 
 def parse_ptxas(log: str, kernel: str) -> dict:
@@ -736,34 +791,260 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     return entries, checked
 
 
+def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
+    """K1 to K4 at every median pair of ``KERNEL_MEDIANS`` against their
+    plain versions on the card (phase 3, continued): each pair at the edge
+    lengths of its harmonic half width ``ht`` (T = 1, 7, 2ht - 1, 2ht, 2ht
+    + 1) and of K1's tile (50, 51, 63, 64, 65 and the training 68 frames;
+    the tile is 64 - 2ht output frames, 14 at l_harm 51), K1 and K2 at the
+    training launches and K1 at every bucketed length of the tuning
+    corpus (the tuner's test files), K3 and K4 at short and long clips and
+    at F = 257, K1 and K4 also at 20 and 60 mel bands (the n_mels grid
+    leaves part groups of K4's 8 bands); ``frontend.launch`` runs K1 and
+    K2 at any length.  At (21, 11) also ``cli.featurize``'s bucket batches.
+    Then per pair: times, device times, bounds (the medians priced at the
+    pair's shared-core comparators, counted in the built ``median.cuh``),
+    ptxas registers and spills, and blocks per SM.  Returns, per kernel, a
+    record per pair (launches still None)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
+    from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    banks = {(n_fft, m): mel_filterbank(22050, n_fft, m, device="cuda")
+             for n_fft in (400, 512) for m in (120, 60, 20)}
+    single, shared = median_comparators()
+    err = Counter()
+    n_cases = Counter()
+
+    def audio(n_fft, B, T):
+        return torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
+                           device="cuda")
+
+    def k1(n_fft, lh, lp, B, T, n_mels=120):
+        y, M = audio(n_fft, B, T), banks[(n_fft, n_mels)]
+        kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=lh,
+                  l_perc=lp)
+        err[("K1", lh, lp)] = max(err[("K1", lh, lp)], compare(
+            f"K1 n_fft={n_fft} l=({lh},{lp}) B={B} T={T} n_mels={n_mels}",
+            frontend.launch(y, M, **kw),
+            frontend.stft_hpss_mel_plain(y, M, **kw), RTOL, ATOL))
+        checked["K1"].add((n_fft, lh, lp, B, T))
+        n_cases["K1"] += 1
+
+    def k2(n_fft, lh, lp, B, T):
+        y = audio(n_fft, B, T)
+        kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=lh,
+                  l_perc=lp)
+        err[("K2", lh, lp)] = max(err[("K2", lh, lp)], compare(
+            f"K2 n_fft={n_fft} l=({lh},{lp}) B={B} T={T}",
+            frontend.launch(y, None, **kw),
+            frontend.stft_hpss_plain(y, **kw), RTOL, ATOL))
+        checked["K2"].add((n_fft, lh, lp, B, T))
+        n_cases["K2"] += 1
+
+    def k3(mo, lh, lp, B, F, T):
+        S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
+        fn, plain = ((hpss.hpss_masks, hpss.hpss_masks_plain) if mo
+                     else (hpss.hpss, hpss.hpss_plain))
+        err[("K3", lh, lp)] = max(err[("K3", lh, lp)], compare(
+            f"K3 mask_only={mo} l=({lh},{lp}) B={B} F={F} T={T}",
+            fn(S, l_harm=lh, l_perc=lp), plain(S, l_harm=lh, l_perc=lp),
+            K3_RTOL, K3_ATOL))
+        checked["K3"].add((mo, lh, lp, B, F, T))
+        n_cases["K3"] += 1
+
+    def k4(lh, lp, B, F, T, n_mels=120):
+        S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
+        M = banks[(2 * (F - 1), n_mels)]
+        got = hpss.hpss_mel(S, M, l_harm=lh, l_perc=lp)
+        err[("K4", lh, lp)] = max(err[("K4", lh, lp)], compare(
+            f"K4 l=({lh},{lp}) B={B} F={F} T={T} n_mels={n_mels}", got,
+            hpss.hpss_mel_plain(S, M, l_harm=lh, l_perc=lp),
+            K3_RTOL, K3_ATOL))
+        empty = (M == 0).all(dim=1)
+        check(all(bool((g[:, empty] == 0).all()) for g in got),
+              f"K4 l=({lh},{lp}) T={T}: empty mel rows are not exact zeros")
+        checked["K4"].add((lh, lp, B, F, T))
+        n_cases["K4"] += 1
+
+    for lh, lp in KERNEL_MEDIANS:
+        ht = lh // 2
+        edges = sorted({1, 7, 2 * ht - 1, 2 * ht, 2 * ht + 1,
+                        50, 51, 63, 64, 65, 68})
+        for T in edges:
+            k1(400, lh, lp, 2, T)
+            k2(512, lh, lp, 2, T)
+        for T in sorted(corpus["frames"][400]):
+            k1(400, lh, lp, 1, T)
+        for B, N in TRAIN_SHAPES:
+            k1(400, lh, lp, B, n_frames(N, 400, 160))
+            for n_fft in (512, 400):
+                k2(n_fft, lh, lp, B, n_frames(N, n_fft, 160))
+        for n_mels in (20, 60):
+            k1(400, lh, lp, 2, 68, n_mels)
+            k4(lh, lp, 1, 201, 13, n_mels)
+        for mo in (False, True):
+            for T in sorted({1, 7, 2 * ht - 1, 2 * ht, 33, 365}):
+                k3(mo, lh, lp, 2, 201, T)
+        k3(True, lh, lp, 1, 201, 5998)
+        for T in sorted({1, 13, 2 * ht - 1}):
+            k3(False, lh, lp, 1, 257, T)
+            k4(lh, lp, 1, 201, T)
+            k4(lh, lp, 1, 257, T)
+        for T in (32, 33, 2 * ht + 1, 5998):
+            k4(lh, lp, 2, 201, T)
+    for B, T in sorted(corpus["featurize_shapes"]):
+        k1(400, 21, 11, B, T)
+    print("kernels at every median pair: " + "; ".join(
+        f"{k} {n_cases[k]} shapes ok, max |delta| "
+        f"{max(v for key, v in err.items() if key[0] == k):.3e}"
+        for k in ("K1", "K2", "K3", "K4")), flush=True)
+
+    # Times per pair, at each kernel's launch on the tuner's path (K1 at
+    # the device pipeline's 48 x 11120 samples; K2 there too at n_fft 512,
+    # the launch a Jang tuning run would make) and at its long clips (K1 at
+    # a 16404-frame slab, K3 and K4 at 201 x 5998); K4 also at 13 frames.
+    M = banks[(400, 120)]
+    nnz = int((M != 0).sum())
+    out = {"K1": [], "K2": [], "K3": [], "K4": []}
+    for lh, lp in KERNEL_MEDIANS:
+        pair = f"{lh},{lp}"
+        cmp = shared[(lh, lp)]
+        kw = dict(l_harm=lh, l_perc=lp)
+        rec = {"pair": [lh, lp], "launches": None,
+               "comparators_per_output": cmp,
+               "comparators_per_output_own_networks": single[lh]
+               + single[lp]}
+        y = audio(400, 48, 68)
+        run = lambda: frontend.stft_hpss_mel(y, M, **kw)  # noqa: E731
+        ms = cuda_ms(run, batches=5)
+        dev = device_ms(run, "frontend_kernel", reps=20)
+        bound, by, _ = frontend_bound_ms(68, y.shape[-1], 400, cmp, card,
+                                         n_mels=120, mel_nnz=nnz, B=48)
+        y1 = audio(400, 1, 16404)
+        run1 = lambda: frontend.stft_hpss_mel(y1, M, **kw)  # noqa: E731
+        dev1 = device_ms(run1, "frontend_kernel", reps=10)
+        out["K1"].append({
+            **rec, "ms": ms[0], "ms_spread": ms[1:], "device_ms": dev,
+            "plain_ms": cuda_ms(lambda: frontend.stft_hpss_mel_plain(
+                y, M, **kw), reps=2, batches=3)[0],
+            "bound_ms": bound, "bound_by": by, "timed_shape": [48, 11120],
+            "device_ms_per_output_frame": dev / (48 * 68) if dev else None,
+            "device_ms_at_16404": dev1,
+            "device_ms_per_output_frame_at_16404":
+            dev1 / 16404 if dev1 else None,
+            "bound_ms_at_16404": frontend_bound_ms(
+                16404, y1.shape[-1], 400, cmp, card, n_mels=120,
+                mel_nnz=nnz)[0],
+            "blocks_per_sm": frontend.blocks_per_sm(
+                fullres=False, n_fft=400, hop_length=160, **kw),
+            **ptxas_report("frontend.cu",
+                           f"frontend_kernelILi{lh}ELi{lp}ELb0E",
+                           (lh, lp))})
+        y = audio(512, 48, 67)
+        run = lambda: frontend.stft_hpss(y, n_fft=512, **kw)  # noqa: E731
+        ms = cuda_ms(run, batches=5)
+        bound, by, _ = frontend_bound_ms(67, y.shape[-1], 512, cmp, card,
+                                         B=48)
+        out["K2"].append({
+            **rec, "ms": ms[0], "ms_spread": ms[1:],
+            "device_ms": device_ms(run, "frontend_kernel", reps=20),
+            "plain_ms": cuda_ms(lambda: frontend.stft_hpss_plain(
+                y, n_fft=512, **kw), reps=2, batches=3)[0],
+            "bound_ms": bound, "bound_by": by,
+            "timed_shape": [48, 11120], "n_fft": 512,
+            "blocks_per_sm": frontend.blocks_per_sm(
+                fullres=True, n_fft=512, hop_length=160, **kw),
+            **ptxas_report("frontend.cu",
+                           f"frontend_kernelILi{lh}ELi{lp}ELb1E",
+                           (lh, lp))})
+        S = torch.rand((1, 201, 5998), generator=gen, device="cuda")
+        run = lambda: hpss.hpss_masks(S, **kw)  # noqa: E731
+        ms = cuda_ms(run, reps=50, batches=5)
+        bound, by = k3_bound_ms(1, 201, 5998, cmp, card)
+        out["K3"].append({
+            **rec, "ms": ms[0], "ms_spread": ms[1:],
+            "device_ms": device_ms(run, "hpss_kernel", reps=20),
+            "plain_ms": cuda_ms(lambda: hpss.hpss_masks_plain(S, **kw),
+                                reps=2, batches=3)[0],
+            "bound_ms": bound, "bound_by": by,
+            "timed_shape": [1, 201, 5998], "timed_mode": "mask_only",
+            "blocks_per_sm": hpss.blocks_per_sm(mel=False, **kw),
+            **ptxas_report("hpss.cu", f"hpss_kernelILi{lh}ELi{lp}ELb1E",
+                           (lh, lp))})
+        k4_rec = {}
+        for T in (13, 5998):
+            S = torch.rand((1, 201, T), generator=gen, device="cuda") ** 3
+            run = lambda: hpss.hpss_mel(S, M, **kw)  # noqa: E731
+            ms = cuda_ms(run, reps=50, batches=5)
+            k4_rec[T] = dict(
+                ms=ms, device_ms=device_ms(run, "hpss_mel_kernel", reps=20),
+                plain_ms=cuda_ms(lambda: hpss.hpss_mel_plain(S, M, **kw),
+                                 reps=2, batches=3)[0],
+                bound=k4_bound_ms(1, 201, T, 120, nnz, cmp, card))
+        short, full = k4_rec[13], k4_rec[5998]
+        out["K4"].append({
+            **rec, "ms": short["ms"][0], "ms_spread": short["ms"][1:],
+            "device_ms": short["device_ms"], "plain_ms": short["plain_ms"],
+            "bound_ms": short["bound"][0], "bound_by": short["bound"][1],
+            "timed_shape": [1, 201, 13],
+            "ms_at_5998": full["ms"][0], "device_ms_at_5998":
+            full["device_ms"], "plain_ms_at_5998": full["plain_ms"],
+            "bound_ms_at_5998": full["bound"][0],
+            "blocks_per_sm": hpss.blocks_per_sm(mel=True, **kw),
+            **ptxas_report("hpss.cu", f"hpss_mel_kernelILi{lh}ELi{lp}E",
+                           (lh, lp))})
+        for k in out:
+            out[k][-1]["max_abs_err"] = err[(k, lh, lp)]
+        print(f"pair {pair}: K1 {out['K1'][-1]['ms']:.4f} ms at 48 x 11120 "
+              f"({out['K1'][-1]['registers']} registers, "
+              f"{out['K1'][-1]['spill_stores']} B spilled), K2 "
+              f"{out['K2'][-1]['ms']:.4f}, K3 {out['K3'][-1]['ms']:.4f} at "
+              f"201 x 5998, K4 {out['K4'][-1]['ms']:.4f} at 201 x 13",
+              flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def recorded():
     """Counts every kernel launch of the code run inside, and the shape of
-    each: the launch counts are set to 0 on entry and read on exit."""
+    each: the launch counts are set to 0 on entry and read on exit.  Also
+    the launches per median pair (``by_pair``, keyed ``"l_harm,l_perc"``)."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
-           "launches": {}}
+           "launches": {},
+           "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")}}
     f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
                                     hpss._launch_mel)
 
     def f_rec(y, M, **kw):
-        rec["shapes"]["K2" if M is None else "K1"].add(
+        k = "K2" if M is None else "K1"
+        rec["shapes"][k].add(
             (kw["n_fft"], kw["l_harm"], kw["l_perc"],
              y.numel() // y.shape[-1],
              1 + (y.shape[-1] - kw["n_fft"]) // kw["hop_length"]))
-        return f_launch(y, M, **kw)
+        out = f_launch(y, M, **kw)
+        rec["by_pair"][k][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        return out
 
     def h_rec(S, **kw):
         F, T = S.shape[-2:]
         rec["shapes"]["K3"].add((kw["mask_only"], kw["l_harm"],
                                  kw["l_perc"], S.numel() // (F * T), F, T))
-        return h_launch(S, **kw)
+        out = h_launch(S, **kw)
+        rec["by_pair"]["K3"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        return out
 
     def m_rec(S, M, **kw):
         F, T = S.shape[-2:]
         rec["shapes"]["K4"].add((kw["l_harm"], kw["l_perc"],
                                  S.numel() // (F * T), F, T))
-        return m_launch(S, M, **kw)
+        out = m_launch(S, M, **kw)
+        rec["by_pair"]["K4"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        return out
 
     counters = (frontend.stft_hpss_mel, frontend.stft_hpss, hpss.hpss,
                 hpss.hpss_masks, hpss.hpss_mel)
@@ -809,7 +1090,8 @@ def serve(model: str, wav: str, weights: str, out: str, device: str,
         check(bool(np.isfinite(tracks[k]).all()), f"{k} not finite")
 
     return {"tracks": tracks, "launches": rec["launches"], "frames": T,
-            "total_s": total_s, "shapes": rec["shapes"]}
+            "total_s": total_s, "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"]}
 
 
 def time_legs(model: str, x: np.ndarray, wav: str, weights: str, out: str,
@@ -901,6 +1183,7 @@ def resynth(wav: str, out_dir: str, device: str) -> dict:
     for k in ("yh", "yp"):
         check(bool(np.isfinite(kept[k]).all()), f"resynthesis {k} not finite")
     return {**kept, "launches": rec["launches"], "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"],
             "total_s": total_s}
 
 
@@ -1047,7 +1330,8 @@ def evaluate(model: str, corpus: dict, weights: str, device: str,
           f"{model}: featurized frames {sorted(seen['frames'])}, planned "
           f"{sorted(want)}")
     return {"result": res, "sweep": swept, "launches": rec["launches"],
-            "shapes": rec["shapes"], "test_model_s": t1 - t0,
+            "shapes": rec["shapes"], "by_pair": rec["by_pair"],
+            "test_model_s": t1 - t0,
             "sweep_s": t2 - t1, **seen}
 
 
@@ -1070,7 +1354,8 @@ def fuse_late(corpus: dict, ckpts: tuple, out: str, device: str) -> dict:
                                       "Performance.csv")),
           "fuse_late wrote no Performance.csv")
     return {"result": res, "launches": rec["launches"],
-            "shapes": rec["shapes"], "total_s": total_s,
+            "shapes": rec["shapes"], "by_pair": rec["by_pair"],
+            "total_s": total_s,
             "items": len(eval_item_frames(corpus, 400, sweep=False))}
 
 
@@ -1107,6 +1392,7 @@ def classify(wav: str, weights: str, device: str) -> dict:
           and bool(np.isfinite(out["probabilities"]).all()),
           "classifier probabilities")
     return {"out": out, "launches": rec["launches"], "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"],
             "total_s": total_s}
 
 
@@ -1134,9 +1420,21 @@ def make_train_corpus(root: str) -> dict:
         os.path.join(root, c, f))[0]))
         for c in ("music", "speech", "noise")
         for f in os.listdir(os.path.join(root, c)) if f.endswith(".wav")}
+    # cli.featurize's launches: every item of the 3-class folds grouped by
+    # length bucket, FEATURIZE_BATCH a launch (Featurizer.precompute).
+    from sm_hpss_mtl_tpu_torch.cli.featurize import corpus_items
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig, Featurizer
+    loader = Featurizer(FeatureConfig(), device="cpu")
+    buckets = Counter(bucket_length(len(loader._load(*item)))
+                      for item in corpus_items(root, cv, 3))
+    featurize = [(min(FEATURIZE_BATCH, n - i), n_frames(b, 400, 160))
+                 for b, n in sorted(buckets.items())
+                 for i in range(0, n, FEATURIZE_BATCH)]
     return {"root": root, "train_files": tr,
             "frames": {n_fft: {n_frames(n, n_fft, 160) for n in lengths}
-                       for n_fft in (400, 512)}}
+                       for n_fft in (400, 512)},
+            "featurize_launches": featurize,
+            "featurize_shapes": set(featurize)}
 
 
 def make_five_class_folds(corpus: dict) -> None:
@@ -1221,6 +1519,7 @@ def train_cli(corpus: dict, out: str, pipeline: str,
     check(rec["launches"] == want, f"{tag}: launches {rec['launches']}, "
           f"want {want} ({computes} featurized files)")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"],
             "total_s": total_s, "featurized_files": computes,
             "epoch_train_s": [h["epoch_train_s"] for h in hist],
             "fit_wall_s": fold["fit"].wall_time,
@@ -1319,6 +1618,15 @@ def _step_card_vs_cpu(net, batch, labels, audio: bool, update_rtol: float,
                            for k, v in model_.state_dict().items()})
     (loss_cpu, cpu), (loss_gpu, gpu) = got["cpu"], got["cuda"]
     tag = f"{model} {'audio' if audio else 'patch'} step"
+    return _hold_step(tag, before, cpu, gpu, loss_cpu, loss_gpu, noise, lr,
+                      update_rtol)
+
+
+def _hold_step(tag: str, before: dict, cpu: dict, gpu: dict,
+               loss_cpu: float, loss_gpu: float, noise: set, lr: float,
+               update_rtol: float) -> dict:
+    """One step's state dicts, ``before`` it and after it on the CPU and on
+    the card, held to the step bars (``_step_card_vs_cpu``)."""
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     bad = [] if loss_rel <= STEP_LOSS_RTOL else [
         f"loss card {loss_gpu} vs CPU {loss_cpu}"]
@@ -1575,6 +1883,302 @@ def time_device_steps(corpus: dict, model: str = "Lemaire_et_al_MTL",
                 for e in host_ops[:8]}}
 
 
+def tune_cli(corpus: dict, out: str, name: str, argv: tuple,
+             n_rows: int) -> dict:
+    """One ``cli.tune.main`` run on fold 0 of the training corpus with no
+    ``--device`` (the card), one epoch of ``TUNE_STEPS`` train steps and one
+    val step per trial; its rows, the JAX CLI's ``Tuning.csv`` header and
+    finite losses checked, and K1 the only kernel (the tuner's tester
+    featurizes bucketed files, so no item takes K4); a grid over l_harm or
+    l_perc launches K1 at each of its widths."""
+    from sm_hpss_mtl_tpu_torch.cli import tune
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        rows, best = tune.main([*argv, "--data", corpus["root"], "--output",
+                                out, "--epochs", "1", "--tr-steps",
+                                str(TUNE_STEPS), "--v-steps", "1"])
+        total_s = time.perf_counter() - t0
+    check(len(rows) == n_rows and best in rows, f"{name}: {len(rows)} rows")
+    check(all(np.isfinite(r["val_loss"]) for r in rows),
+          f"{name}: losses not finite: {rows}")
+    with open(os.path.join(out, "Performance_Tuning.csv")) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == TUNE_HEADERS[name] and len(lines) == n_rows + 1,
+          f"{name}: Performance_Tuning.csv header {lines[0]!r}")
+    check(rec["launches"]["K1"] > 0 and not any(
+        rec["launches"][k] for k in ("K2", "K3", "K4")),
+          f"{name}: launches {rec['launches']}")
+    from sm_hpss_mtl_tpu_torch.cli.tune import GRID_RANGES
+    widths = {}
+    if "l_harm" in argv or "l_perc" in argv:
+        param = "l_harm" if "l_harm" in argv else "l_perc"
+        pairs = [(w, 11) if param == "l_harm" else (21, w)
+                 for w in GRID_RANGES[param]]
+        widths = {f"{lh},{lp}": rec["by_pair"]["K1"][f"{lh},{lp}"]
+                  for lh, lp in pairs}
+        check(all(widths.values()), f"{name}: K1 launches per pair {widths}")
+    return {"launches": rec["launches"], "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"], "total_s": total_s, "rows": rows,
+            "k1_launches_per_pair": widths}
+
+
+def _multi_trials():
+    """The card-vs-CPU multi-trial step's four trials: the loss-weight grid,
+    with lr scales 1, 0.5, 1, 2."""
+    from sm_hpss_mtl_tpu_torch.cli.tune import GRID_RANGES
+    return [{"loss_weights": w, "lr_scale": s}
+            for w, s in zip(GRID_RANGES["loss_weights"], (1, 0.5, 1, 2))]
+
+
+def _multi_setup(net, n: int, device: str):
+    """``n`` trials of ``net``'s weights stacked on ``device``, Lemaire's
+    SGD over them (per-trial clipnorm), and the multi-trial step."""
+    import copy
+
+    from sm_hpss_mtl_tpu_torch.train import multitrial
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    state = multitrial.stacked_state(
+        [copy.deepcopy(net) for _ in range(n)],
+        lambda ps: for_model("Lemaire_et_al_MTL", ps, 100000,
+                             trial_axis=True)[0], [SEED] * n, device)
+    return state, multitrial.make_multi_train_step(net, mtl=True,
+                                                   l2_reg=0.01)
+
+
+def multi_step_checks(corpus: dict) -> dict:
+    """One four-trial step of full-width Lemaire-MTL (dropout off) on the
+    CPU's patches of one crop batch, from the same stacked weights on the
+    card and on the CPU: each trial's loss, updates and BatchNorm
+    statistics held to the patch step's bars (per-trial loss weights,
+    clipnorm and lr scales)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.train.multitrial import (stack_hyperparams,
+                                                        unstack_trial)
+    model = "Lemaire_et_al_MTL"
+    audio, labels = next(_crops(corpus, SEED, model))
+    net = _seeded(model, dropout=False)
+    _, patches = _features_card_vs_cpu(audio, model)
+    trials = _multi_trials()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        state, step = _multi_setup(net, len(trials), dev)
+        d = torch.device(dev)
+        m = step(state, to_device(patches, d), to_device(labels, d),
+                 stack_hyperparams(trials, ("3C", "M", "R", "S"), dev))
+        got[dev] = (m["loss"].cpu().tolist(),
+                    [unstack_trial(state, i) for i in range(len(trials))])
+    noise = _bn_fed_biases(net)
+    out = []
+    for i, t in enumerate(trials):
+        out.append(_hold_step(
+            f"multi-trial step, trial {i}", before, got["cpu"][1][i],
+            got["cuda"][1][i], got["cpu"][0][i], got["cuda"][0][i], noise,
+            0.002 * t["lr_scale"], STEP_UPDATE_RTOL))
+    return {"trials": out, "losses_card": got["cuda"][0],
+            "losses_cpu": got["cpu"][0]}
+
+
+def time_multi_steps(corpus: dict, steps: int = 20) -> dict:
+    """Step time (CUDA events, step start to the next step's) of the
+    multi-trial step on the card at full width, dropout on, on the CPU's
+    patches of one crop batch: four trials, one trial, the single-trial
+    step (``train.state.make_train_step``), and four of those in a loop,
+    the last in turns with the four-trial step (the mean of two medians
+    each)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.train.multitrial import stack_hyperparams
+    model = "Lemaire_et_al_MTL"
+    audio, labels = next(_crops(corpus, SEED, model))
+    net = _seeded(model)
+    _, patches = _features_card_vs_cpu(audio, model)
+    dev = torch.device("cuda")
+    x, y = to_device(patches, dev), to_device(labels, dev)
+
+    def period(step):
+        marks = []
+        for _ in range(steps):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            step()
+        torch.cuda.synchronize()
+        times = sorted(marks[i].elapsed_time(marks[i + 1])
+                       for i in range(2, steps - 1))
+        return times[len(times) // 2], [times[0], times[-1]]
+
+    runs = {}
+    for n in (4, 1):
+        hyper = stack_hyperparams(_multi_trials()[:n], ("3C", "M", "R", "S"),
+                                  "cuda")
+        state, step = _multi_setup(net, n, "cuda")
+        runs[f"trials_{n}"] = functools.partial(step, state, x, y, hyper)
+    # The four trials as four single steps (a model, optimizer and
+    # generator each), timed in turns with the multi-trial step.
+    singles = [_train_setup("cuda", net, SEED, audio=False,
+                            loss_weights=t["loss_weights"])[1:3]
+               for t in _multi_trials()]
+    runs["loop_of_4_single"] = lambda: [step(state, x, y)
+                                        for state, step in singles]
+    runs["single"] = functools.partial(singles[0][1], singles[0][0], x, y)
+    turns = {}
+    for name in ("trials_4", "loop_of_4_single", "loop_of_4_single",
+                 "trials_4", "trials_1", "single"):
+        turns.setdefault(name, []).append(period(runs[name]))
+    out = {}
+    for name, got in turns.items():
+        out[f"{name}_step_ms"] = sum(t[0] for t in got) / len(got)
+        out[f"{name}_step_ms_spread"] = [min(t[1][0] for t in got),
+                                         max(t[1][1] for t in got)]
+    out["trials_4_over_1"] = out["trials_4_step_ms"] / out["trials_1_step_ms"]
+    out["trials_4_over_loop_of_4_single"] = (
+        out["trials_4_step_ms"] / out["loop_of_4_single_step_ms"])
+    return out
+
+
+def _cached_features(root: str) -> dict:
+    """Every ``.npy`` featuregram under ``root``, by relative path."""
+    return {str(p.relative_to(root)): np.load(p)
+            for p in sorted(Path(root).rglob("*.npy"))}
+
+
+def featurize_checks(corpus: dict, out: str) -> dict:
+    """``cli.featurize.main`` over the training corpus on the card (K1 once
+    per bucket batch of up to 16 items, at the shapes planned in
+    ``make_train_corpus``) and on the CPU: every cached featuregram card vs
+    CPU within ``FEATURE_DB_TOL``."""
+    from sm_hpss_mtl_tpu_torch.cli import featurize
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with recorded() as rec:
+            t0 = time.perf_counter()
+            done = featurize.main(["--data", corpus["root"], "--features",
+                                   os.path.join(out, dev), "--device", dev])
+            total_s = time.perf_counter() - t0
+        runs[dev] = {"launches": rec["launches"], "shapes": rec["shapes"],
+                     "by_pair": rec["by_pair"], "total_s": total_s,
+                     "computed": done,
+                     "features": _cached_features(os.path.join(out, dev))}
+    card, cpu = runs["cuda"], runs["cpu"]
+    planned = corpus["featurize_launches"]
+    check(card["launches"] == {"K1": len(planned), "K2": 0, "K3": 0,
+                               "K4": 0}
+          and {s[3:] for s in card["shapes"]["K1"]} == set(planned),
+          f"featurize launches {card['launches']} at "
+          f"{sorted(card['shapes']['K1'])}, planned {planned}")
+    check(card["computed"] == cpu["computed"] == len(cpu["features"])
+          == sum(b for b, _ in planned) and set(card["features"])
+          == set(cpu["features"]), "featurize: cached items differ")
+    db = max(float(np.abs(card["features"][k] - v).max())
+             for k, v in cpu["features"].items())
+    check(db <= FEATURE_DB_TOL, f"featurize: card vs CPU {db:.4f} dB")
+    for r in runs.values():
+        del r["features"]
+    return {"card": card, "cpu_total_s": cpu["total_s"],
+            "max_abs_db_vs_cpu": db, "launch_shapes": planned}
+
+
+def tsne_checks(corpus: dict) -> dict:
+    """``cli.tsne``'s device part, ``collect_class_patches`` with ``--stat
+    Row``'s arguments over fold 0 of the training corpus, on the card (K1
+    once per item) and on the CPU: every featuregram it computes within
+    ``FEATURE_DB_TOL``, and each row's skewness within the change that the
+    featuregrams' difference can make (``skew_bars``).  The KMeans compression and the
+    t-SNE embedding are sklearn's, which the GPU machine lacks; the CPU
+    tests run them (``tests/test_torch_drivers.py``)."""
+    from sm_hpss_mtl_tpu_torch.cli import tsne
+    from sm_hpss_mtl_tpu_torch.data.featurize import FeatureConfig, Featurizer
+    from sm_hpss_mtl_tpu_torch.data.folds import load_cv_folds
+
+    class Kept(Featurizer):
+        """A featurizer that keeps every featuregram it computes."""
+        def _compute(self, audio):
+            fv = super()._compute(audio)
+            self.kept.append(fv)
+            return fv
+
+    cv = load_cv_folds(os.path.join(corpus["root"], "cv_info"))
+    files = {"music": cv["music"]["fold0"], "speech": cv["speech"]["fold0"],
+             "speech_music": cv["speech+music"]["fold0"]}
+    # No class has 10000 patches, so none is subsampled and the rows keep
+    # the featuregrams' order.
+    kw = dict(feat_name="LogMelHarmPercSpec", stat="Row",
+              max_patches_per_class=10000, seed=SEED)
+    fz = {dev: Kept(FeatureConfig(), device=dev) for dev in ("cuda", "cpu")}
+    for f in fz.values():
+        f.kept = []
+    with recorded() as rec:
+        t0 = time.perf_counter()
+        gx, gy = tsne.collect_class_patches(fz["cuda"], corpus["root"],
+                                            files, **kw)
+        total_s = time.perf_counter() - t0
+    check(rec["launches"]["K1"] == len(fz["cuda"].kept) and not any(
+        rec["launches"][k] for k in ("K2", "K3", "K4")),
+          f"tsne launches {rec['launches']}")
+    cx, cy = tsne.collect_class_patches(fz["cpu"], corpus["root"], files,
+                                        **kw)
+    check(gx.shape == cx.shape and bool((gy == cy).all())
+          and set(np.unique(gy)) == {0, 1, 2},
+          f"tsne features {gx.shape} vs {cx.shape}")
+    db = max(float(np.abs(g - c).max())
+             for g, c in zip(fz["cuda"].kept, fz["cpu"].kept))
+    check(db <= FEATURE_DB_TOL, f"tsne featuregrams card vs CPU {db:.4f} dB")
+    bar = np.concatenate([skew_bars(c, g) for c, g in
+                          zip(fz["cpu"].kept, fz["cuda"].kept)])
+    check(bar.shape == cx.shape, f"skewness bars {bar.shape}")
+    d = np.abs(gx - cx)
+    ratio = float((d / bar).max())
+    check(ratio <= 1.0, f"tsne skewness card vs CPU at {ratio:.3f} of its "
+          f"bar (largest difference {float(d.max()):.3e})")
+    # A bar under the skewness's range, 2 (n - 2) / sqrt(n - 1), holds.
+    holds = bar < 2 * 66 / np.sqrt(67)
+    return {"launches": rec["launches"], "shapes": rec["shapes"],
+            "by_pair": rec["by_pair"], "total_s": total_s,
+            "features_shape": list(gx.shape),
+            "featuregram_max_abs_db_vs_cpu": db,
+            "skew_max_abs_delta_vs_cpu": float(d.max()),
+            "skew_max_share_of_bar": ratio,
+            "skew_rows_with_a_bar_under_the_range": float(holds.mean()),
+            "skew_max_abs_delta_in_rows_without_a_bar": float(
+                d[np.isinf(bar)].max(initial=0.0)),
+            "skew_bar_median": float(np.median(bar)),
+            "skew_entries_over_1e-3": int((d > 1e-3).sum())}
+
+
+def skew_bars(cpu, card, patch: int = 68) -> np.ndarray:
+    """Per patch and row of ``cli.tsne``'s ``--stat Row`` vectors of one
+    item (its featuregram ``cpu`` and ``card``, (2 n_mels, T) dB): the
+    largest change of the row's skewness that the card's difference can
+    make (see ``TSNE_ROUNDING``), as ``collect_class_patches`` orders the
+    rows (harmonic half, then percussive, per patch)."""
+    from sm_hpss_mtl_tpu_torch.ops.patches import extract_patches_np
+
+    def rows(fv):                                # (N, 2 n_mels, patch)
+        half = fv.shape[0] // 2
+        return np.concatenate([extract_patches_np(p, patch, patch)
+                               for p in (fv[:half], fv[half:])],
+                              axis=1).astype(np.float64)
+
+    x, y = rows(cpu), rows(card)
+    e = y - x
+    eta = (np.abs(e - e.mean(axis=2, keepdims=True)).max(axis=2)
+           + TSNE_ROUNDING * np.abs(x).max(axis=2))
+    d = x - x.mean(axis=2, keepdims=True)
+    std, m3 = np.sqrt((d * d).mean(axis=2)), (d ** 3).mean(axis=2)
+    moved = (std + eta) ** 3 - std ** 3
+    with np.errstate(divide="ignore", invalid="ignore"):
+        skew = m3 / std ** 3
+        corners = np.stack([(m3 + a) / (std + b) ** 3
+                            for a in (-moved, moved) for b in (-eta, eta)])
+        change = np.abs(corners - skew).max(axis=0)
+        # float32 moments on both sides, each a sum of `patch` terms.
+        rounding = 2 * patch * 2.0 ** -24 * (
+            (np.abs(d) ** 3).mean(axis=2) / std ** 3 + 1.5 * np.abs(skew))
+    return np.where(std > eta, change + rounding, np.inf)
+
+
 def late_fusion_checkpoints(root: str) -> tuple[str, str]:
     """Fold checkpoints of two full-width Lemaire-MTL models from seeded
     inits, one on ``LogMelHarmSpec`` and one on ``LogMelPercSpec`` (120
@@ -1597,13 +2201,16 @@ def late_fusion_checkpoints(root: str) -> tuple[str, str]:
 
 
 def build_all() -> tuple[float, list[str]]:
-    """Compile every CUDA source at once, one nvcc process each; load the
-    libraries.  Returns the wall time and the ptxas reports."""
+    """Compile every CUDA source for every median pair at once, one nvcc
+    process each (``ops/_nvcc.py``: one library per source and pair); load
+    the libraries.  Returns the wall time and the ptxas reports."""
     from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend, hpss
-    sources = sorted(p.name for p in _nvcc.CSRC.glob("*.cu"))
+    from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
+    jobs = [(p.name, pair) for p in sorted(_nvcc.CSRC.glob("*.cu"))
+            for pair in KERNEL_MEDIANS]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as ex:
-        libs = list(ex.map(_nvcc.build, sources))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        libs = list(ex.map(lambda job: _nvcc.build(*job), jobs))
     frontend.build()
     hpss.build()
     logs = [f"{lib.name}:\n" + lib.with_suffix(".so.log").read_text().strip()
@@ -1670,6 +2277,10 @@ def run() -> None:
             f"{e['name']} {e['ms']:.4f} ms [{e['ms_spread'][0]:.4f}, "
             f"{e['ms_spread'][1]:.4f}] at {e['timed_shape']}"
             for e in entries), flush=True)
+        t_pairs = time.perf_counter()
+        pair_entries = phase_pairs(card, checked, train_corpus)
+        print(f"[3 pairs] ok, {time.perf_counter() - t_pairs:.1f} s",
+              flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
@@ -1965,6 +2576,36 @@ def run() -> None:
               f"{step_checks['fixed_batch_losses'][-1]:.4f}; step "
               f"{step_times['step_ms']:.3f} ms", flush=True)
 
+        tuning = {}
+        for name, argv, n_rows in TUNE_RUNS:
+            runs[name] = tuning[name] = tune_cli(train_corpus, out(name),
+                                                 name, argv, n_rows)
+        multi = multi_step_checks(train_corpus)
+        multi_times = time_multi_steps(train_corpus)
+        feat = featurize_checks(train_corpus, out("featurize"))
+        runs["featurize"] = feat["card"]
+        runs["tsne"] = tsne_run = tsne_checks(train_corpus)
+        print("[10 tuning] " + "; ".join(
+            f"{n}: {len(tuning[n]['rows'])} rows, K1 "
+            f"{tuning[n]['launches']['K1']}, {tuning[n]['total_s']:.1f} s"
+            for n, _, _ in TUNE_RUNS)
+            + "; K1 per pair " + ", ".join(
+                f"({k}) {v}" for n in ("tune_l_harm", "tune_l_perc")
+                for k, v in tuning[n]["k1_launches_per_pair"].items())
+            + f"; 4-trial step card vs CPU: losses "
+              f"{max(t['loss_rel'] for t in multi['trials']):.2e}, updates "
+              f"{max(t['update_rel_max'] for t in multi['trials']):.2e}; "
+              f"step 4 trials {multi_times['trials_4_step_ms']:.3f} ms, 1 "
+              f"trial {multi_times['trials_1_step_ms']:.3f}, single step "
+              f"{multi_times['single_step_ms']:.3f}, 4 single steps "
+              f"{multi_times['loop_of_4_single_step_ms']:.3f}; featurize K1 "
+              f"{feat['card']['launches']['K1']} launches, card vs CPU "
+              f"{feat['max_abs_db_vs_cpu']:.5f} dB; tsne featuregrams card "
+              f"vs CPU {tsne_run['featuregram_max_abs_db_vs_cpu']:.5f} dB, "
+              f"skewness {tsne_run['skew_max_abs_delta_vs_cpu']:.3e}, at "
+              f"most {tsne_run['skew_max_share_of_bar']:.3f} of its bar",
+            flush=True)
+
         lem_t = {"whole_60s": time_legs(lem, x60, wav60, wpath[lem],
                                         out("t60.npz"), whole["total_s"]),
                  "slabbed_600s": time_legs(lem, x600, wav600, wpath[lem],
@@ -1981,7 +2622,8 @@ def run() -> None:
                     "train_lemaire_fls", "train_doukhan", "cascaded_60",
                     "five_60", "eval_five", "eval_if", "fuse_late",
                     "train_cascaded", "train_five", "train_if_device",
-                    "train_if_host"),
+                    "train_if_host", *(n for n, _, _ in TUNE_RUNS),
+                    "featurize", "tsne"),
              "K2": ("jang_60", "jang_600", "jang_10", "eval_jang", "pap_60",
                     "pap_10", "eval_papakostas", "train_jang_device",
                     "train_jang_host", "train_papakostas"),
@@ -1997,6 +2639,13 @@ def run() -> None:
         others = [n for n in runs if n not in names
                   and runs[n]["launches"][kernel]]
         check(not others, f"{kernel} launched on another path: {others}")
+        for rec in pair_entries[kernel]:
+            rec["launches"] = sum(runs[n]["by_pair"][kernel][
+                "{},{}".format(*rec["pair"])] for n in names)
+        check(sum(r["launches"] for r in pair_entries[kernel])
+              == entry["launches"], f"{kernel}: launches per pair do not "
+              "add up")
+        entry["pairs"] = pair_entries[kernel]
     print("[11 checks] ok", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"serving": {
@@ -2082,6 +2731,20 @@ def run() -> None:
         "k1_at_80x11120": k1_train["80x11120"],
         "k1_at_20x43760": k1_train["20x43760"],
         "k2_training_shapes": entries[1]["training_shapes"]}}))
+    print(json.dumps({"tuning": {
+        "card": card, "model": lem, "width": "32 filters, 3 stacks, Nd 8, "
+        "D 240, patch 68, 16 clips per class", "epochs": 1,
+        "train_steps": TUNE_STEPS, "val_steps": 1,
+        **{n: {k: v for k, v in tuning[n].items()
+               if k not in ("shapes", "by_pair")} for n, _, _ in TUNE_RUNS},
+        "multi_step_card_vs_cpu": multi, "multi_step_times": multi_times,
+        "featurize": {**{k: v for k, v in feat["card"].items()
+                         if k not in ("shapes", "by_pair")},
+                      "cpu_total_s": feat["cpu_total_s"],
+                      "max_abs_db_vs_cpu": feat["max_abs_db_vs_cpu"],
+                      "launch_shapes": feat["launch_shapes"]},
+        "tsne": {k: v for k, v in tsne_run.items()
+                 if k not in ("shapes", "by_pair")}}}, default=str))
     print(f"[12 total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

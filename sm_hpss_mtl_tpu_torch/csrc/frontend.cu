@@ -51,7 +51,9 @@
 //     43-44 KB, where the previous design expanded 56 windowed frames into
 //     90-115 KB.
 //   - One block per (tile of 64 - 2*(l_harm/2) output frames, batch item):
-//     44 frames at l_harm 21 for 64 DFT rows, a halo factor of 1.45.  The
+//     44 frames at l_harm 21 for 64 DFT rows, a halo factor of 1.45 (the
+//     tuner's l_harm 51: 14 frames, 4.6; each pair is its own library,
+//     median.cuh's HPSS_FOR_EACH_PAIR, timed per pair by chip_smoke.py).  The
 //     block computes the DFT of the real frames of its range only; frames
 //     outside [0, T) are read back through the symmetric rule from the
 //     magnitude rows (as the JAX kernel's edge fix copies rows), so edge
@@ -71,7 +73,8 @@
 //     a warp is a contiguous run of a (B, F, T) row.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libfrontend.so frontend.cu
+//        -Xcompiler -fPIC -DHPSS_LH=51 -DHPSS_LP=11 -o libfrontend.so
+//        frontend.cu
 // C interface, loaded with ctypes by sm_hpss_mtl_tpu_torch/ops/frontend.py.
 
 #include <cuda_runtime.h>
@@ -465,12 +468,12 @@ int dispatch(const void* y, const void* basis, const void* mel,
   float* oh = static_cast<float*>(out_h);
   float* op = static_cast<float*>(out_p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l_harm == 21 && l_perc == 11)
-    return launch<21, 11, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft,
+#define HPSS_LAUNCH(LH, LP)                                                 \
+  if (l_harm == LH && l_perc == LP)                                         \
+    return launch<LH, LP, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft, \
                                    win_length, hop, n_mels, st);
-  if (l_harm == 11 && l_perc == 5)
-    return launch<11, 5, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft,
-                                  win_length, hop, n_mels, st);
+  HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
+#undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -484,8 +487,9 @@ extern "C" {
 // mel: (n_mels, n_fft/2+1) f32; bands: (n_mels, 2) int32, each band's
 // nonzero bins [lo, hi); out_h, out_p: (B, n_mels, T) f32,
 // T = 1 + (N - n_fft) / hop >= 1.  n_fft and hop must be multiples of 8.
-// Returns a cudaError_t; cudaErrorInvalidValue for an unsupported
-// (l_harm, l_perc) pair or geometry.  Does not synchronise.
+// Returns a cudaError_t; cudaErrorInvalidValue for a (l_harm, l_perc) pair
+// this library was not built for (HPSS_FOR_EACH_PAIR) or an unsupported
+// geometry.  Does not synchronise.
 int k1_stft_hpss_mel(const void* y, const void* basis, const void* mel,
                      const void* bands, void* out_h, void* out_p, int B, int N,
                      int T, int n_fft, int win_length, int hop, int l_harm,
@@ -508,12 +512,12 @@ int k2_stft_hpss(const void* y, const void* basis, void* out_h, void* out_p,
 // failure.
 int k1_blocks_per_sm(int fullres, int n_fft, int hop, int l_harm,
                      int l_perc) {
-  if (l_harm == 21 && l_perc == 11)
-    return fullres ? blocks_per_sm<21, 11, true>(n_fft, hop)
-                   : blocks_per_sm<21, 11, false>(n_fft, hop);
-  if (l_harm == 11 && l_perc == 5)
-    return fullres ? blocks_per_sm<11, 5, true>(n_fft, hop)
-                   : blocks_per_sm<11, 5, false>(n_fft, hop);
+#define HPSS_BLOCKS(LH, LP)                                  \
+  if (l_harm == LH && l_perc == LP)                          \
+    return fullres ? blocks_per_sm<LH, LP, true>(n_fft, hop) \
+                   : blocks_per_sm<LH, LP, false>(n_fft, hop);
+  HPSS_FOR_EACH_PAIR(HPSS_BLOCKS)
+#undef HPSS_BLOCKS
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -52,7 +52,8 @@
 //     32 rows are one batch of 4 rows a warp; one unit per thread.  At
 //     257 x 13: 12 blocks of 11 pairs x 4 frame groups.
 // Shared memory: (2*pairs + 2*HP) x stride floats, at most 43.8 KB (32
-// pairs x 32 groups), so no opt-in attribute is needed.
+// pairs x 32 groups) at (21, 11); the tuner's wide medians take up to
+// 67.5 KB ((21, 51)), so the occupancy query opts in above 48 KB.
 //
 // What bounds K4: launch latency on its path, and bytes beyond it.  Per
 // frame it reads F magnitudes and writes 2*n_mels floats, and reads the
@@ -84,8 +85,13 @@
 // registers and 2 blocks per SM, 0.051 ms at 1 x 201 x 5998 against 0.038
 // (tools/hpss_ab.py, variant k4_rows8).
 
+// The tuner's median pairs (l_harm up to 51, l_perc up to 51) take the same
+// design: wider shared cores (89.5 comparators per harmonic output at 51,
+// 167 per percussive one), percussive columns read one frame at a time
+// above l_perc 11 (unit_masks), and K3 tiles above 48 KB of shared memory.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libhpss.so hpss.cu
+//        -Xcompiler -fPIC -DHPSS_LH=51 -DHPSS_LP=11 -o libhpss.so hpss.cu
 // C interface, loaded with ctypes by sm_hpss_mtl_tpu_torch/ops/hpss.py.
 
 #include <cuda_runtime.h>
@@ -111,6 +117,9 @@ constexpr int K4_BANDS = 8;       // mel bands per K4 block
 constexpr int K4_TT = 32;         // frames per K4 time tile
 constexpr int K4_CHUNK = 64;      // bins of a K4 span per pass
 constexpr int MAX_DEVICES = 64;
+// Percussive rows a unit reads for all QT frames at once; wider windows
+// are read one frame at a time (unit_masks).
+constexpr int PERC_ROWS_AT_ONCE = 12;
 
 static_assert(QT == 4, "unit_masks reads four frames per row");
 static_assert(K4_BANDS * K4_TT == THREADS, "K4: one (band, frame) a thread");
@@ -207,24 +216,33 @@ __device__ __forceinline__ void unit_masks(const float* tile, int W, int r,
     for (int t = 0; t < QT; ++t) s[q][t] = x[HT + t];
   }
   float y[QT][NY];
+  if constexpr (NY <= PERC_ROWS_AT_ONCE) {
 #pragma unroll
-  for (int i = 0; i < NY; ++i) {
-    const float* p = tile + (r - HP + i) * W + c + HT;
-    if constexpr (HT % 2 == 0) {
-      const float2 a = reinterpret_cast<const float2*>(p)[0];
-      const float2 b = reinterpret_cast<const float2*>(p)[1];
-      y[0][i] = a.x;
-      y[1][i] = a.y;
-      y[2][i] = b.x;
-      y[3][i] = b.y;
-    } else {
+    for (int i = 0; i < NY; ++i) {
+      const float* p = tile + (r - HP + i) * W + c + HT;
+      if constexpr (HT % 2 == 0) {
+        const float2 a = reinterpret_cast<const float2*>(p)[0];
+        const float2 b = reinterpret_cast<const float2*>(p)[1];
+        y[0][i] = a.x;
+        y[1][i] = a.y;
+        y[2][i] = b.x;
+        y[3][i] = b.y;
+      } else {
 #pragma unroll
-      for (int t = 0; t < QT; ++t) y[t][i] = p[t];
+        for (int t = 0; t < QT; ++t) y[t][i] = p[t];
+      }
     }
   }
 #pragma unroll
   for (int t = 0; t < QT; ++t) {
     float perc[QF];
+    if constexpr (NY > PERC_ROWS_AT_ONCE) {
+      // Wide percussive windows (l_perc 21 to 51): one frame's column at a
+      // time, so that NY registers hold it rather than QT * NY.
+#pragma unroll
+      for (int i = 0; i < NY; ++i)
+        y[t][i] = tile[(r - HP + i) * W + c + HT + t];
+    }
     running_medians<LP, QF>(y[t], perc);
 #pragma unroll
     for (int q = 0; q < QF; ++q)
@@ -332,7 +350,15 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t smem,
     return cudaSuccess;
   }
   Occupancy o;
-  e = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+  // K3's largest tile passes the 48 KB of dynamic shared memory a launch
+  // may take without opting in at the wide medians ((41, 11): 49.7 KB,
+  // (21, 51): 67.5 KB); the attribute is per device, as is this cache.
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.blocks, kernel,
                                                       threads, smem);
@@ -516,8 +542,9 @@ extern "C" {
 
 // Launches K3 on `stream`.  S: (B, F, T) f32 magnitudes; out_h, out_p:
 // (B, F, T) f32, the masked components or (mask_only != 0) the masks.
-// Returns a cudaError_t; cudaErrorInvalidValue for an unsupported
-// (l_harm, l_perc) pair or a grid too large.  Does not synchronise.
+// Returns a cudaError_t; cudaErrorInvalidValue for a (l_harm, l_perc) pair
+// this library was not built for (HPSS_FOR_EACH_PAIR) or a grid too large.
+// Does not synchronise.
 int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
             int l_harm, int l_perc, int mask_only, void* stream) {
   const float* s = static_cast<const float*>(S);
@@ -525,10 +552,11 @@ int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
   float* op = static_cast<float*>(out_p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || F < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  if (l_harm == 21 && l_perc == 11)
-    return launch<21, 11>(s, oh, op, B, F, T, mask_only != 0, st);
-  if (l_harm == 11 && l_perc == 5)
-    return launch<11, 5>(s, oh, op, B, F, T, mask_only != 0, st);
+#define HPSS_LAUNCH(LH, LP)          \
+  if (l_harm == LH && l_perc == LP) \
+    return launch<LH, LP>(s, oh, op, B, F, T, mask_only != 0, st);
+  HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
+#undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -536,8 +564,8 @@ int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
 // f32; bands: (n_mels, 2) int32, each band's nonzero bins [lo, hi) ([0, 0)
 // for an empty band); out_h, out_p: (B, n_mels, T) f32, the mel projections
 // of the masked components.  Returns a cudaError_t; cudaErrorInvalidValue
-// for an unsupported (l_harm, l_perc) pair or a grid too large.  Does not
-// synchronise.
+// for a (l_harm, l_perc) pair this library was not built for or a grid too
+// large.  Does not synchronise.
 int k4_hpss_mel(const void* S, const void* mel, const void* bands,
                 void* out_h, void* out_p, int B, int F, int T, int l_harm,
                 int l_perc, int n_mels, void* stream) {
@@ -549,10 +577,11 @@ int k4_hpss_mel(const void* S, const void* mel, const void* bands,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || F < 1 || T < 1 || n_mels < 1)
     return (int)cudaErrorInvalidValue;
-  if (l_harm == 21 && l_perc == 11)
-    return launch_mel<21, 11>(s, m, r, oh, op, B, F, T, n_mels, st);
-  if (l_harm == 11 && l_perc == 5)
-    return launch_mel<11, 5>(s, m, r, oh, op, B, F, T, n_mels, st);
+#define HPSS_LAUNCH(LH, LP)          \
+  if (l_harm == LH && l_perc == LP) \
+    return launch_mel<LH, LP>(s, m, r, oh, op, B, F, T, n_mels, st);
+  HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
+#undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -561,15 +590,19 @@ int k4_hpss_mel(const void* S, const void* mel, const void* bands,
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative cudaError_t on
 // failure.
 int k3_blocks_per_sm(int l_harm, int l_perc) {
-  if (l_harm == 21 && l_perc == 11) return k3_blocks<21, 11>();
-  if (l_harm == 11 && l_perc == 5) return k3_blocks<11, 5>();
+#define HPSS_BLOCKS(LH, LP) \
+  if (l_harm == LH && l_perc == LP) return k3_blocks<LH, LP>();
+  HPSS_FOR_EACH_PAIR(HPSS_BLOCKS)
+#undef HPSS_BLOCKS
   return -(int)cudaErrorInvalidValue;
 }
 
 // The same for K4.
 int k4_blocks_per_sm(int l_harm, int l_perc) {
-  if (l_harm == 21 && l_perc == 11) return k4_blocks<21, 11>();
-  if (l_harm == 11 && l_perc == 5) return k4_blocks<11, 5>();
+#define HPSS_BLOCKS(LH, LP) \
+  if (l_harm == LH && l_perc == LP) return k4_blocks<LH, LP>();
+  HPSS_FOR_EACH_PAIR(HPSS_BLOCKS)
+#undef HPSS_BLOCKS
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -11,7 +11,10 @@ biased variance.  Eval mode is torch's, unchanged.
 Dropout draws from an explicit ``torch.Generator`` on the activations'
 device, set on the module by :func:`use_generator` (the train steps call
 it), never from torch's global RNG: a training run is then a function of
-its seeds.  In train mode a dropout with no generator raises.
+its seeds.  In train mode a dropout with no generator raises.  The
+multi-trial step (``train.multitrial``), whose vmapped forward cannot draw
+from a generator, draws each trial's masks beforehand and hands them to
+the layers through ``Dropout.feed``.
 """
 
 from __future__ import annotations
@@ -55,17 +58,25 @@ class Dropout(nn.Module):
         self.rate = rate
         self.spatial = spatial
         self.generator: torch.Generator | None = None
+        #: Masks drawn elsewhere (``train.multitrial``): an object whose
+        #: ``pop()`` returns this call's mask, or None for a mask of ones.
+        self.feed = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        keep = 1.0 - self.rate
+        shape = x.shape[:-1] + (1,) if self.spatial else x.shape
+        if self.feed is not None:
+            mask = self.feed.pop()
+            if mask is None:
+                mask = x.new_ones(shape)
+            return x * mask / keep
         if self.generator is None:
             raise RuntimeError(
                 "dropout in train mode draws from an explicit generator: "
                 "set one with models.layers.use_generator (the train steps "
                 "take it as generator=)")
-        keep = 1.0 - self.rate
-        shape = x.shape[:-1] + (1,) if self.spatial else x.shape
         mask = torch.empty(shape, device=x.device, dtype=x.dtype).bernoulli_(
             keep, generator=self.generator)
         return x * mask / keep

@@ -24,12 +24,14 @@ class LemaireTCN(nn.Module):
     def __init__(self, in_dim: int, patch_size: int = 68, n_classes: int = 3,
                  n_filters: int = 32, nb_stacks: int = 3,
                  kernel_size: int = 3, Nd: int = 8,
-                 dropout_rate: float = 0.275):
+                 dropout_rate: float = 0.275,
+                 use_skip_connections: bool = False):
         super().__init__()
         self.tcn = TCN(in_dim, n_filters=n_filters, kernel_size=kernel_size,
                        nb_stacks=nb_stacks,
                        dilations=tuple(2 ** d for d in range(Nd)),
-                       dropout_rate=dropout_rate)
+                       dropout_rate=dropout_rate,
+                       use_skip_connections=use_skip_connections)
         self.out = nn.Linear(patch_size * n_filters, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,12 +49,13 @@ class LemaireMTL(nn.Module):
                  kernel_size: int = 3, Nd: int = 8,
                  dropout_rate: float = 0.275, head_width: int = 16,
                  cascaded: bool = False, with_noise: bool = False,
-                 head_layers: int = 1):
+                 head_layers: int = 1, use_skip_connections: bool = False):
         super().__init__()
         self.tcn = TCN(in_dim, n_filters=n_filters, kernel_size=kernel_size,
                        nb_stacks=nb_stacks,
                        dilations=tuple(2 ** d for d in range(Nd)),
-                       dropout_rate=dropout_rate)
+                       dropout_rate=dropout_rate,
+                       use_skip_connections=use_skip_connections)
         # The JAX cascaded heads take only n_classes.
         self.heads = (CascadedMTLHeads(patch_size * n_filters,
                                        n_classes=n_classes) if cascaded

@@ -43,19 +43,26 @@ class TCNResidualBlock(nn.Module):
         self.dropout = SpatialDropout1D(dropout_rate)
         self.conv_1x1 = nn.Conv1d(n_filters, n_filters, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block's output and its skip branch (the 1x1 conv's)."""
         y = channel_normalization(torch.relu(self.dilated_conv(x)))
-        return x + self.conv_1x1(self.dropout(y))
+        y = self.conv_1x1(self.dropout(y))
+        return x + y, y
 
 
 class TCN(nn.Module):
-    """Returns sequences: ``(B, T, D) -> (B, T, n_filters)``."""
+    """Returns sequences: ``(B, T, D) -> (B, T, n_filters)``.  With
+    ``use_skip_connections`` the output is the sum of every block's skip
+    branch instead of the last block's output (keras-tcn; the tuner's
+    architecture space)."""
 
     def __init__(self, in_dim: int, n_filters: int = 32, kernel_size: int = 3,
                  nb_stacks: int = 3,
                  dilations: tuple = (1, 2, 4, 8, 16, 32, 64, 128),
-                 dropout_rate: float = 0.275):
+                 dropout_rate: float = 0.275,
+                 use_skip_connections: bool = False):
         super().__init__()
+        self.use_skip_connections = use_skip_connections
         self.initial_conv = nn.Conv1d(in_dim, n_filters, kernel_size,
                                       padding="same")
         self.block_names = []
@@ -68,6 +75,10 @@ class TCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.initial_conv(x.transpose(1, 2))
+        skips = []
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x, skip = getattr(self, name)(x)
+            skips.append(skip)
+        if self.use_skip_connections:
+            x = sum(skips)
         return torch.relu(x).transpose(1, 2)

@@ -65,8 +65,9 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     single-task Jang model with 64 bands whatever it is given), and the
     rows are its n_fft's.  ``arch_kwargs`` (the Lemaire family only, as in
     the JAX zoo): ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``,
-    ``head_width``, ``head_layers`` (MTL); the intermediate-fusion model
-    drops all but ``n_filters`` and ``nb_stacks``."""
+    ``use_skip_connections``, ``head_width``, ``head_layers`` (MTL); the
+    intermediate-fusion model drops all but ``n_filters`` and
+    ``nb_stacks``."""
     if name not in MTL:
         raise ValueError(f"unknown model {name!r}")
     if arch_kwargs and not name.startswith("Lemaire"):

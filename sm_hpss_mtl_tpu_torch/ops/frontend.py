@@ -6,7 +6,8 @@ and :func:`stft_hpss` launch the hand-written kernel of
 ``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
 medians and soft masks in one pass, then the mel projection for K1 or the
 full-resolution masked magnitudes for K2; the spectrogram never reaches
-device memory).  Clips shorter than ``2*(l_harm//2)`` frames take the
+device memory), at every median pair of ``hpss.KERNEL_MEDIANS``.  Clips
+shorter than ``2*(l_harm//2)`` frames (under 50 at l_harm 51) take the
 JAX package's short-clip branch (``frontend_pallas._dispatch``) instead:
 the plain ``stft_mag``, then the spectral kernel K4 (``hpss.hpss_mel``)
 or K3 (``hpss.hpss``).  For a CPU tensor they run
@@ -49,8 +50,9 @@ _COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
+def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
+    """The kernels' library for one median pair, built at first use."""
+    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p]
     lib.k1_stft_hpss_mel.restype = i
@@ -64,20 +66,22 @@ def _library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Build and load the kernel library now (it is otherwise built at the
-    first launch)."""
-    _library()
+    """Build and load the kernel library of every pair of
+    ``KERNEL_MEDIANS`` now (each is otherwise built at its first
+    launch)."""
+    for pair in KERNEL_MEDIANS:
+        _library(*pair)
 
 
 def blocks_per_sm(*, fullres: bool, n_fft: int, hop_length: int,
                   l_harm: int, l_perc: int) -> int:
     """Blocks of K2 (``fullres``) or K1 one SM of the current card holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    n = _library().k1_blocks_per_sm(int(fullres), n_fft, hop_length, l_harm,
-                                     l_perc)
+    lib = _library(l_harm, l_perc)
+    n = lib.k1_blocks_per_sm(int(fullres), n_fft, hop_length, l_harm, l_perc)
     if n < 0:
         raise RuntimeError("occupancy query failed: "
-                           + _library().k1_error_string(-n).decode())
+                           + lib.k1_error_string(-n).decode())
     return n
 
 
@@ -215,7 +219,7 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     shape = lead + (rows, T)
     if B == 0:
         return out_h.reshape(shape), out_p.reshape(shape)
-    lib = _library()
+    lib = _library(l_harm, l_perc)
     basis = _fragments_on(n_fft, win_length, y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream

@@ -32,9 +32,13 @@ from . import _nvcc
 from .mel import _band_ranges_of
 from .stft import real_dtype
 
-#: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for:
-#: the presets' (21, 11) and a narrow (11, 5).
-KERNEL_MEDIANS = ((21, 11), (11, 5))
+#: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for: the
+#: presets' (21, 11), a narrow (11, 5), and the tuner's grids
+#: (``cli/tune.py::GRID_RANGES``): l_harm 11 to 51 at l_perc 11, l_perc 21
+#: to 51 at l_harm 21.  Each pair is a library of its own
+#: (``_nvcc.build``), built at its first launch.  Any other pair raises.
+KERNEL_MEDIANS = ((21, 11), (11, 5), (11, 11), (31, 11), (41, 11),
+                  (51, 11), (21, 21), (21, 31), (21, 41), (21, 51))
 
 _SOURCE = "hpss.cu"
 
@@ -105,8 +109,9 @@ def hpss_mel_plain(S: torch.Tensor, mel_basis: torch.Tensor, *,
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
+def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
+    """The kernels' library for one median pair, built at first use."""
+    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.k3_hpss.restype = i
@@ -121,16 +126,18 @@ def _library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Build and load the kernel library now (it is otherwise built at the
-    first launch)."""
-    _library()
+    """Build and load the kernel library of every pair of
+    ``KERNEL_MEDIANS`` now (each is otherwise built at its first
+    launch)."""
+    for pair in KERNEL_MEDIANS:
+        _library(*pair)
 
 
 def blocks_per_sm(*, mel: bool, l_harm: int = 21, l_perc: int = 11) -> int:
     """Blocks of K4 (``mel``) or K3 (at its largest tile) one SM of the
     current card holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _library()
+    lib = _library(l_harm, l_perc)
     n = (lib.k4_blocks_per_sm if mel else lib.k3_blocks_per_sm)(l_harm,
                                                                 l_perc)
     if n < 0:
@@ -195,7 +202,7 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
     out_h, out_p = torch.empty_like(S3), torch.empty_like(S3)
     if S3.numel():
         B, F, T = S3.shape
-        lib = _library()
+        lib = _library(l_harm, l_perc)
         with _device_context(S.device):
             err = lib.k3_hpss(S3.data_ptr(), out_h.data_ptr(),
                               out_p.data_ptr(), B, F, T, l_harm, l_perc,
@@ -230,7 +237,7 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
     if S3.numel() and n_mels:
         M = M.contiguous()
         bands = _band_ranges_of(M)
-        lib = _library()
+        lib = _library(l_harm, l_perc)
         with _device_context(S.device):
             err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(),
                                   bands.data_ptr(), out_h.data_ptr(),

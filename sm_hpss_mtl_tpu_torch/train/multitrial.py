@@ -1,0 +1,403 @@
+"""Multi-trial training: N trials of one architecture advance together on a
+shared batch stream (counterpart of ``sm_hpss_mtl_tpu/train/multitrial.py``).
+
+The trials' parameters, BatchNorm statistics and optimizer state carry a
+leading trial axis (``torch.func.stack_module_state``), and one step is
+``torch.func.vmap`` over ``functional_call`` and ``grad`` of the model: each
+convolution and product runs once for all trials, not once per trial.  A
+trial's step is exactly its single-trial step
+(:func:`..train.state.make_train_step`) on the same batch:
+
+- ``loss_weights`` per trial (a dict of per-head scalars) and ``lr_scale``,
+  which multiplies the optimizer's final update (every optimizer here is
+  linear in the learning rate, so that is training at ``lr_scale * lr``).
+- Keras's per-tensor clipnorm takes each trial's norm of each tensor, not
+  the stack's (``optimizers.KerasSGD(trial_axis=True)``).
+- BatchNorm updates each trial's running statistics in place, as the
+  single step does (its ``lerp_`` runs on the stacked buffers).
+- Dropout and the noise augmentation draw from one ``torch.Generator`` per
+  trial, seeded with the trial's seed, in the order its single step draws
+  them; ``vmap`` takes no generator, so the draws happen before the vmapped
+  call and each dropout layer reads its trial's mask from a feed
+  (``models.layers.Dropout.feed``).  The JAX package splits one key per
+  trial and step instead, so the streams differ from its own.
+
+Seed replicates are trials whose initial weights come from their own seed
+(``models.lemaire.init_weights``).  Trials on several GPUs (``mesh=``) are
+ROADMAP §1 item 9.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call, grad, stack_module_state, vmap
+
+from ..models import layers
+from ..models.lemaire import init_weights
+from .losses import categorical_crossentropy, mtl_loss
+from .loop import EARLY_STOP_MIN_DELTA, EARLY_STOP_PATIENCE
+from .state import augment, l2_kernels
+
+# BatchNorm's running-statistics ``lerp_`` has no batching rule in
+# torch.func: vmap runs it per trial (exact, and small).
+warnings.filterwarnings("ignore", message=".*batching rule for aten::lerp_",
+                        category=UserWarning)
+
+
+def refuse_sharded_trials(mesh) -> None:
+    """Raise for a trial axis sharded over several GPUs (the JAX package's
+    ``mesh=``), which the port does not have yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "trials sharded over several GPUs are not ported yet "
+            "(ROADMAP §1, item 9)")
+
+
+def stack_hyperparams(trials: list[dict], heads: tuple | None,
+                      device: str | torch.device = "cpu") -> dict:
+    """Per-trial hyperparameters as tensors with a leading trial axis:
+    ``lr_scale`` (default 1) and, for MTL models, ``loss_weights`` per head
+    of ``heads`` (a head a trial does not name weighs 1); also
+    ``scaled``, whether any lr scale differs from 1 (a host flag, so that
+    a step need not read the device to know)."""
+    scales = [float(t.get("lr_scale", 1.0)) for t in trials]
+    out = {"lr_scale": torch.tensor(scales, dtype=torch.float32,
+                                    device=device),
+           "scaled": any(s != 1.0 for s in scales)}
+    if heads:
+        out["loss_weights"] = {
+            h: torch.tensor([float((t.get("loss_weights") or {}).get(h, 1.0))
+                             for t in trials], dtype=torch.float32,
+                            device=device)
+            for h in heads}
+    return out
+
+
+@dataclass
+class MultiState:
+    """The trials' stacked parameters and buffers (trial axis first), the
+    optimizer over the stacked parameters, one generator per trial, and
+    the steps taken."""
+    params: dict
+    buffers: dict
+    optimizer: torch.optim.Optimizer
+    generators: list
+    step: int = 0
+
+
+def init_trials(model: nn.Module, seeds, make_optimizer: Callable,
+                device: str | torch.device = "cpu") -> MultiState:
+    """Stacked state of ``len(seeds)`` trials of ``model``'s architecture:
+    trial i's weights are Keras's initialisation from ``seeds[i]`` (as
+    ``cli.experiment.model_spec`` makes a run's), its generator is seeded
+    with ``seeds[i]`` on ``device``.  ``make_optimizer(params)`` builds the
+    optimizer over the stacked parameters (for Lemaire's SGD with
+    ``trial_axis=True``)."""
+    nets = []
+    for s in seeds:
+        net = _copy(model)
+        init_weights(net, torch.Generator().manual_seed(int(s)))
+        nets.append(net.to(device))
+    return stacked_state(nets, make_optimizer, seeds, device)
+
+
+def stacked_state(nets: list[nn.Module], make_optimizer: Callable, seeds,
+                  device: str | torch.device = "cpu") -> MultiState:
+    """:class:`MultiState` of the trials ``nets`` (one module each, the
+    same architecture), generators seeded with ``seeds``."""
+    params, buffers = stack_module_state([n.train() for n in nets])
+    params = {k: v.detach().to(device).requires_grad_(True)
+              for k, v in params.items()}
+    buffers = {k: v.to(device) for k, v in buffers.items()}
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    return MultiState(params, buffers, make_optimizer(list(params.values())),
+                      gens)
+
+
+def unstack_trial(state: MultiState, i: int) -> dict:
+    """Trial ``i``'s ``state_dict`` (parameters and buffers), on the CPU."""
+    return {k: v[i].detach().cpu().clone()
+            for k, v in {**state.params, **state.buffers}.items()}
+
+
+def _copy(model: nn.Module) -> nn.Module:
+    """A deep copy of ``model`` without its dropout generators."""
+    drops = [m for m in model.modules() if isinstance(m, layers.Dropout)]
+    gens = [m.generator for m in drops]
+    for m in drops:
+        m.generator = None
+    try:
+        return copy.deepcopy(model)
+    finally:
+        for m, g in zip(drops, gens):
+            m.generator = g
+
+
+def _template(model: nn.Module) -> nn.Module:
+    """A weightless copy of ``model`` for ``functional_call``."""
+    return _copy(model).to("meta")
+
+
+class _MaskFeed:
+    """Hands each dropout layer of a forward its mask, in call order;
+    ``None`` for the shape probe."""
+
+    def __init__(self, masks=None):
+        self.masks = masks
+
+    def pop(self):
+        return None if self.masks is None else self.masks.pop(0)
+
+
+def _dropout_shapes(template: nn.Module, batch) -> list:
+    """(shape, keep) of each mask one trial's train-mode forward on
+    ``batch`` draws, in call order, found on the meta device."""
+    shapes = []
+
+    def hook(mod, args):
+        x = args[0]
+        shape = x.shape[:-1] + (1,) if mod.spatial else x.shape
+        shapes.append((tuple(shape), 1.0 - mod.rate))
+
+    drops = [m for m in template.modules()
+             if isinstance(m, layers.Dropout) and m.rate > 0]
+    handles = [m.register_forward_pre_hook(hook) for m in drops]
+    meta = ({k: v.to("meta") for k, v in batch.items()}
+            if isinstance(batch, dict) else batch.to("meta"))
+    try:
+        for m in drops:
+            m.feed = _MaskFeed()
+        template.train()
+        with torch.no_grad():
+            template(meta)
+    finally:
+        for h in handles:
+            h.remove()
+        for m in drops:
+            m.feed = None
+    return shapes
+
+
+def make_multi_train_step(model: nn.Module, *, mtl: bool,
+                          augment_noise: bool = False,
+                          l2_reg: float = 0.0) -> Callable:
+    """``(state, batch, labels, hyper) -> metrics``: one update of every
+    trial of ``state`` on the shared ``batch`` (each metric a tensor of
+    per-trial values), the counterpart of the JAX vmapped step.  The batch
+    and labels are shared; parameters, buffers, generators and ``hyper``
+    (:func:`stack_hyperparams`) carry the trial axis.  Trial i's update is
+    its single-trial step's with its generator: the same augmentation and
+    dropout draws, its loss weights, per-tensor clipnorm on its own
+    gradients, and its ``lr_scale`` on the final update."""
+    template = _template(model)
+    drops = [m for m in template.modules()
+             if isinstance(m, layers.Dropout) and m.rate > 0]
+    ids = {id(p) for p in l2_kernels(model)} if l2_reg else set()
+    l2_names = [n for n, p in model.named_parameters() if id(p) in ids]
+    feed = _MaskFeed([])
+    shapes_of = {}
+
+    def loss_fn(params, buffers, batch, labels, weights, masks):
+        feed.masks = list(masks)
+        outputs = functional_call(template, (params, buffers), (batch,))
+        if mtl:
+            total, per_head = mtl_loss(outputs, labels, weights)
+        else:
+            total = categorical_crossentropy(outputs, labels)
+            per_head = {"3C": total}
+        if l2_names:
+            total = total + l2_reg * sum(params[n].square().sum()
+                                         for n in l2_names)
+        out3 = outputs["3C"] if mtl else outputs
+        lab3 = labels["3C"] if mtl else labels
+        acc = (out3.argmax(-1) == lab3.argmax(-1)).float().mean()
+        return total, (total, per_head, acc)
+
+    vstep = vmap(grad(loss_fn, has_aux=True),
+                 in_dims=(0, 0, None, None, 0, 0), randomness="error")
+    vstep_aug = vmap(grad(loss_fn, has_aux=True),
+                     in_dims=(0, 0, 0, None, 0, 0), randomness="error")
+
+    def _draw(state, batch):
+        """Per trial, in its single step's order: the augmentation, then
+        each dropout mask."""
+        first = next(iter(batch.values())) if isinstance(batch, dict) \
+            else batch
+        key = (tuple(first.shape), first.device)
+        if key not in shapes_of:
+            shapes_of[key] = _dropout_shapes(template, batch)
+        batches, masks = [], [[] for _ in shapes_of[key]]
+        for g in state.generators:
+            if augment_noise:
+                batches.append(augment(batch, g))
+            for k, (shape, keep) in enumerate(shapes_of[key]):
+                masks[k].append(torch.empty(
+                    shape, device=first.device, dtype=first.dtype
+                ).bernoulli_(keep, generator=g))
+        if augment_noise:
+            batch = ({k: torch.stack([b[k] for b in batches])
+                      for k in batches[0]} if isinstance(batch, dict)
+                     else torch.stack(batches))
+        return batch, tuple(torch.stack(m) for m in masks)
+
+    def train_step(state: MultiState, batch, labels, hyper: dict) -> dict:
+        batch, masks = _draw(state, batch)
+        for m in drops:
+            m.feed = feed
+        template.train()
+        try:
+            fn = vstep_aug if augment_noise else vstep
+            grads, (total, per_head, acc) = fn(
+                state.params, state.buffers, batch, labels,
+                hyper.get("loss_weights", {}), masks)
+        finally:
+            for m in drops:
+                m.feed = None
+        scale, scaled = hyper["lr_scale"], hyper["scaled"]
+        if scaled:
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+        for k, p in state.params.items():
+            p.grad = grads[k]
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        if scaled:
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    s = scale.view(-1, *([1] * (p.ndim - 1)))
+                    p.copy_(before[k] + s * (p - before[k]))
+        state.step += 1
+        metrics = {"loss": total.detach(),
+                   **{f"{k}_loss": v.detach() for k, v in per_head.items()}}
+        metrics["3C_accuracy" if mtl else "accuracy"] = acc
+        return metrics
+
+    return train_step
+
+
+def make_multi_eval_step(model: nn.Module, *, mtl: bool) -> Callable:
+    """``(state, batch, labels, hyper) -> metrics`` in eval mode, per trial
+    (keys ``loss``, ``accuracy`` and, for MTL models, ``<head>_loss``)."""
+    template = _template(model)
+
+    def one(params, buffers, batch, labels, weights):
+        outputs = functional_call(template, (params, buffers), (batch,))
+        out3 = outputs["3C"] if mtl else outputs
+        lab3 = labels["3C"] if mtl else labels
+        acc = (out3.argmax(-1) == lab3.argmax(-1)).float().mean()
+        if mtl:
+            total, per_head = mtl_loss(outputs, labels, weights)
+            return {"loss": total, "accuracy": acc,
+                    **{f"{k}_loss": v for k, v in per_head.items()}}
+        return {"loss": categorical_crossentropy(outputs, labels),
+                "accuracy": acc}
+
+    veval = vmap(one, in_dims=(0, 0, None, None, 0))
+
+    @torch.no_grad()
+    def eval_step(state: MultiState, batch, labels, hyper: dict) -> dict:
+        template.eval()
+        return veval(state.params, state.buffers, batch, labels,
+                     hyper.get("loss_weights", {}))
+
+    return eval_step
+
+
+@dataclass
+class MultiFitResult:
+    state: MultiState  # stacked; trial i via unstack_trial
+    n_trials: int
+    best_val_loss: np.ndarray = None  # (n,)
+    best_epoch: np.ndarray = None  # (n,)
+    best_accuracy: np.ndarray = None  # (n,) val accuracy at the best epoch
+    history: list = field(default_factory=list)  # per-epoch dict of (n,)
+    training_time: float = 0.0
+
+
+def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
+              val_iter, *, mtl: bool, trials: list[dict], heads: tuple | None,
+              epochs: int, steps_per_epoch: int, val_steps: int,
+              augment_noise: bool = False, l2_reg: float = 0.0,
+              base_seed: int = 0, patience: int = EARLY_STOP_PATIENCE,
+              min_delta: float = EARLY_STOP_MIN_DELTA, mesh=None,
+              device: str | torch.device = "cpu",
+              verbose: bool = True) -> MultiFitResult:
+    """Train all ``trials`` at once on a shared batch stream.
+
+    Trial i starts from Keras's initialisation of ``model``'s architecture
+    from its ``seed`` (default ``base_seed``) and draws from a generator of
+    that seed.  Early stopping is joint: training stops once EVERY trial
+    has gone ``patience`` epochs without a ``min_delta`` val-loss
+    improvement; each trial's best epoch is its own, and its weights at
+    that epoch are restored at the end.  ``mesh`` (trials over several
+    GPUs) raises ``NotImplementedError`` (ROADMAP §1, item 9)."""
+    refuse_sharded_trials(mesh)
+    n = len(trials)
+    hyper = stack_hyperparams(trials, heads, device)
+    seeds = [int(t.get("seed", base_seed)) for t in trials]
+    state = init_trials(model, seeds, make_optimizer, device)
+    train_step = make_multi_train_step(model, mtl=mtl,
+                                       augment_noise=augment_noise,
+                                       l2_reg=l2_reg)
+    eval_step = make_multi_eval_step(model, mtl=mtl)
+    result = MultiFitResult(state=state, n_trials=n,
+                            best_val_loss=np.full(n, np.inf),
+                            best_epoch=np.full(n, -1),
+                            best_accuracy=np.full(n, np.nan))
+    best = [None] * n
+    wait = np.zeros(n, int)
+    t0 = time.process_time()
+
+    for epoch in range(epochs):
+        tr_loss = []
+        for _ in range(steps_per_epoch):
+            batch, labels = next(train_iter)
+            tr_loss.append(train_step(state, batch, labels, hyper)["loss"])
+        va = [eval_step(state, *next(val_iter), hyper)
+              for _ in range(val_steps)]
+        # One device-to-host copy per epoch.
+        fetched = torch.stack(
+            [torch.stack(tr_loss).mean(0),
+             torch.stack([r["loss"] for r in va]).mean(0),
+             torch.stack([r["accuracy"] for r in va]).mean(0)]).cpu().numpy()
+        tr_mean, val_loss, val_acc = (fetched[0].astype(np.float64),
+                                      fetched[1].astype(np.float64),
+                                      fetched[2].astype(np.float64))
+        result.history.append({"epoch": epoch, "loss": tr_mean,
+                               "val_loss": val_loss,
+                               "val_accuracy": val_acc})
+        if verbose:
+            print(f"epoch {epoch}: val_loss="
+                  f"{np.array2string(val_loss, precision=4)}", flush=True)
+        improved = val_loss < result.best_val_loss - min_delta
+        for i in np.flatnonzero(improved):
+            best[i] = unstack_trial(state, int(i))
+        result.best_val_loss = np.where(improved, val_loss,
+                                        result.best_val_loss)
+        result.best_epoch = np.where(improved, epoch, result.best_epoch)
+        result.best_accuracy = np.where(improved, val_acc,
+                                        result.best_accuracy)
+        wait = np.where(improved, 0, wait + 1)
+        if (wait >= patience).all():
+            if verbose:
+                print(f"all trials early-stopped at epoch {epoch}",
+                      flush=True)
+            break
+
+    result.training_time = time.process_time() - t0
+    # Restore each trial's best weights into the stacked state.
+    with torch.no_grad():
+        for i, sd in enumerate(best):
+            if sd is None:
+                continue
+            for k, v in {**state.params, **state.buffers}.items():
+                v[i].copy_(sd[k])
+    return result
+

@@ -28,11 +28,19 @@ from typing import Callable, Iterable
 import torch
 
 
-def clip_by_per_tensor_norm(grads: list[torch.Tensor],
-                            max_norm: float) -> None:
+def clip_by_per_tensor_norm(grads: list[torch.Tensor], max_norm: float,
+                            trial_axis: bool = False) -> None:
     """Scale each gradient tensor in place to at most ``max_norm`` L2 norm
-    (norms floored at 1e-12)."""
+    (norms floored at 1e-12).  With ``trial_axis`` each tensor stacks one
+    gradient per trial along its first axis (``train.multitrial``), and
+    each trial's slice is clipped by its own norm."""
     if not grads:
+        return
+    if trial_axis:
+        for g in grads:
+            norms = torch.linalg.vector_norm(g.flatten(1), dim=1)
+            scales = (max_norm / norms.clamp_min(1e-12)).clamp_max(1.0)
+            g.mul_(scales.view(-1, *([1] * (g.ndim - 1))))
         return
     norms = torch.stack(torch._foreach_norm(grads))
     scales = (max_norm / norms.clamp_min(1e-12)).clamp_max(1.0)
@@ -50,12 +58,16 @@ class KerasSGD(torch.optim.Optimizer):
     """Keras momentum SGD under a schedule: per parameter, optionally
     ``g`` clipped to ``clipnorm`` (:func:`clip_by_per_tensor_norm`), then
     ``v <- m*v + lr_t*g; p <- p - v``, with ``t`` the updates taken before
-    this one.  State per parameter: ``momentum_buffer`` and ``step``."""
+    this one.  State per parameter: ``momentum_buffer`` and ``step``.
+    ``trial_axis``: the parameters stack one trial each along their first
+    axis, and clipnorm takes each trial's norm."""
 
     def __init__(self, params: Iterable, schedule: Callable[[int], float],
-                 momentum: float = 0.9, clipnorm: float | None = None):
+                 momentum: float = 0.9, clipnorm: float | None = None,
+                 trial_axis: bool = False):
         super().__init__(params, dict(momentum=momentum, clipnorm=clipnorm))
         self.schedule = schedule
+        self.trial_axis = trial_axis
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -69,7 +81,8 @@ class KerasSGD(torch.optim.Optimizer):
                 continue
             grads = [p.grad for p in params]
             if group["clipnorm"] is not None:
-                clip_by_per_tensor_norm(grads, group["clipnorm"])
+                clip_by_per_tensor_norm(grads, group["clipnorm"],
+                                        self.trial_axis)
             bufs = []
             for p in params:
                 state = self.state[p]
@@ -87,9 +100,10 @@ class KerasSGD(torch.optim.Optimizer):
 
 
 def lemaire_optimizer(params: Iterable, tr_steps: int,
-                      init_lr: float = 0.002):
+                      init_lr: float = 0.002, trial_axis: bool = False):
     sched = exponential_decay(init_lr, 3 * tr_steps)
-    return KerasSGD(params, sched, momentum=0.9, clipnorm=1.0), sched
+    return KerasSGD(params, sched, momentum=0.9, clipnorm=1.0,
+                    trial_axis=trial_axis), sched
 
 
 def papakostas_optimizer(params: Iterable, init_lr: float = 0.001):
@@ -105,11 +119,14 @@ def adam_optimizer(params: Iterable, lr: float):
     return torch.optim.Adam(params, lr=lr, eps=1e-7), lambda t: lr
 
 
-def for_model(name: str, params: Iterable, tr_steps: int):
+def for_model(name: str, params: Iterable, tr_steps: int,
+              trial_axis: bool = False):
     """Optimizer over ``params`` and its lr schedule for a registry model
-    name."""
+    name.  ``trial_axis``: the parameters are a multi-trial stack
+    (``train.multitrial``); only the clipnorm of Lemaire's SGD reads it,
+    the other optimizers being elementwise."""
     if name.startswith("Lemaire"):
-        return lemaire_optimizer(params, tr_steps)
+        return lemaire_optimizer(params, tr_steps, trial_axis=trial_axis)
     if name.startswith("Doukhan"):
         return adam_optimizer(params, 1e-4)
     if name.startswith("Papakostas"):

@@ -99,12 +99,14 @@ def test_kernel_median_networks_match_jax():
     src = (tfe._nvcc.CSRC / "median.cuh").read_text()
     assert '#include "median.cuh"' in (tfe._nvcc.CSRC
                                        / "frontend.cu").read_text()
-    for n in (5, 11, 21):
+    for n in (5, 11, 21, 31, 41, 51):
         body = src.split(f"struct Median<{n}>")[1].split("return")[0]
         pairs = tuple((int(i), int(j))
                       for i, j in re.findall(r"CS\((\d+),(\d+)\)", body))
         assert pairs == hpss_pallas.median_network(n), n
-    assert set(tfe.KERNEL_MEDIANS) == {(21, 11), (11, 5)}
+    assert set(tfe.KERNEL_MEDIANS) == {
+        (21, 11), (11, 5), (11, 11), (31, 11), (41, 11), (51, 11), (21, 21),
+        (21, 31), (21, 41), (21, 51)}
 
 
 def test_import_needs_no_nvcc(tmp_path):
@@ -464,3 +466,52 @@ def test_band_ranges_are_kept_per_basis_tensor():
     key = id(M)
     del M
     assert key not in tmel._BANDS
+
+
+@pytest.mark.parametrize("l_harm,l_perc,n_samples,mel", [
+    (51, 11, 16_000, True),    # T=98: K1 at the widest harmonic median
+    (21, 51, 16_000, True),    # the widest percussive median
+    (51, 11, 11_120, False),   # K2, the training crop's 68 frames
+    (21, 51, 11_120, False),
+])
+def test_plain_matches_pallas_interpret_at_the_tuners_widths(
+        l_harm, l_perc, n_samples, mel):
+    # The tuner's widest median pairs (cli/tune.py::GRID_RANGES), which
+    # K1 and K2 are built for: the plain versions against the Pallas
+    # kernel in interpret mode.
+    rng = np.random.default_rng(n_samples + l_harm + l_perc)
+    y = rng.standard_normal((1, n_samples)).astype(np.float32)
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=l_harm,
+              l_perc=l_perc, power=2.0)
+    if mel:
+        M = _mel(32, 400)
+        jh, jp = fp._frontend_pallas(jnp.asarray(y), jnp.asarray(M).T,
+                                     tile_t=64, dft_precision="highest",
+                                     interpret=True, **kw)
+        th, tp = tfe.stft_hpss_mel_plain(torch.from_numpy(y),
+                                         torch.from_numpy(M), **kw)
+    else:
+        jh, jp = fp.stft_hpss(jnp.asarray(y), tile_t=64,
+                              dft_precision="highest", interpret=True, **kw)
+        th, tp = tfe.stft_hpss_plain(torch.from_numpy(y), **kw)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+@pytest.mark.parametrize("l_harm,l_perc,T", [(51, 11, 1), (51, 11, 30),
+                                             (51, 11, 49), (21, 51, 7)])
+def test_plain_matches_oracle_short_clips_at_the_tuners_widths(l_harm,
+                                                               l_perc, T):
+    # Clips under 2*(l_harm//2) frames at the wide pairs: under 50 frames
+    # at l_harm 51, where the front end takes the short-clip route (K4).
+    rng = np.random.default_rng(T + l_harm)
+    y = rng.standard_normal((2, 400 + (T - 1) * 160)).astype(np.float32)
+    M = _mel(40, 400)
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=l_harm,
+              l_perc=l_perc, power=2.0)
+    jh, jp = fp._oracle(jnp.asarray(y), jnp.asarray(M), **kw)
+    th, tp = tfe.stft_hpss_mel_plain(torch.from_numpy(y),
+                                     torch.from_numpy(M), **kw)
+    assert th.shape == (2, 40, T)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)

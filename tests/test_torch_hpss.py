@@ -99,7 +99,7 @@ def test_median_header_networks_select_the_median():
     # Each network of csrc/median.cuh, run on random columns, gives
     # np.median, and is hpss_pallas.median_network's list.
     nets = _header_networks((_nvcc.CSRC / "median.cuh").read_text())
-    assert set(nets) == {5, 11, 21}
+    assert set(nets) == {5, 11, 21, 31, 41, 51}
     rng = np.random.default_rng(21)
     for n, pairs in nets.items():
         assert pairs == hpss_pallas.median_network(n), n
@@ -118,7 +118,9 @@ def test_kernels_share_the_median_header():
         assert '#include "median.cuh"' in src, source
         assert "struct Median<" not in src, source
         assert _nvcc.CSRC / "median.cuh" in _nvcc._sources(source)
-    assert set(thpss.KERNEL_MEDIANS) == {(21, 11), (11, 5)}
+    assert set(thpss.KERNEL_MEDIANS) == {
+        (21, 11), (11, 5), (11, 11), (31, 11), (41, 11), (51, 11), (21, 21),
+        (21, 31), (21, 41), (21, 51)}
 
 
 def test_library_path_follows_the_header(tmp_path, monkeypatch):
@@ -126,11 +128,11 @@ def test_library_path_follows_the_header(tmp_path, monkeypatch):
     for name in ("hpss.cu", "median.cuh"):
         (tmp_path / name).write_bytes((_nvcc.CSRC / name).read_bytes())
     monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
-    before = _nvcc.library_path("hpss.cu")
+    before = _nvcc.library_path("hpss.cu", (21, 11))
     assert before.name.startswith("libhpss_")
     with open(tmp_path / "median.cuh", "a") as f:
         f.write("// edited\n")
-    after = _nvcc.library_path("hpss.cu")
+    after = _nvcc.library_path("hpss.cu", (21, 11))
     assert after != before
     (tmp_path / "hpss.cu").write_bytes(b"// no includes\n")
     assert _nvcc._sources("hpss.cu") == [tmp_path / "hpss.cu"]
@@ -230,11 +232,11 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
         libs.append(lib)
         return lib
 
-    monkeypatch.setattr(_nvcc, "build", lambda source: "unbuilt.so")
+    monkeypatch.setattr(_nvcc, "build", lambda source, pair: "unbuilt.so")
     monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
     mod._library.cache_clear()
     try:
-        mod._library()
+        mod._library(21, 11)
     finally:
         mod._library.cache_clear()
     src = (_nvcc.CSRC / source).read_text()
@@ -355,12 +357,20 @@ def test_shared_core_header_matches_generator():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     single, shared = smoke.median_comparators()
-    assert single == {21: 91, 11: 32, 5: 8}
-    assert shared == {(21, 11): per[(21, 4)] + per[(11, 2)],
-                      (11, 5): per[(11, 4)] + per[(5, 2)]}
+    assert single == {21: 91, 11: 32, 5: 8, 31: 152, 41: 257, 51: 335}
+    assert shared == {(lh, lp): per[(lh, 4)] + per[(lp, 2)]
+                      for lh, lp in thpss.KERNEL_MEDIANS}
+    assert shared[(21, 11)] == 44.75 and shared[(11, 5)] == 18.25
 
 
-@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+#: Shared-core networks small enough to check over every 0/1 input in a
+#: few seconds; the wider ones (W >= 31) are checked as the backward pruning
+#: of Batcher's network and on random inputs with ties.
+EXHAUSTIVE = [(21, 4), (11, 4), (11, 2), (5, 2), (21, 2)]
+WIDE = [(31, 4), (41, 4), (51, 4), (31, 2), (41, 2), (51, 2)]
+
+
+@pytest.mark.parametrize("w,k", EXHAUSTIVE)
 def test_median_core_sorts_the_middle_ranks_for_every_01_input(w, k):
     # 0-1 principle: a comparator network that puts ranks M-K+1 .. M of the
     # core onto those wires for every 0/1 input does so for every input.
@@ -390,7 +400,7 @@ def test_median_merge_selects_the_median_for_every_01_input(k):
             assert _run(merges[k], u)[k - 1][0] == want, (k, ones, extras)
 
 
-@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+@pytest.mark.parametrize("w,k", EXHAUSTIVE)
 def test_running_medians_are_exact_for_every_01_input(w, k):
     # The whole shared-core reconstruction (core network, then one merge per
     # output) over all 2**(w+k-1) 0/1 columns, 64 a word: output j is 1 iff
@@ -410,7 +420,7 @@ def test_running_medians_are_exact_for_every_01_input(w, k):
                                           (ones > m).astype(np.uint8))
 
 
-@pytest.mark.parametrize("w,k", [(21, 4), (11, 4), (11, 2), (5, 2)])
+@pytest.mark.parametrize("w,k", EXHAUSTIVE + WIDE)
 @pytest.mark.parametrize("kind", ["random", "ties"])
 def test_shared_core_networks_match_np_median(w, k, kind):
     # Floats: the core's middle wires are np.sort's ranks, each merge gives
@@ -431,6 +441,31 @@ def test_shared_core_networks_match_np_median(w, k, kind):
     got = _run(merges[k], [u[:, i].copy() for i in range(2 * k - 1)])[k - 1]
     np.testing.assert_array_equal(got, np.median(u, axis=1))
     out = _running_medians(cores, merges, w, k, wires)
+    for j in range(k):
+        np.testing.assert_array_equal(out[j], np.median(x[:, j:j + w], 1))
+
+
+@pytest.mark.parametrize("w,k", WIDE)
+def test_wide_shared_core_networks_are_the_pruned_batcher_network(w, k):
+    # Over every 0/1 input is out of reach at W >= 31 (2**(W+K-1) columns):
+    # each core network is exactly the JAX package's Batcher network on
+    # W - K + 1 wires pruned backward from the K middle-rank wires (pruned
+    # here independently of the generator), which sorts every input, so
+    # those wires hold their ranks; and 1e5 seeded columns with ties give
+    # np.median through the whole reconstruction.
+    cores, merges = _shared_core_networks(
+        (_nvcc.CSRC / "median.cuh").read_text())
+    m = (w - 1) // 2
+    needed, kept = set(range(m - k + 1, m + 1)), []
+    for i, j in reversed(hpss_pallas.batcher_pairs(w - k + 1)):
+        if i in needed or j in needed:
+            kept.append((i, j))
+            needed |= {i, j}
+    assert cores[(w, k)] == tuple(reversed(kept))
+    rng = np.random.default_rng(1000 * w + k)
+    x = rng.integers(0, 6, (100_000, w + k - 1)).astype(np.float32)
+    out = _running_medians(cores, merges, w, k,
+                           [x[:, i].copy() for i in range(w + k - 1)])
     for j in range(k):
         np.testing.assert_array_equal(out[j], np.median(x[:, j:j + w], 1))
 
@@ -565,3 +600,36 @@ def test_hpss_ab_variants_follow_the_source(variant):
         assert src.count(old) == 1, (variant, old)
         src = src.replace(old, new)
     assert set(ab.ABLATIONS) <= set(ab.VARIANTS)
+
+
+@pytest.mark.parametrize("shape,l_harm,l_perc,mask_only", [
+    ((1, 61, 120), 51, 11, False),   # two time tiles at the widest l_harm
+    ((1, 61, 30), 51, 11, True),     # T < l_harm: the time pad repeats
+    ((1, 61, 70), 21, 51, False),    # the widest l_perc
+])
+def test_plain_matches_pallas_interpret_at_the_tuners_widths(
+        shape, l_harm, l_perc, mask_only):
+    # K3 at the tuner's widest median pairs (cli/tune.py::GRID_RANGES).
+    S = _mags(shape, sum(shape) + l_harm + l_perc)
+    jfn = hpss_pallas.hpss_masks if mask_only else hpss_pallas.hpss
+    tfn = thpss.hpss_masks_plain if mask_only else thpss.hpss_plain
+    jh, jp = jfn(jnp.asarray(S), l_harm=l_harm, l_perc=l_perc, tile_t=64,
+                 interpret=True)
+    th, tp = tfn(torch.from_numpy(S), l_harm=l_harm, l_perc=l_perc)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+@pytest.mark.parametrize("T,l_harm,l_perc", [
+    (1, 51, 11), (30, 51, 11), (49, 51, 11),   # K4's clips at l_harm 51
+    (13, 21, 51), (70, 51, 11)])
+def test_hpss_mel_plain_matches_pallas_interpret_at_the_tuners_widths(
+        T, l_harm, l_perc):
+    S = _mags((1, 201, T), 5 * T + l_harm)
+    M = _bank()
+    th, tp = thpss.hpss_mel_plain(torch.from_numpy(S), torch.from_numpy(M),
+                                  l_harm=l_harm, l_perc=l_perc)
+    jh, jp = hpss_pallas.hpss_mel(jnp.asarray(S), M, l_harm=l_harm,
+                                  l_perc=l_perc, interpret=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)

@@ -34,7 +34,9 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "cli.experiment", "cli.mtl", "models.layers",
                 "models.cnn", "ops.stats", "data.stats", "cli.baseline",
                 "cli.five_class", "cli.fuse_intermediate", "cli.fuse_late",
-                "cli.make_folds", "eval.fusion"):
+                "cli.make_folds", "eval.fusion", "cli.tune",
+                "utils.bayesopt", "train.multitrial", "cli.featurize",
+                "cli.tsne", "train.transfer", "data.balance"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"

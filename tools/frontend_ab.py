@@ -50,9 +50,12 @@ TIMED = [("K1", 400), ("K2", 512)]
 SLAB = 16404
 
 
-def build_other(csrc: Path, tmp: str) -> ctypes.CDLL:
-    lib_path = Path(tmp) / "libfrontend_other.so"
-    subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(lib_path),
+def build_other(csrc: Path, tmp: str, pair: tuple[int, int]) -> ctypes.CDLL:
+    """The other build's library for the median pair ``pair`` (a revision
+    that predates the per-pair libraries ignores the defines)."""
+    lib_path = Path(tmp) / f"libfrontend_other_{pair[0]}_{pair[1]}.so"
+    subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,
+                    *_nvcc.pair_defines(pair), "-o", str(lib_path),
                     str(csrc / "frontend.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
@@ -99,7 +102,8 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failures, cases, timed = [], [], []
     with tempfile.TemporaryDirectory() as tmp:
-        other = build_other(Path(argv[0]), tmp)
+        other = {pair: build_other(Path(argv[0]), tmp, pair)
+                 for pair in {(c[2], c[3]) for c in CASES}}
         for kernel, n_fft, lh, lp, B, T in CASES:
             y = torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
                             device="cuda")
@@ -108,8 +112,8 @@ def main(argv: list[str]) -> int:
             kw = dict(n_fft=n_fft, win_length=400, hop_length=160,
                       l_harm=lh, l_perc=lp)
             new = lambda: frontend.launch(y, M, **kw)  # noqa: E731
-            old = lambda: run_other(other, kernel, y, M, n_fft, lh,  # noqa
-                                    lp)
+            old = lambda: run_other(other[(lh, lp)], kernel, y,  # noqa
+                                    M, n_fft, lh, lp)
             plain = (frontend.stft_hpss_mel_plain(y, M, **kw) if M is not None
                      else frontend.stft_hpss_plain(y, **kw))
             row = {"kernel": kernel, "shape": [n_fft, lh, lp, B, T]}

@@ -79,7 +79,8 @@ def variant_source(src: str, edits) -> str:
 def build(name: str, src: str, tmp: Path) -> tuple[str, ctypes.CDLL, dict]:
     cu, lib = tmp / f"{name}.cu", tmp / f"lib{name}.so"
     cu.write_text(src)
-    proc = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(lib),
+    proc = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,
+                           *_nvcc.pair_defines((21, 11)), "-o", str(lib),
                            str(cu)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")

@@ -116,9 +116,13 @@ PTXAS_KERNELS = {"K3": "hpss_kernelILi21ELi11ELb1E",
                  "K4": "hpss_mel_kernelILi21ELi11E"}
 
 
-def compile_lib(src: Path, out: Path) -> tuple[ctypes.CDLL, str]:
-    """The library built from ``src`` and nvcc's ptxas report."""
-    proc = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(out),
+def compile_lib(src: Path, out: Path, pair: tuple[int, int] = (21, 11)
+                ) -> tuple[ctypes.CDLL, str]:
+    """The library built from ``src`` for the median pair ``pair`` (a
+    revision that predates the per-pair libraries ignores the defines) and
+    nvcc's ptxas report."""
+    proc = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,
+                           *_nvcc.pair_defines(pair), "-o", str(out),
                            str(src)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
@@ -284,14 +288,18 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     failures, cases, timed = [], [], []
     with tempfile.TemporaryDirectory() as tmp:
-        old = Build(bind(compile_lib(Path(argv[0]) / "hpss.cu",
-                                     Path(tmp) / "libhpss_other.so")[0],
-                         bands=False), bands=False)
+        olds = {pair: Build(bind(compile_lib(
+            Path(argv[0]) / "hpss.cu",
+            Path(tmp) / f"libhpss_other_{pair[0]}_{pair[1]}.so", pair)[0],
+            bands=False), bands=False)
+            for pair in {(c[2], c[3]) for c in CASES}}
+        old = olds[(21, 11)]
         for kernel, mo, lh, lp, B, F, T in CASES:
             S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
             want = plain(kernel, mo, lh, lp, S)
             row = {"kernel": kernel, "shape": [mo, lh, lp, B, F, T]}
-            for name, fn in (("old", launcher(old, kernel, mo, lh, lp, S)),
+            for name, fn in (("old", launcher(olds[(lh, lp)], kernel, mo,
+                                              lh, lp, S)),
                              ("new", new_launcher(kernel, mo, lh, lp, S))):
                 try:
                     row[f"{name}_vs_plain"] = cs.compare(

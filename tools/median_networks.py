@@ -23,18 +23,29 @@ each window's median is the median of the core's K middle ranks
   1 .. K-1, K - 1 comparators that leave the maxima on the B wires and K - 1
   that gather the minimum on wire K - 1.
 
-Prints the C++ text of both families for the instances the kernels use,
-then the comparators (and the min/max operations whose result is used)
-per output of each (W, K) against the single-output network.
+- ``Median<L>`` (K1 and K2) is Batcher's network on L wires pruned
+  backward from the median wire ``L // 2``
+  (``ops/hpss_pallas.py::median_network`` of the JAX package).
+
+Prints the C++ text of the three families for the widths and instances
+the kernels use, then the comparators (and the min/max operations whose
+result is used) per output of each (W, K) against the single-output
+network.
 """
 
 from __future__ import annotations
 
 import sys
 
+#: Median widths of the kernels' (l_harm, l_perc) pairs
+#: (``ops/hpss.py::KERNEL_MEDIANS``): the presets' 21 and 11, the narrow 5,
+#: and the tuner's grid of 11 to 51 (``cli/tune.py::GRID_RANGES``).
+WIDTHS = (5, 11, 21, 31, 41, 51)
+
 #: (W, K) instances of the kernels: 4 frames per thread along time for the
 #: harmonic widths, 2 bins per thread along frequency for the percussive.
-INSTANCES = ((21, 4), (11, 4), (11, 2), (5, 2))
+INSTANCES = ((21, 4), (11, 4), (11, 2), (5, 2), (31, 4), (41, 4), (51, 4),
+             (21, 2), (31, 2), (41, 2), (51, 2))
 
 
 def batcher_pairs(n: int) -> tuple[tuple[int, int], ...]:
@@ -79,6 +90,12 @@ def live_ops(pairs, targets) -> int:
     return ops
 
 
+def median_network(n: int) -> tuple[tuple[int, int], ...]:
+    """``Median<n>``: the comparators that place the median on wire
+    ``n // 2``."""
+    return prune(batcher_pairs(n), [n // 2])
+
+
 def core_network(w: int, k: int) -> tuple[tuple[int, int], ...]:
     m = (w - 1) // 2
     return prune(batcher_pairs(w - k + 1), range(m - k + 1, m + 1))
@@ -115,7 +132,21 @@ def _cs_lines(pairs, indent: str) -> list[str]:
     return lines
 
 
+def median_text() -> str:
+    """The ``Median<L>`` structs of ``csrc/median.cuh``."""
+    out = []
+    for n in WIDTHS:
+        out += ["template <>",
+                f"struct Median<{n}> {{",
+                "  __device__ __forceinline__ static float run(float* v) {"]
+        out += _cs_lines(median_network(n), "    ")
+        out += [f"    return v[{n // 2}];", "  }", "};", ""]
+    return "\n".join(out)
+
+
 def header_text() -> str:
+    """The ``MedianCore<W, K>`` and ``MedianMerge<K>`` structs of
+    ``csrc/median.cuh``."""
     out = []
     for w, k in INSTANCES:
         m = (w - 1) // 2
@@ -134,14 +165,14 @@ def header_text() -> str:
 
 
 def main() -> int:
+    print(median_text())
     print(header_text())
-    single = {21: 91, 11: 32, 5: 8}
     for w, k in INSTANCES:
         cmp, ops = per_output(w, k)
         print(f"// W={w} K={k}: core {len(core_network(w, k))} comparators, "
               f"merge {len(merge_network(k))}; per output {cmp:.2f} "
               f"comparators ({ops:.2f} used min/max) against "
-              f"{single[w]} for Median<{w}>")
+              f"{len(median_network(w))} for Median<{w}>")
     return 0
 
 
