@@ -83,10 +83,25 @@ Phases, each of which must pass:
    batch) and on the CPU (features within 0.02 dB); ``cli.tsne``'s
    device part (``collect_class_patches``, ``--stat Row``) on the card
    against the CPU (the GPU machine has no sklearn for its embedding);
+   the float64 reading of the Papakostas-MTL and 5-class patch steps (CPU
+   float32 and card float32 against CPU float64); bf16 compute: a patch
+   step (on the CPU's features) and an audio step (K1 inside for
+   Lemaire-MTL, K2 for Jang-MTL) in bf16 on the card, three times each,
+   against the CPU's bf16 steps and the card's float32 audio step, at
+   each parameter's bar from the CPU's recorded bf16-against-float32
+   spread (``BF16_STEP_BARS``), both steps' times bf16 against float32 in
+   turns, a full-width ``cli.mtl --bf16`` fold by the device pipeline and
+   ``cli.segment --ckpt`` of its checkpoint on the 60 s broadcast, card and
+   CPU; the segmenter's 'featuregram' and 'none' scopes on the 60 s
+   broadcast, card and CPU; and, where libmpg123 and libmp3lame load, the
+   10 s broadcast encoded to mp3, decoded and served through
+   ``cli.segment``, card and CPU (else an ``{"mp3": ...}`` line says
+   which library is missing);
 11. checks on the launch counts, and that every launch shape of phases 4-10
-   was checked in phase 3 (K1 and K2 also at 12 clips x 43760 samples, the
-   device pipeline's launch on a corpus of MUSAN's size, and K1 at 20 x
-   43760, the 5-class model's there); the launches per median pair.
+   (the bf16 steps' and their timings' too) was checked in phase 3 (K1
+   and K2 also at 12 clips x 43760 samples, the device pipeline's launch
+   on a corpus of MUSAN's size, and K1 at 20 x 43760, the 5-class model's
+   there); the launches per median pair.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -201,6 +216,61 @@ ZERO_GRAD_UPDATE = 1e-2
 #: its first step, which turns a gradient that is 0 in exact arithmetic (a
 #: conv bias before a BatchNorm) into an update of ~lr of either sign.
 STEP_SGD = "Papakostas_et_al"
+#: bf16 compute (``--bf16``): the models whose bf16 train step is held on
+#: the card, Lemaire-MTL (K1 inside its audio step) and Jang-MTL (K2): the
+#: optimizer of their steps (None: the model's own) and the model's float32
+#: audio-step bar.
+#: Dropout off, one crop batch, the same float32 weights in every run.
+BF16_STEP_MODELS = {"Lemaire_et_al_MTL": (None, STEP_AUDIO_UPDATE_RTOL),
+                    "Jang_et_al_MTL": (STEP_SGD, STEP_JANG_AUDIO_UPDATE_RTOL)}
+#: The CPU's bf16-against-float32 spread of one step at full width, per
+#: model and parameter (a patch step on the CPU's features; the CPU's audio
+#: step is the same computation), recorded by tools/bf16_step_bars.py on
+#: the GPU machine's CPU.  Every bf16 bar below is BF16_SPREAD_FACTOR times
+#: a recorded spread (a loss, a BatchNorm statistic, one parameter's update
+#: difference relative to its norm), plus the rounding floor of
+#: ``_hold_step`` on an update: two bf16 programs that each lie within the
+#: spread of float32 lie within twice it of each other.  Held:
+#: - the patch step, card bf16 against CPU bf16 on the same features, at
+#:   each parameter's own bar, and not degenerate (below);
+#: - the audio step, card bf16 against card float32 (the same features on
+#:   both sides, since the kernels write float32 in every mode), at each
+#:   parameter's own bar;
+#: - the audio step, card bf16 against CPU bf16: the features differ as in
+#:   the float32 audio steps, so the model's float32 audio-step bar
+#:   (``STEP_*_RTOL``, ``ZERO_GRAD_UPDATE``) is added to each, and the
+#:   update is not degenerate.
+#: The BatchNorm-fed biases are held per lr per element (``_hold_step``),
+#: at twice their recorded spread plus ZERO_GRAD_UPDATE.
+BF16_STEP_BARS = os.path.join("tools", "bf16_step_bars.json")
+BF16_SPREAD_FACTOR = 2.0
+#: A parameter of fewer than BF16_MIN_ELEMENTS elements (an output layer's
+#: bias) has no spread of its own: the difference of one to three numbers
+#: is one draw, which other features redraw (heads.S_out.bias of
+#: Lemaire-MTL read 3.0e-4 on the CPU's features and 6.6e-4 on the card's,
+#: H100 80GB HBM3, 700.00 W); it takes the model's largest recorded spread.
+#: Not degenerate: each card bf16 update of at least BF16_MIN_ELEMENTS
+#: elements (a BatchNorm-fed bias aside) has a norm within 1 +-
+#: BF16_NORM_RATIO_TOL of the CPU bf16 update's and a cosine with it of at
+#: least BF16_MIN_COSINE.  An update within r of another's norm has a norm
+#: ratio within 1 +- r and a cosine of at least sqrt(1 - r^2); the largest
+#: card-against-CPU bf16 audio-step reading before these bars was r =
+#: 0.184 (Jang-MTL, H100 80GB HBM3, 700.00 W), which gives 1 +- 0.184 and
+#: 0.983.  A step that updates nothing (ratio 0, cosine 0) or half (ratio
+#: 0.5) fails, which the run checks on the CPU's own update.
+BF16_NORM_RATIO_TOL = 0.3
+BF16_MIN_COSINE = 0.9
+BF16_MIN_ELEMENTS = 8
+#: The card's bf16 steps are taken this many times, each on a fresh copy of
+#: the model after NaN has been written over a block of freed card memory
+#: that the allocator hands out again, and every repeat is held.
+BF16_STEP_REPEATS = 3
+BF16_SCRIBBLE_BYTES = 1 << 30
+#: The tensors whose card-against-CPU patch-step readings (9.86e-3 and
+#: 1.64e-3 of the update's norm, H100 80GB HBM3, 700.00 W) the float64
+#: reading explains.
+CONDITIONING_TENSORS = {"Papakostas_et_al_MTL": "c1.bias",
+                        FIVE: "tcn.stack1_dilation32.dilated_conv.weight"}
 #: Clips under this many frames take the short-clip kernels (K4, K3).
 SHORT_FRAMES = 2 * (21 // 2)
 #: The tuning phase's runs of ``cli.tune.main`` on the training corpus:
@@ -1064,14 +1134,16 @@ def recorded():
 
 
 def serve(model: str, wav: str, weights: str, out: str, device: str,
-          x: np.ndarray, chunk_frames: int = 10000) -> dict:
-    """One ``cli.segment`` run (host clock around it); outputs checked.
+          x: np.ndarray, chunk_frames: int = 10000,
+          source: str = "--weights") -> dict:
+    """One ``cli.segment`` run (host clock around it) of the weights .npz,
+    or with ``source="--ckpt"`` of a fold checkpoint; outputs checked.
     Also returns the launches and launch shapes of each kernel."""
     from sm_hpss_mtl_tpu_torch.cli import segment as cli
 
     with recorded() as rec:
         t0 = time.perf_counter()
-        prob, labels = cli.main([wav, "--model", model, "--weights", weights,
+        prob, labels = cli.main([wav, "--model", model, source, weights,
                                  "--device", device, "--chunk-frames",
                                  str(chunk_frames), "--out", out])
         total_s = time.perf_counter() - t0
@@ -1524,7 +1596,7 @@ def train_cli(corpus: dict, out: str, pipeline: str,
             "epoch_train_s": [h["epoch_train_s"] for h in hist],
             "fit_wall_s": fold["fit"].wall_time,
             "val_loss": row["val_loss"], "accuracy": row["accuracy"],
-            "history": hist}
+            "op_dir": fold["op_dir"], "history": hist}
 
 
 def _feature_config(model: str):
@@ -1670,8 +1742,9 @@ def _hold_step(tag: str, before: dict, cpu: dict, gpu: dict,
             "bn_fed_bias_update_max_per_lr": noise_max}
 
 
-def _seeded(model: str, dropout: bool = True):
-    """``model`` at full width with Keras's initialisation from SEED; with
+def _seeded(model: str, dropout: bool = True, dtype=None):
+    """``model`` at full width with Keras's initialisation from SEED,
+    computing in ``dtype`` (float32 parameters either way); with
     ``dropout=False`` every dropout's rate is 0."""
     import torch
     from sm_hpss_mtl_tpu_torch.models import layers
@@ -1679,7 +1752,7 @@ def _seeded(model: str, dropout: bool = True):
     from sm_hpss_mtl_tpu_torch.models.zoo import get_model
     kw = {} if dropout or not model.startswith("Lemaire") else {
         "dropout_rate": 0.0}
-    net = init_weights(get_model(model, **kw),
+    net = init_weights(get_model(model, dtype=dtype, **kw),
                        torch.Generator().manual_seed(SEED))
     if not dropout:
         for m in net.modules():
@@ -1688,22 +1761,29 @@ def _seeded(model: str, dropout: bool = True):
     return net
 
 
+def _patches(audio, model: str, dev: str):
+    """The device pipeline's patches of ``audio`` (one 68-frame patch a
+    clip) on ``dev``, the card's through the model's kernel and the CPU's
+    through its plain version, on the host (a dict of two for the fusion
+    model)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
+    from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
+    f = device_featurize_patches(
+        to_device(audio, torch.device(dev)), _feature_config(model),
+        patch_size=68, patch_shift=68, max_patches=1,
+        input_kind=INPUT_KIND[model])
+    return {k: v.cpu() for k, v in f.items()} if isinstance(f, dict) \
+        else f.cpu()
+
+
 def _features_card_vs_cpu(audio, model: str) -> tuple[dict, "object"]:
     """The device pipeline's patches of ``audio`` on the card (the model's
     kernel) and on the CPU (the plain version): the CPU's patches (a dict
     of two for the fusion model) and the difference's statistics."""
     import torch
-    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
-    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
-    from sm_hpss_mtl_tpu_torch.train.endtoend import device_featurize_patches
-    def host(f):
-        return ({k: v.cpu() for k, v in f.items()} if isinstance(f, dict)
-                else f.cpu())
-
-    feats = {dev: host(device_featurize_patches(
-        to_device(audio, torch.device(dev)), _feature_config(model),
-        patch_size=68, patch_shift=68, max_patches=1,
-        input_kind=INPUT_KIND[model])) for dev in ("cpu", "cuda")}
+    feats = {dev: _patches(audio, model, dev) for dev in ("cpu", "cuda")}
 
     def joined(f):                  # the fusion model's two inputs, as one
         return torch.cat([f["harm_input"], f["perc_input"]], dim=-1) \
@@ -1779,7 +1859,8 @@ def image_step_checks(corpus: dict) -> dict:
     feat_stats, patches = _features_card_vs_cpu(audio, pap)
     out[pap] = {**feat_stats, "patch_step": _step_card_vs_cpu(
         net, patches, labels, audio=False, update_rtol=STEP_UPDATE_RTOL,
-        model=pap)}
+        model=pap), "conditioning": conditioning_checks(net, patches, labels,
+                                                        pap)}
     return out
 
 
@@ -1810,24 +1891,366 @@ def variant_step_checks(corpus: dict) -> dict:
     feat_stats, patches = _features_card_vs_cpu(audio, FIVE)
     out[FIVE] = {**feat_stats, "patch_step": _step_card_vs_cpu(
         net, patches, labels, audio=False, update_rtol=STEP_UPDATE_RTOL,
-        model=FIVE)}
+        model=FIVE), "conditioning": conditioning_checks(net, patches,
+                                                         labels, FIVE)}
     return out
 
 
+def _stepped(net, batch, labels, dev: str, audio: bool, model: str,
+             optimizer: str | None = None) -> tuple:
+    """One train step of a copy of ``net`` on ``dev`` (``_train_setup``):
+    its loss, the state dict after it on the host, and the first lr."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    model_, state, step, lr = _train_setup(dev, net, SEED, audio=audio,
+                                           model=model, optimizer=optimizer)
+    d = torch.device(dev)
+    loss = float(step(state, to_device(batch, d),
+                      to_device(labels, d))["loss"])
+    return loss, {k: v.detach().cpu()
+                  for k, v in model_.state_dict().items()}, lr
+
+
+def _spread(before: dict, a: tuple, b: tuple, noise: set
+            ) -> tuple[dict, dict]:
+    """Step ``a`` against step ``b`` (``_stepped`` results) from the state
+    ``before``: a summary (the relative loss difference, the largest
+    relative update differences, the largest BatchNorm-statistic
+    difference, the BatchNorm-fed biases' largest update per lr per
+    element, the range of the update norm ratios a/b and the least
+    cosine, over the updates above the floor) and, per parameter that does
+    not feed a BatchNorm: the update difference ``d``, ``b``'s update norm
+    ``n``, the rounding floor of ``_hold_step``, ``a``'s update norm
+    ``n_a``, the cosine of the two updates and the parameter's size."""
+    (la, sa, lr), (lb, sb, _) = a, b
+    upd, stats, noise_max = {}, 0.0, 0.0
+    for k, v in before.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            stats = max(stats, float(((sa[k] - sb[k]).abs()
+                                      / sb[k].abs().clamp_min(1.0)).max()))
+            continue
+        v = v.double()
+        da, db = sa[k].double() - v, sb[k].double() - v
+        if k in noise:
+            noise_max = max(noise_max, float(max(da.norm(), db.norm()))
+                            / (lr * v.numel() ** 0.5))
+            continue
+        n_a, n_b = float(da.norm()), float(db.norm())
+        upd[k] = {"d": float((da - db).norm()), "n": n_b,
+                  "floor": float(2 * 2.0 ** -23 * v.norm()
+                                 + 1e-6 * lr * v.numel() ** 0.5),
+                  "n_a": n_a, "numel": v.numel(),
+                  "cos": float((da * db).sum()) / (n_a * n_b)
+                  if n_a * n_b > 0 else 0.0}
+    above = {k: u for k, u in upd.items() if u["n"] > u["floor"]}
+    rels = {k: u["d"] / u["n"] for k, u in above.items()}
+    top = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    ratios = [u["n_a"] / u["n"] for u in above.values()]
+    return {"loss_rel": abs(la - lb) / abs(lb), "update_rel_max": top[0][1],
+            "update_rel_max_at": top[0][0], "update_rel_top": dict(top),
+            "update_rel": rels, "stats_err_max": stats,
+            "bn_fed_bias_update_max_per_lr": noise_max,
+            "norm_ratio_range": [min(ratios), max(ratios)],
+            "cosine_min": min(u["cos"] for u in above.values())}, upd
+
+
+def _bf16_violations(r: dict, upd: dict, spread: dict,
+                     extra: dict | None = None,
+                     nondegenerate: bool = False) -> tuple[list[str], float]:
+    """A bf16 step against another (``_spread``'s ``r`` and ``upd``) held
+    to ``BF16_SPREAD_FACTOR`` times the recorded ``spread`` of one model's
+    step (``BF16_STEP_BARS``), plus ``extra`` ("loss", "update", "stats":
+    the model's float32 bars where the features differ) and the rounding
+    floor; with ``nondegenerate`` also each update's norm ratio and cosine
+    (``BF16_NORM_RATIO_TOL``, ``BF16_MIN_COSINE``).  Every violation, and
+    the largest update difference as a share of its bar."""
+    k, e = BF16_SPREAD_FACTOR, extra or {}
+    bad, share = [], 0.0
+    for key, tol in (("loss_rel", e.get("loss", 0.0)),
+                     ("stats_err_max", e.get("stats", 0.0)),
+                     ("bn_fed_bias_update_max_per_lr", ZERO_GRAD_UPDATE)):
+        bar = k * spread[key] + tol
+        if r[key] > bar:
+            bad.append(f"{key} {r[key]:.3e} over {bar:.3e}")
+    widest = max(spread["update_rel"].values())
+    for name, u in upd.items():
+        own = (spread["update_rel"].get(name, 0.0)
+               if u["numel"] >= BF16_MIN_ELEMENTS else widest)
+        bar = (k * own + e.get("update", 0.0)) * u["n"] + u["floor"]
+        share = max(share, u["d"] / bar)
+        if u["d"] > bar:
+            bad.append(f"{name} update |delta| {u['d']:.3e} over {bar:.3e} "
+                       f"(update norm {u['n']:.3e})")
+        if (nondegenerate and u["numel"] >= BF16_MIN_ELEMENTS
+                and u["n"] > u["floor"]):
+            ratio = u["n_a"] / u["n"]
+            if (abs(ratio - 1) > BF16_NORM_RATIO_TOL
+                    or u["cos"] < BF16_MIN_COSINE):
+                bad.append(f"{name} update norm ratio {ratio:.3f}, cosine "
+                           f"{u['cos']:.3f}")
+    return bad, share
+
+
+def _scaled(before: dict, step: tuple, scale: float) -> tuple:
+    """``step`` (a ``_stepped`` result) with every parameter's update
+    multiplied by ``scale``: a made-up degenerate step."""
+    loss, state, lr = step
+    return loss, {k: v if k.endswith(("running_mean", "running_var",
+                                      "num_batches_tracked"))
+                  else before[k] + scale * (v - before[k])
+                  for k, v in state.items()}, lr
+
+
+def _scribble_card() -> None:
+    """NaN over ``BF16_SCRIBBLE_BYTES`` of card memory, freed again into the
+    allocator's cache, so that the next allocations reuse written blocks."""
+    import torch
+    junk = torch.full((BF16_SCRIBBLE_BYTES // 4,), float("nan"),
+                      device="cuda")
+    del junk
+
+
+def bf16_step_bars() -> dict:
+    """The recorded spreads (``BF16_STEP_BARS``) by model."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, BF16_STEP_BARS)) as f:
+        return json.load(f)["models"]
+
+
+def bf16_inputs(corpus: dict, model: str) -> tuple:
+    """One crop batch of ``model``, its labels, and the float32 and bf16
+    models, dropout off, with the same float32 weights."""
+    import torch
+    audio, labels = next(_crops(corpus, SEED, model))
+    f32 = _seeded(model, dropout=False)
+    b16 = _seeded(model, dropout=False, dtype=torch.bfloat16)
+    b16.load_state_dict(f32.state_dict())
+    return audio, labels, f32, b16
+
+
+def bf16_step_checks(corpus: dict) -> dict:
+    """``BF16_STEP_MODELS``, dropout off, one crop batch each, from the same
+    weights: a patch step on the CPU's features and an audio step (the
+    model's kernel inside on the card) in bf16 on the CPU, the patch step
+    in float32 on the CPU (this run's spread, against the recorded one),
+    the audio step in float32 on the card, and the card's bf16 steps
+    ``BF16_STEP_REPEATS`` times on fresh copies after ``_scribble_card``.
+    Every card bf16 step is held to the bars of ``BF16_STEP_BARS`` (every
+    violation is reported), and the bars are shown to refuse the CPU's own
+    bf16 patch update zeroed and halved.  Also the launches and shapes of
+    the card's steps, for phase 11."""
+    spreads = bf16_step_bars()
+    out, bad = {}, []
+    with recorded() as rec:
+        for model, (optimizer, f32_bar) in BF16_STEP_MODELS.items():
+            audio, labels, f32, b16 = bf16_inputs(corpus, model)
+            before = {k: v.clone() for k, v in f32.state_dict().items()}
+            noise = _bn_fed_biases(f32)
+            feat_stats, patches = _features_card_vs_cpu(audio, model)
+            spread = spreads[model]
+
+            def step(net, dev, kind):
+                return _stepped(net, patches if kind == "patch" else audio,
+                                labels, dev, kind == "audio", model,
+                                optimizer)
+
+            cpu16 = {kind: step(b16, "cpu", kind) for kind in ("patch",
+                                                              "audio")}
+            cpu32, card32 = step(f32, "cpu", "patch"), step(f32, "cuda",
+                                                            "audio")
+            now, _ = _spread(before, cpu16["patch"], cpu32, noise)
+            res = {**feat_stats, "cpu_bf16_vs_cpu_f32": now,
+                   "spread_vs_recorded_max": max(
+                       v / spread["update_rel"][k]
+                       for k, v in now.pop("update_rel").items()
+                       if spread["update_rel"].get(k)),
+                   "loss": {"cpu_f32": cpu32[0], "card_f32_audio": card32[0],
+                            **{f"cpu_bf16_{k}": v[0]
+                               for k, v in cpu16.items()}}}
+            for scale in (0.0, 0.5):
+                r, upd = _spread(before, _scaled(before, cpu16["patch"],
+                                                 scale), cpu16["patch"], noise)
+                check(_bf16_violations(r, upd, spread, nondegenerate=True)[0],
+                      f"{model}: the CPU's bf16 patch step with its updates "
+                      f"times {scale} passes the bf16 bars")
+            # tag: (kind, reference, extra bars, held not degenerate)
+            held = {"patch_card_bf16_vs_cpu_bf16": ("patch", cpu16["patch"],
+                                                    None, True),
+                    "audio_card_bf16_vs_card_f32": ("audio", card32, None,
+                                                    False),
+                    "audio_card_bf16_vs_cpu_bf16": (
+                        "audio", cpu16["audio"],
+                        {"loss": STEP_LOSS_RTOL, "update": f32_bar,
+                         "stats": STEP_STATS_TOL}, True)}
+            for rep in range(BF16_STEP_REPEATS):
+                _scribble_card()
+                card16 = {kind: step(b16, "cuda", kind)
+                          for kind in ("patch", "audio")}
+                for tag, (kind, ref, extra, nondeg) in held.items():
+                    r, upd = _spread(before, card16[kind], ref, noise)
+                    del r["update_rel"]
+                    found, r["update_bar_share_max"] = _bf16_violations(
+                        r, upd, spread, extra, nondeg)
+                    res.setdefault(tag, []).append(r)
+                    bad += [f"{model} repeat {rep}, {tag}: {v}"
+                            for v in found]
+            out[model] = res
+    check(not bad, "bf16 steps (features card vs CPU max |delta| " + ", ".join(
+        f"{m} {r['features_max_abs_delta']:.3e}" for m, r in out.items())
+        + "): " + "; ".join(bad))
+    return {"models": out, "launches": rec["launches"],
+            "shapes": rec["shapes"]}
+
+
+def conditioning_checks(net, patches, labels, model: str) -> dict:
+    """One patch step of ``net`` from the same weights on the same patches
+    (the CPU's features, dropout off) on the CPU in float64, on the CPU in
+    float32 and on the card in float32: each float32 update's distance
+    from the float64 one, relative to that update's norm, at every
+    parameter, and by name at ``CONDITIONING_TENSORS[model]``.  If the
+    CPU's float32 step lies as far from float64 as the card's, the
+    card-against-CPU reading there is the gradient's conditioning, not the
+    card.  A reading: no bar."""
+    import copy
+
+    import torch
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    noise = _bn_fed_biases(net)
+    f64 = _stepped(copy.deepcopy(net).double(), patches.double(), labels,
+                   "cpu", False, model)
+    name = CONDITIONING_TENSORS[model]
+    out = {"tensor": name}
+    for dev in ("cpu", "card"):
+        r, upd = _spread(before, _stepped(net, patches, labels,
+                                          "cuda" if dev == "card" else "cpu",
+                                          False, model), f64, noise)
+        out[f"{dev}_f32_vs_f64"] = upd[name]["d"] / upd[name]["n"]
+        out[f"{dev}_f32_vs_f64_top"] = r["update_rel_top"]
+        out[f"{dev}_loss_rel_vs_f64"] = r["loss_rel"]
+    return out
+
+
+def scope_checks(wav: str, weights: str) -> dict:
+    """The segmenter's 'featuregram' and 'none' standardization scopes
+    (``StreamingSegmenter.standardize``) with Lemaire-MTL on a broadcast:
+    features and tracks on the card (K1) and on the CPU, the tracks held to
+    ``TRACK_TOL``.  Also the launches and shapes."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.cli import segment as cli
+    from sm_hpss_mtl_tpu_torch.data.audio import read_audio
+    from sm_hpss_mtl_tpu_torch.models.zoo import load_model
+    lem = "Lemaire_et_al_MTL"
+    x, _ = read_audio(wav)
+    tracks = {}
+    with recorded() as rec:
+        for dev in ("cuda", "cpu"):
+            d = torch.device(dev)
+            fv = cli._featurize_broadcast(x, cli.MODEL_PRESETS[lem], d)
+            seg = cli.segmenter(lem, load_model(weights, d, lem))
+            for scope in ("featuregram", "none"):
+                seg.standardize = scope
+                tracks[dev, scope] = seg.frame_probabilities(fv)
+    out = {"launches": rec["launches"], "shapes": rec["shapes"],
+           "by_pair": rec["by_pair"]}
+    for scope in ("featuregram", "none"):
+        d = max(float(np.abs(tracks["cuda", scope][k]
+                             - tracks["cpu", scope][k]).max())
+                for k in ("S", "M"))
+        check(d <= TRACK_TOL, f"scope {scope}: tracks card vs CPU max "
+                              f"|delta| {d:.3e}")
+        check(all(np.isfinite(v).all() for v in
+                  tracks["cuda", scope].values()), f"scope {scope}: tracks "
+              "not finite")
+        out[scope] = {"track_max_abs_delta_vs_cpu": d,
+                      "windows": len(tracks["cuda", scope]["S"])}
+    return out
+
+
+def _mp3_libraries() -> dict:
+    """Whether the system's libmpg123 (decoding, ``data/codecs.py``) and
+    libmp3lame (the encoder this script makes its mp3 with) load."""
+    import ctypes
+    import ctypes.util
+
+    from sm_hpss_mtl_tpu_torch.data import codecs
+    try:
+        ctypes.CDLL(ctypes.util.find_library("mp3lame") or "libmp3lame.so.0")
+        lame = True
+    except OSError:
+        lame = False
+    return {"libmpg123": codecs.available(), "libmp3lame": lame}
+
+
+def encode_mp3(path: str, x: np.ndarray, sr: int) -> None:
+    """Encode mono float32 audio as a 128 kbit/s mp3 with libmp3lame."""
+    import ctypes
+    import ctypes.util
+    lib = ctypes.CDLL(ctypes.util.find_library("mp3lame") or
+                      "libmp3lame.so.0")
+    lib.lame_init.restype = ctypes.c_void_p
+    gf = ctypes.c_void_p(lib.lame_init())
+    lib.lame_set_in_samplerate(gf, sr)
+    lib.lame_set_num_channels(gf, 1)
+    lib.lame_set_mode(gf, 3)                                 # mono
+    lib.lame_set_brate(gf, 128)
+    check(lib.lame_init_params(gf) >= 0, "libmp3lame refused its settings")
+    pcm = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    buf = ctypes.create_string_buffer(len(pcm) * 2 + 7200)
+    n = lib.lame_encode_buffer(
+        gf, pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_short)), None,
+        len(pcm), buf, len(buf))
+    check(n >= 0, f"libmp3lame encode returned {n}")
+    data = buf.raw[:n]
+    n = lib.lame_encode_flush(gf, buf, len(buf))
+    data += buf.raw[:n]
+    lib.lame_close(gf)
+    Path(path).write_bytes(data)
+
+
+def make_mp3(tmp: str, x: np.ndarray) -> dict:
+    """The mp3 phase's input: ``x`` encoded, then decoded through
+    ``data/audio.py::read_audio`` (libmpg123), whose output must hold the
+    signal (correlation over 0.99 after the codec's delay) and the
+    duration.  With either library missing, a record that says so."""
+    from sm_hpss_mtl_tpu_torch.data.audio import duration_seconds, read_audio
+    libs = _mp3_libraries()
+    if not all(libs.values()):
+        return {"available": False, **libs}
+    path = os.path.join(tmp, "b10.mp3")
+    encode_mp3(path, x, SR)
+    y, sr = read_audio(path)
+    check(sr == SR and y.ndim == 1 and abs(len(y) - len(x)) < SR // 4,
+          f"mp3 decoded to {y.shape} at {sr} Hz for {len(x)} samples")
+    c = np.correlate(y[:SR], x[:SR // 2], mode="valid")
+    lag = int(np.argmax(c))
+    a, b = y[lag:lag + 4 * SR], x[:4 * SR]
+    corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    check(corr > 0.99, f"mp3 round trip correlation {corr:.4f}")
+    dur = duration_seconds(path)
+    check(abs(dur - len(x) / SR) < 0.2, f"mp3 duration {dur} s")
+    return {"available": True, **libs, "path": path, "x": y,
+            "samples": len(y), "lag": lag, "correlation": corr,
+            "duration_s": dur}
+
+
 def time_device_steps(corpus: dict, model: str = "Lemaire_et_al_MTL",
-                      steps: int = 30, profiled: int = 10) -> dict:
+                      steps: int = 30, profiled: int = 10,
+                      dtype=None) -> dict:
     """Device-pipeline train steps of ``model`` at full width on the card,
     fed by the crop batcher through the prefetcher, dropout and
     augmentation on.  Each step's period (its start to the next one's, CUDA
     events) and its own span; over a further ``profiled`` steps, the
     kernel's (K1 or K2) device time and all device time per step from
-    ``torch.profiler``, against the host clock around them."""
+    ``torch.profiler``, against the host clock around them.  ``dtype``:
+    the model's compute dtype (bf16 for ``--bf16``)."""
     import torch
     from sm_hpss_mtl_tpu_torch.data.prefetch import DevicePrefetcher
     from torch.profiler import ProfilerActivity, profile
 
-    _, state, step, _ = _train_setup("cuda", _seeded(model), SEED,
-                                     model=model, augment_noise=True)
+    _, state, step, _ = _train_setup("cuda", _seeded(model, dtype=dtype),
+                                     SEED, model=model, augment_noise=True)
     it = DevicePrefetcher(_crops(corpus, SEED + 100, model), "cuda")
     try:
         marks = []
@@ -2218,6 +2641,15 @@ def build_all() -> tuple[float, list[str]]:
     return time.perf_counter() - t0, logs
 
 
+def _shapes_checked(tag: str, shapes: dict, checked: dict) -> None:
+    """Fail unless every kernel launch shape in ``shapes`` was checked
+    against its plain version in phase 3."""
+    unchecked = {k: sorted(v - checked[k]) for k, v in shapes.items()
+                 if v - checked[k]}
+    check(not unchecked, f"{tag}: launch shapes phase 3 did not check: "
+                         f"{unchecked}")
+
+
 def run() -> None:
     import torch
     t_start = time.perf_counter()
@@ -2255,6 +2687,9 @@ def run() -> None:
         late_frames = eval_item_frames(corpus, 400, sweep=False,
                                        bucketed=True)
         n60 = len(load_and_preprocess_signal(wav60)[0])
+        mp3 = make_mp3(tmp, x10)
+        if not mp3["available"]:
+            print(json.dumps({"mp3": mp3}), flush=True)
         short = Counter(T for T in lem_frames if T < SHORT_FRAMES)
         check(short and any(T < SHORT_FRAMES for T in jang_frames),
               "the evaluation corpus has no short item")
@@ -2271,6 +2706,9 @@ def run() -> None:
             "K4_T": short.most_common(1)[0][0],
             "K3_T": Counter(T for T in jang_frames
                             if T < SHORT_FRAMES).most_common(1)[0][0]}
+        if mp3["available"]:            # the mp3 phase serves the decoded
+            eval_frames["K1"].add(n_frames(bucket_length(mp3["samples"]),
+                                           400, 160))
 
         entries, checked = phase_kernels(card, eval_frames)
         print("[3 kernels] ok; " + "; ".join(
@@ -2576,6 +3014,83 @@ def run() -> None:
               f"{step_checks['fixed_batch_losses'][-1]:.4f}; step "
               f"{step_times['step_ms']:.3f} ms", flush=True)
 
+        bf16 = bf16_step_checks(train_corpus)
+        _shapes_checked("bf16 steps", bf16["shapes"], checked)
+        bf16_times = {}
+        with recorded() as rec:
+            for model in BF16_STEP_MODELS:
+                times = bf16_times[model] = {"f32": [], "bf16": []}
+                for tag in ("f32", "bf16", "bf16", "f32"):
+                    times[tag].append(time_device_steps(
+                        train_corpus, model,
+                        dtype=torch.bfloat16 if tag == "bf16" else None))
+        _shapes_checked("bf16 step times", rec["shapes"], checked)
+        runs["train_bf16"] = tb16 = train_cli(train_corpus, out("t_bf16"),
+                                              "device", extra=("--bf16",))
+        ckpt = os.path.join(tb16["op_dir"], "fold0_ckpt")
+        runs["lemaire_60_ckpt"] = g = serve(lem, wav60, ckpt,
+                                            out("k60.npz"), "cuda", x60,
+                                            source="--ckpt")
+        c = serve(lem, wav60, ckpt, out("k60c.npz"), "cpu", x60,
+                  source="--ckpt")
+        ckpt_delta = max(float(np.abs(g["tracks"][k] - c["tracks"][k]).max())
+                         for k in ("track_S", "track_M"))
+        check(g["launches"]["K1"] == 1 and ckpt_delta <= TRACK_TOL,
+              f"--ckpt serving: launches {g['launches']}, tracks vs CPU "
+              f"{ckpt_delta:.3e}")
+        ckpt_serving = {"first_run_60s_total_ms": 1e3 * g["total_s"],
+                        "cpu_60s_total_ms": 1e3 * c["total_s"],
+                        "track_max_abs_delta_vs_cpu": ckpt_delta}
+        def bf16_brief(m: str, r: dict) -> str:
+            def worst(tag, key, pick=max):
+                return pick(x[key] for x in r[tag])
+
+            patch = "patch_card_bf16_vs_cpu_bf16"
+            share = max(worst(t, "update_bar_share_max") for t in r
+                        if t.startswith(("patch_", "audio_")))
+            return (
+                f"{m}: patch step card vs CPU bf16 loss "
+                f"{worst(patch, 'loss_rel'):.2e}, updates "
+                f"{worst(patch, 'update_rel_max'):.2e}, cosine >= "
+                f"{worst(patch, 'cosine_min', min):.4f}"
+                f"; audio step card bf16 vs f32 updates "
+                f"{worst('audio_card_bf16_vs_card_f32', 'update_rel_max'):.2e}"
+                f", vs CPU bf16 "
+                f"{worst('audio_card_bf16_vs_cpu_bf16', 'update_rel_max'):.2e}"
+                f" ({BF16_STEP_REPEATS} repeats, every update at most "
+                f"{share:.2f} of its bar); CPU bf16 vs f32 "
+                f"{r['cpu_bf16_vs_cpu_f32']['update_rel_max']:.2e}; step "
+                f"f32 {[round(t['step_ms'], 3) for t in bf16_times[m]['f32']]}"
+                f" ms, bf16 "
+                f"{[round(t['step_ms'], 3) for t in bf16_times[m]['bf16']]}")
+
+        print("[10 bf16] " + "; ".join(
+            bf16_brief(m, r) for m, r in bf16["models"].items())
+            + f"; --bf16 fold K1 {tb16['launches']['K1']}, val loss "
+              f"{tb16['val_loss']}; --ckpt 60 s tracks vs CPU "
+              f"{ckpt_delta:.3e}", flush=True)
+        runs["scopes_60"] = scopes = scope_checks(wav60, wpath[lem])
+        print("[10 scopes] " + "; ".join(
+            f"{k}: tracks vs CPU {scopes[k]['track_max_abs_delta_vs_cpu']:.3e}"
+            for k in ("featuregram", "none")), flush=True)
+        if mp3["available"]:
+            runs["mp3_10"] = m3 = serve(lem, mp3["path"], wpath[lem],
+                                        out("m10.npz"), "cuda", mp3["x"])
+            m3c = serve(lem, mp3["path"], wpath[lem], out("m10c.npz"), "cpu",
+                        mp3["x"])
+            mp3["track_max_abs_delta_vs_cpu"] = d = max(
+                float(np.abs(m3["tracks"][k] - m3c["tracks"][k]).max())
+                for k in ("track_S", "track_M"))
+            check(m3["launches"]["K1"] == 1 and d <= TRACK_TOL,
+                  f"mp3 serving: launches {m3['launches']}, tracks vs CPU "
+                  f"{d:.3e}")
+            mp3["total_ms"] = 1e3 * m3["total_s"]
+            print(f"[10 mp3] decoded {mp3['samples']} samples (correlation "
+                  f"{mp3['correlation']:.4f}), served, tracks vs CPU "
+                  f"{d:.3e}", flush=True)
+        for key in ("x", "path"):
+            mp3.pop(key, None)
+
         tuning = {}
         for name, argv, n_rows in TUNE_RUNS:
             runs[name] = tuning[name] = tune_cli(train_corpus, out(name),
@@ -2623,7 +3138,8 @@ def run() -> None:
                     "five_60", "eval_five", "eval_if", "fuse_late",
                     "train_cascaded", "train_five", "train_if_device",
                     "train_if_host", *(n for n, _, _ in TUNE_RUNS),
-                    "featurize", "tsne"),
+                    "featurize", "tsne", "train_bf16", "lemaire_60_ckpt",
+                    "scopes_60", *(["mp3_10"] if "mp3_10" in runs else [])),
              "K2": ("jang_60", "jang_600", "jang_10", "eval_jang", "pap_60",
                     "pap_10", "eval_papakostas", "train_jang_device",
                     "train_jang_host", "train_papakostas"),
@@ -2660,6 +3176,10 @@ def run() -> None:
             "cpu_10s_total_ms": 1e3 * p10_cpu["total_s"],
             "track_max_abs_delta_vs_cpu": pap_track},
         "variants": variants_serving,
+        "ckpt_of_bf16_fold_60s": ckpt_serving,
+        "segmenter_scopes": {k: v for k, v in scopes.items()
+                             if k not in ("shapes", "by_pair")},
+        "mp3": mp3,
         "build_s": build_s}}))
     print(json.dumps({"resynthesis": {
         "card": card, "audio_s": len(x60) / SR,
@@ -2728,6 +3248,8 @@ def run() -> None:
                for p, r in v.items()},
             **variant_checks.get(model, {})}
             for model, v in variants.items()},
+        "bf16": {"step_checks": bf16["models"], "step_times": bf16_times,
+                 "fold": brief(tb16)},
         "k1_at_80x11120": k1_train["80x11120"],
         "k1_at_20x43760": k1_train["20x43760"],
         "k2_training_shapes": entries[1]["training_shapes"]}}))

@@ -134,13 +134,15 @@ def _class_subset(files: dict, n_classes: int) -> dict:
     return {k: v for k, v in files.items() if k in keep}
 
 
+#: ``ExperimentConfig.compute_dtype`` -> the model's compute dtype.
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 def _check_ported(config: ExperimentConfig) -> None:
     if config.model not in MTL:
         raise ValueError(f"unknown model {config.model!r}")
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r}: bf16 compute is not "
-            "ported yet (ROADMAP §1, item 2c)")
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
 
 
 def model_spec(config: ExperimentConfig) -> ModelSpec:
@@ -150,7 +152,9 @@ def model_spec(config: ExperimentConfig) -> ModelSpec:
     rows are the features' and, with ``skewness_vector``, a patch is one
     skewness vector, ``(1, D)`` per row ('Row') or ``(W, 1)`` per column
     ('Col'), which only the time-major models take.  The intermediate-
-    fusion model's towers take half the rows each."""
+    fusion model's towers take half the rows each.  ``compute_dtype``
+    'bfloat16' builds the model with ``dtype=torch.bfloat16`` (float32
+    parameters, bf16 compute, as the JAX runner's ``dtype=jnp.bfloat16``)."""
     feat_cfg = config.feature_config()
     mels_kw = {"n_mels": feat_cfg.n_mels} if feat_cfg.n_mels > 0 else {}
     in_dim, patch_size = feat_cfg.dim, config.patch_size
@@ -164,7 +168,8 @@ def model_spec(config: ExperimentConfig) -> ModelSpec:
             in_dim = 1
     spec = get_spec(config.model, n_classes=config.n_classes,
                     patch_size=patch_size, in_dim=in_dim,
-                    dropout_rate=config.dropout_rate, **mels_kw,
+                    dropout_rate=config.dropout_rate,
+                    dtype=COMPUTE_DTYPES[config.compute_dtype], **mels_kw,
                     **(config.arch_kwargs or {}))
     init_weights(spec.module, torch.Generator().manual_seed(config.seed))
     return spec

@@ -9,7 +9,8 @@ which take these flags.
 
     python -m sm_hpss_mtl_tpu_torch.cli.mtl --data /path/to/musan \\
         --epochs 50 --folds 0 1 2 [--model Jang_et_al_MTL] [--smr-sweep] \\
-        [--frame-level-scaling] [--skewness-vector Row] [--device cpu]
+        [--frame-level-scaling] [--skewness-vector Row] [--bf16] \\
+        [--device cpu]
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU it raises.
 """
@@ -51,8 +52,9 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
                    help="scale frames by the fold's corpus statistics "
                         "instead of standardizing rows per file")
     p.add_argument("--bf16", action="store_true",
-                   help="mixed-precision compute: not ported yet (ROADMAP "
-                        "§1, item 2c)")
+                   help="mixed-precision compute: bf16 activations and "
+                        "products, float32 parameters, BatchNorm statistics "
+                        "and loss (flax's dtype rule)")
     p.add_argument("--pipeline", choices=["auto", "host", "device"],
                    default="auto",
                    help="'device' featurizes inside the train step (the "
@@ -77,9 +79,6 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
 
 
 def config_from_args(args) -> ExperimentConfig:
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16: bf16 compute is not ported yet (ROADMAP §1, item 2c)")
     lw = None
     if args.loss_weights:
         lw = {k: float(v) for k, v in
@@ -96,7 +95,8 @@ def config_from_args(args) -> ExperimentConfig:
         min_crop_s=args.min_crop_s, dft_precision=args.dft_precision,
         feat_name_override=args.feat_name,
         skewness_vector=args.skewness_vector,
-        frame_level_scaling=args.frame_level_scaling, seed=args.seed)
+        frame_level_scaling=args.frame_level_scaling,
+        compute_dtype="bfloat16" if args.bf16 else "float32", seed=args.seed)
 
 
 def main(argv=None):

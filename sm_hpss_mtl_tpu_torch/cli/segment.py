@@ -8,22 +8,28 @@ chunks, median-smooth the S or M track, optionally score against an
 interval CSV, and write per-frame labels.
 
     python -m sm_hpss_mtl_tpu_torch.cli.segment broadcast.wav \\
-        --weights W.npz [--model Jang_et_al_MTL] [--head S] \\
+        --ckpt results/.../fold0_ckpt [--model Jang_et_al_MTL] [--head S] \\
         [--annot labels.csv] [--out labels.npz]
 
-``--weights`` is the port's checkpoint: the flax variable tree as an
-``.npz`` of ``/``-joined keys (``sm_hpss_mtl_tpu_torch.weights``).
-Runs on CUDA unless ``--device cpu`` is given.
+The model comes from exactly one of ``--ckpt``, a fold checkpoint directory
+that ``cli.mtl`` (``train/checkpoint.py``) writes, as the JAX CLI's
+``--ckpt``, and ``--weights``, an ``.npz`` of the flax variable tree with
+``/``-joined keys (``sm_hpss_mtl_tpu_torch.weights``).  The JAX package's
+orbax checkpoints are refused: the port reads its own.  The input is a wav
+or an mp3 (``data/audio.py::read_audio``).  The model serves in float32
+whatever precision it was trained in, as the JAX CLI's.  Runs on CUDA
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
 
-from ..data.audio import read_wav
+from ..data.audio import read_audio
 from ..data.featurize import _reflect_pad_to, bucket_length
 from ..device import resolve_device
 from ..eval.metrics import get_performance
@@ -33,6 +39,7 @@ from ..eval.segment import (StreamingSegmenter,
 from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, MTL, load_model
 from ..ops.featuregram import featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
+from ..train.checkpoint import model_npz
 from ..train.config import MODEL_PRESETS, preset_n_mels
 
 #: Models this entry point serves: the MTL models with S and M heads that
@@ -84,6 +91,20 @@ def check_model(name: str) -> None:
                          f"{', '.join(MODELS)}")
 
 
+def checkpoint_weights(ckpt: str) -> str:
+    """The model ``.npz`` of the port's fold checkpoint at ``ckpt``; an
+    orbax checkpoint (the JAX package's) or a missing one raises."""
+    path = model_npz(ckpt)
+    if os.path.exists(path):
+        return path
+    if os.path.isdir(os.path.dirname(path)):
+        raise ValueError(
+            f"--ckpt {ckpt}: its state/ holds no model.npz: an orbax "
+            "checkpoint of the JAX package, which the port does not read; "
+            "the port's checkpoints (cli.mtl) hold state/model.npz")
+    raise FileNotFoundError(f"--ckpt {ckpt}: no checkpoint ({path})")
+
+
 def segmenter(model: str, predict_fn, *, patch_size: int = 68,
               chunk_frames: int = 10000) -> StreamingSegmenter:
     """The streaming segmenter that serves ``model``: its input kind, its
@@ -99,13 +120,16 @@ def segmenter(model: str, predict_fn, *, patch_size: int = 68,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("audio", help="input wav (any length), or a "
+    p.add_argument("audio", help="input wav or mp3 (any length), or a "
                                  "precomputed featuregram .npy with --spec")
     p.add_argument("--spec", action="store_true",
                    help="treat the input as a precomputed (D, T) "
                         "featuregram .npy")
-    p.add_argument("--weights", required=True,
-                   help="the model's weights .npz (flax keys)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", help="a fold checkpoint directory of the "
+                                    "port (cli.mtl's fold<k>_ckpt)")
+    src.add_argument("--weights", help="the model's weights .npz (flax "
+                                       "keys)")
     p.add_argument("--model", default=MODELS[0],
                    help=f"one of {', '.join(MODELS)}")
     p.add_argument("--device", default="cuda",
@@ -121,15 +145,16 @@ def main(argv=None):
 
     check_model(args.model)
     device = resolve_device(args.device)
+    weights = args.weights or checkpoint_weights(args.ckpt)
     preset = MODEL_PRESETS[args.model]
     if args.spec:
         fv = torch.as_tensor(np.load(args.audio, allow_pickle=False),
                              dtype=torch.float32, device=device)
     else:
-        x, _ = read_wav(args.audio)
+        x, _ = read_audio(args.audio)
         fv = _featurize_broadcast(x, preset, device)
 
-    model = load_model(args.weights, device, args.model, args.patch_size)
+    model = load_model(weights, device, args.model, args.patch_size)
     seg = segmenter(args.model, model, patch_size=args.patch_size,
                     chunk_frames=args.chunk_frames)
     prob, labels, tracks = seg.segment(fv, head=args.head,

@@ -1,9 +1,9 @@
 """Audio I/O, the reference's load chain, and a synthetic toy corpus
 (counterpart of ``sm_hpss_mtl_tpu/data/audio.py``).
 
-Files are read with ``scipy.io.wavfile`` and resampled with polyphase
-filtering when their rate differs from 16 kHz.  mp3 input needs the codec
-module (``data/codecs.py``), which is not ported yet.
+wav files are read with ``scipy.io.wavfile``, mp3 files decoded by
+``data/codecs.py`` (the system libmpg123), and both resampled with
+polyphase filtering when their rate differs from 16 kHz.
 :func:`load_and_preprocess_signal` is the reference's chain (normalize,
 RMS-gated silence removal, tile to at least 100 ms, normalize), with the
 numpy silence rule of ``ops/silence.py``.  :func:`make_toy_musan` writes a
@@ -54,18 +54,18 @@ def read_wav(path: str, target_sr: int = TARGET_SR) -> tuple[np.ndarray, int]:
     return _to_mono_sr(x, sr, target_sr)
 
 
-def _refuse_mp3(path: str) -> None:
-    if os.path.splitext(path)[1].lower() == ".mp3":
-        raise NotImplementedError(
-            f"{path}: mp3 input needs data/codecs.py, not yet ported "
-            "(ROADMAP §1, item 4); convert the file to wav")
+def _is_mp3(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() == ".mp3"
 
 
 def read_audio(path: str, target_sr: int = TARGET_SR
                ) -> tuple[np.ndarray, int]:
-    """Load an audio file as float32 mono at ``target_sr``: wav only.
-    mp3 raises until the codec module is ported (ROADMAP §1, item 4)."""
-    _refuse_mp3(path)
+    """Load an audio file as float32 mono at ``target_sr``: wav natively,
+    mp3 through libmpg123 (``data/codecs.py``)."""
+    if _is_mp3(path):
+        from .codecs import read_mp3
+        x, sr = read_mp3(path)
+        return _to_mono_sr(x, sr, target_sr)
     return read_wav(path, target_sr)
 
 
@@ -76,9 +76,11 @@ def write_wav(path: str, x: np.ndarray, sr: int = TARGET_SR) -> None:
 
 
 def duration_seconds(path: str) -> float:
-    """Length of a wav file in seconds (mp3 raises, as in
-    :func:`read_audio`)."""
-    _refuse_mp3(path)
+    """Length of a wav or mp3 file in seconds (an mp3's from a header
+    scan, without a full decode)."""
+    if _is_mp3(path):
+        from .codecs import mp3_duration_seconds
+        return mp3_duration_seconds(path)
     sr, x = wavfile.read(path, mmap=True)
     return x.shape[0] / sr
 

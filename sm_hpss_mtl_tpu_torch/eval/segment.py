@@ -9,7 +9,8 @@ its plain Python loop over chunks:
 - :class:`StreamingSegmenter`: dense inference over a featuregram of any
   length, in fixed chunks of shift-1 windows, giving per-window S and M
   probability tracks from the MTL heads.
-- :func:`smooth_predictions`: median smoothing of a probability track.
+- :func:`smooth_predictions`: median smoothing of a probability track;
+  :func:`mode_filtering`: sliding-mode smoothing of a label track.
 
 The featuregram stays on its device; windows are ``Tensor.unfold`` views
 of each chunk, and only the probability tracks come back to the host.
@@ -62,6 +63,29 @@ def read_interval_csv(path: str) -> list[tuple]:
     return out
 
 
+def mode_filtering(labels: np.ndarray, win_size: int) -> np.ndarray:
+    """Sliding-mode smoothing of an integer label track, as the reference's
+    loop: position ``i`` takes the most frequent label of
+    ``labels[i - half : i + half]`` (the right edge excluded), the smallest
+    label on a tie; the first and last ``half`` positions keep theirs.
+    Counted per label by cumulative sums."""
+    if win_size % 2 == 0:
+        win_size += 1
+    half = win_size // 2
+    n = len(labels)
+    out = labels.copy()
+    if n <= 2 * half:
+        return out
+    uniq = np.unique(labels)
+    onehot = (labels[None, :] == uniq[:, None]).astype(np.int64)
+    cs = np.concatenate([np.zeros((len(uniq), 1), np.int64),
+                         np.cumsum(onehot, axis=1)], axis=1)
+    idx = np.arange(half, n - half)
+    counts = cs[:, idx + half] - cs[:, idx - half]
+    out[idx] = uniq[np.argmax(counts, axis=0)]
+    return out
+
+
 def smooth_predictions(prob: np.ndarray, win_size: int = 501
                        ) -> tuple[np.ndarray, np.ndarray]:
     """Median-smooth a probability track and threshold at 0.5."""
@@ -75,10 +99,13 @@ def smooth_predictions(prob: np.ndarray, win_size: int = 501
 class StreamingSegmenter:
     """Per-window S/M probabilities over an arbitrarily long featuregram.
 
-    Each chunk of ``chunk_frames`` windows is standardized on its own
-    (per row, and per HPSS half for two-part [H; P] features) over the
-    frames its windows cover, the true ragged tail included, then fed to
-    ``predict_fn`` as time-major ``(count, patch_size, D)`` patches
+    ``standardize`` sets the scope of the per-row standardization (per HPSS
+    half for two-part [H; P] features), as the JAX segmenter's:
+    ``True``/'chunk' (default) standardizes each chunk of ``chunk_frames``
+    windows over the frames its windows cover, the true ragged tail
+    included; 'featuregram' the whole recording once; ``False``/'none'
+    not at all (the reference's DAFx streaming path).  Each chunk is then
+    fed to ``predict_fn`` as time-major ``(count, patch_size, D)`` patches
     (``input_kind='time_mel'``) or as ``(count, D, patch_size, 1)``
     images (``'image'``).  ``batch_windows`` splits a chunk into model
     calls of at most that many windows, for models whose activations
@@ -92,6 +119,15 @@ class StreamingSegmenter:
     input_kind: str = "time_mel"
     feat_name: str = "LogMelHarmPercSpec"
     batch_windows: int | None = None
+    standardize: bool | str = True
+
+    def _scope(self) -> str:
+        scope = {True: "chunk", False: "none"}.get(self.standardize,
+                                                   self.standardize)
+        if scope not in ("chunk", "featuregram", "none"):
+            raise ValueError(f"standardize={self.standardize!r}: one of "
+                             "True/'chunk', 'featuregram', False/'none'")
+        return scope
 
     def _standardize_parts(self, seg: torch.Tensor) -> torch.Tensor:
         if "HarmPerc" in self.feat_name:
@@ -105,11 +141,16 @@ class StreamingSegmenter:
         n_windows = fv.shape[1] - W + 1
         if n_windows <= 0:
             raise ValueError("featuregram shorter than one window")
+        scope = self._scope()
+        if scope == "featuregram":
+            fv = self._standardize_parts(fv)
         tracks: dict[str, list] = {}
         start = 0
         while start < n_windows:
             count = min(self.chunk_frames, n_windows - start)
-            seg = self._standardize_parts(fv[:, start:start + count + W - 1])
+            seg = fv[:, start:start + count + W - 1]
+            if scope == "chunk":
+                seg = self._standardize_parts(seg)
             wins = seg.unfold(1, W, 1)                     # (D, count, W)
             if self.input_kind == "time_mel":
                 batch = wins.permute(1, 2, 0)              # (count, W, D)

@@ -9,6 +9,12 @@ Keras BatchNorm has eps 1e-3 and momentum 0.99, which torch writes as
 0.01; its running variance takes the biased batch variance
 (``layers.BatchNorm1d``).  Keras's glorot-uniform initialisation is
 ``lemaire.init_weights``.
+
+``dtype`` (flax's, ``layers``): each block's dense layer computes in it and
+its BatchNorm returns float32; the output layers (``S_out`` ... ``C_out``)
+have none, so they compute in float32 (``C_out`` on the trunk's vector,
+promoted).  The cascaded heads take no dtype, as in JAX: their blocks
+compute in float32 on whatever the trunk gives them.
 """
 
 from __future__ import annotations
@@ -16,26 +22,28 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import BatchNorm1d, Dropout
+from .layers import BatchNorm1d, Dropout, Linear
 
 BN_KW = dict(eps=1e-3, momentum=0.01)
 
 
-def dense_with_bn(in_features: int, width: int
-                  ) -> tuple[nn.Linear, BatchNorm1d]:
-    """A Keras Dense layer and a Keras BatchNorm over its ``width``
-    outputs, as two modules, so that each keeps its own flax name (Jang's
-    ``fc1`` and ``fc1_bn``)."""
-    return nn.Linear(in_features, width), BatchNorm1d(width, **BN_KW)
+def dense_with_bn(in_features: int, width: int,
+                  dtype: torch.dtype | None = None
+                  ) -> tuple[Linear, BatchNorm1d]:
+    """A Keras Dense layer computing in ``dtype`` and a Keras BatchNorm over
+    its ``width`` outputs, as two modules, so that each keeps its own flax
+    name (Jang's ``fc1`` and ``fc1_bn``)."""
+    return (Linear(in_features, width, compute_dtype=dtype),
+            BatchNorm1d(width, **BN_KW))
 
 
 class HeadBlock(nn.Module):
     """Dense(width) -> BatchNorm -> ReLU -> Dropout(0.4)."""
 
     def __init__(self, in_features: int, width: int = 16,
-                 dropout: float = 0.4):
+                 dropout: float = 0.4, dtype: torch.dtype | None = None):
         super().__init__()
-        self.dense = nn.Linear(in_features, width)
+        self.dense = Linear(in_features, width, compute_dtype=dtype)
         self.bn = BatchNorm1d(width, **BN_KW)
         self.dropout = Dropout(dropout)
 
@@ -52,20 +60,21 @@ class MTLHeads(nn.Module):
 
     def __init__(self, in_features: int, n_classes: int = 3,
                  head_width: int = 16, with_noise: bool = False,
-                 head_layers: int = 1):
+                 head_layers: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
         self.heads = ("S", "M", "N", "R") if with_noise else ("S", "M", "R")
         self.head_layers = head_layers
         for name in self.heads:
             for i in range(head_layers):
                 self.add_module(_block_name(name, i), HeadBlock(
-                    head_width if i else in_features, head_width))
-        self.S_out = nn.Linear(head_width, 1)
-        self.M_out = nn.Linear(head_width, 1)
+                    head_width if i else in_features, head_width,
+                    dtype=dtype))
+        self.S_out = Linear(head_width, 1)
+        self.M_out = Linear(head_width, 1)
         if with_noise:
-            self.N_out = nn.Linear(head_width, 1)
-        self.R_out = nn.Linear(head_width, 3 if with_noise else 2)
-        self.C_out = nn.Linear(in_features, n_classes)
+            self.N_out = Linear(head_width, 1)
+        self.R_out = Linear(head_width, 3 if with_noise else 2)
+        self.C_out = Linear(in_features, n_classes)
 
     def _stack(self, x: torch.Tensor, name: str) -> torch.Tensor:
         for i in range(self.head_layers):
@@ -96,12 +105,12 @@ class CascadedMTLHeads(nn.Module):
         super().__init__()
         for name in ("R", "S", "M"):
             self.add_module(f"{name}_block", HeadBlock(in_features))
-        self.R_out = nn.Linear(16, 2)
+        self.R_out = Linear(16, 2)
         self.S_cat_bn = BatchNorm1d(18, **BN_KW)
-        self.S_out = nn.Linear(18, 1)
+        self.S_out = Linear(18, 1)
         self.M_cat_bn = BatchNorm1d(18, **BN_KW)
-        self.M_out = nn.Linear(18, 1)
-        self.C_out = nn.Linear(in_features, n_classes)
+        self.M_out = Linear(18, 1)
+        self.C_out = Linear(in_features, n_classes)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         smr = self.R_out(self.R_block(x))

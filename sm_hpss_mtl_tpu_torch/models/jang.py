@@ -15,6 +15,13 @@ the activations are flattened in flax's NHWC order ``(H, W, C)``, the
 order the dense weights of a transferred checkpoint expect.  Submodule
 names equal the flax names, so ``weights.from_flax`` maps parameters by
 path.
+
+``dtype`` (flax's, ``layers``): the mel-scale layers and the tanh compute
+in float32, then the activations are cast to it; each conv block's
+convolution computes in it and its BatchNorm returns float32, so the
+ReLU, dropout and pooling run in float32; ``fc1``/``fc2`` compute in it,
+each followed by a float32 BatchNorm; the heads take it, and the
+single-task ``out`` layer computes in float32.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from torch import nn
 
 from ..ops import reference as ref
 from .heads import BN_KW, MTLHeads, dense_with_bn
-from .layers import BatchNorm2d, Dropout
+from .layers import BatchNorm2d, Conv2d, Dropout, Linear
 from .pool import max_pool
 
 
@@ -76,9 +83,10 @@ class _ConvBlock(nn.Module):
     """Conv 3x3 'same' -> BatchNorm -> ReLU -> Dropout -> max pool 2x2/2."""
 
     def __init__(self, in_channels: int, features: int, dropout: float = 0.4,
-                 pool_padding: str = "SAME"):
+                 pool_padding: str = "SAME", dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.conv = Conv2d(in_channels, features, 3, padding=1,
+                           compute_dtype=dtype)
         self.bn = BatchNorm2d(features, **BN_KW)
         self.dropout = Dropout(dropout)
         self.pool_padding = pool_padding
@@ -96,9 +104,10 @@ class JangCNN(nn.Module):
 
     def __init__(self, n_classes: int = 3, mtl: bool = False,
                  n_mels: int = 120, n_fft: int = 512, t_dim: int = 5,
-                 patch_size: int = 68):
+                 patch_size: int = 68, dtype: torch.dtype | None = None):
         super().__init__()
         self.mtl = mtl
+        self.dtype = dtype
         self.n_bins = 1 + n_fft // 2
         mel_kw = dict(n_fft=n_fft, n_mels=n_mels, t_dim=t_dim)
         if mtl:
@@ -107,20 +116,20 @@ class JangCNN(nn.Module):
         else:
             self.melCl = MelScaleLayer(**mel_kw)
         pool = "SAME" if mtl else "VALID"
-        self.b1 = _ConvBlock(3, 32, pool_padding=pool)
-        self.b2 = _ConvBlock(32, 64, pool_padding=pool)
-        self.b3 = _ConvBlock(64, 128, pool_padding=pool)
+        self.b1 = _ConvBlock(3, 32, pool_padding=pool, dtype=dtype)
+        self.b2 = _ConvBlock(32, 64, pool_padding=pool, dtype=dtype)
+        self.b3 = _ConvBlock(64, 128, pool_padding=pool, dtype=dtype)
         H, W = (2 if mtl else 1) * n_mels, patch_size
         for _ in range(3):
             H, W = _pooled(H, pool), _pooled(W, pool)
         flat = H * W * 128
         if mtl:
-            self.fc1, self.fc1_bn = dense_with_bn(flat, 2048)
-            self.fc2, self.fc2_bn = dense_with_bn(2048, 1024)
+            self.fc1, self.fc1_bn = dense_with_bn(flat, 2048, dtype)
+            self.fc2, self.fc2_bn = dense_with_bn(2048, 1024, dtype)
             self.fc_dropout = Dropout(0.4)
-            self.heads = MTLHeads(1024, n_classes=n_classes)
+            self.heads = MTLHeads(1024, n_classes=n_classes, dtype=dtype)
         else:
-            self.out = nn.Linear(flat, n_classes)
+            self.out = Linear(flat, n_classes)
 
     def forward(self, x: torch.Tensor):
         x = x[..., 0] if x.ndim == 4 else x
@@ -129,7 +138,10 @@ class JangCNN(nn.Module):
                            self.melCl_P(x[:, self.n_bins:])], dim=2)
         else:
             y = self.melCl(x)
-        y = self.b3(self.b2(self.b1(torch.tanh(y))))
+        y = torch.tanh(y)
+        if self.dtype is not None:
+            y = y.to(self.dtype)
+        y = self.b3(self.b2(self.b1(y)))
         y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)   # NHWC flatten
         if not self.mtl:
             return torch.softmax(self.out(y), dim=-1)

@@ -1,4 +1,5 @@
-"""Keras-semantics BatchNorm and dropout for training the ported models.
+"""Keras-semantics BatchNorm and dropout for training the ported models,
+and flax's compute-dtype rule for the dense and convolution layers.
 
 flax's ``nn.BatchNorm`` (Keras's too) moves its running variance towards
 the *biased* batch variance; torch's ``nn.BatchNorm1d``/``2d`` move it
@@ -15,6 +16,16 @@ its seeds.  In train mode a dropout with no generator raises.  The
 multi-trial step (``train.multitrial``), whose vmapped forward cannot draw
 from a generator, draws each trial's masks beforehand and hands them to
 the layers through ``Dropout.feed``.
+
+Mixed precision follows flax's dtype promotion, layer by layer, with the
+parameters kept in float32 (``models.zoo.get_model(dtype=torch.bfloat16)``):
+a :class:`Linear`, :class:`Conv1d` or :class:`Conv2d` built with
+``compute_dtype`` (flax's ``dtype=``) casts its input, kernel and bias to it
+and returns it; one built without promotes its input and parameters to
+their common type, so a bfloat16 input meets float32 parameters in
+float32.  A BatchNorm has no compute dtype in flax: it promotes too, so
+bfloat16 activations come out of it in float32, with float32 statistics.
+No ``torch.autocast``: its list of operators is not flax's.
 """
 
 from __future__ import annotations
@@ -24,10 +35,56 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class _BiasedRunningVariance:
-    """Train-mode forward shared by the two BatchNorm classes."""
+class _Compute:
+    """flax's dtype rule for a dense or convolution layer (module doc).  In
+    a reduced compute dtype the bias is added after the product, as flax
+    adds it, so that the output is rounded where flax's is."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or torch.promote_types(x.dtype,
+                                                          self.weight.dtype)
+        if x.dtype == dtype == self.weight.dtype:
+            return super().forward(x)
+        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if x.is_cpu and dtype.itemsize < 4:
+            # On the CPU the product runs in float32 on the rounded operands
+            # and is rounded once, as XLA:CPU computes a bf16 product: the
+            # same bf16 compute with float32 accumulation.  (oneDNN's bf16
+            # convolution returns NaN at some geometries, such as a
+            # stride-2 3x3 kernel over 4 columns, in torch 2.13.)
+            y = self._product(x.float(), w.float()).to(dtype)
+        else:
+            y = self._product(x, w)
+        return y + b.view(-1, *(1,) * (y.ndim - 2))
+
+
+class Linear(_Compute, nn.Linear):
+    def _product(self, x, w):
+        return F.linear(x, w)
+
+
+class Conv1d(_Compute, nn.Conv1d):
+    def _product(self, x, w):
+        return self._conv_forward(x, w, None)
+
+
+class Conv2d(_Compute, nn.Conv2d):
+    def _product(self, x, w):
+        return self._conv_forward(x, w, None)
+
+
+class _BiasedRunningVariance:
+    """Train-mode forward shared by the two BatchNorm classes.  The input
+    is promoted to the parameters' type first (float32 for bfloat16
+    activations), in both modes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.ndim))

@@ -5,7 +5,9 @@ head) and the twin-tower intermediate fusion.
 Counterpart of ``LemaireTCN``, ``LemaireMTL`` and
 ``LemaireMTLIntermediateFusion`` in ``sm_hpss_mtl_tpu/models/lemaire.py``.
 Input is time-major ``(B, patch_size, D)`` patches, or for the fusion
-model a dict of two.
+model a dict of two.  ``dtype`` (flax's, ``layers``) goes to the TCN
+towers and to ``MTLHeads``, not to the cascaded heads nor to the output
+layers (``out``), which compute in float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from .heads import BN_KW, CascadedMTLHeads, MTLHeads
-from .layers import BatchNorm1d
+from .layers import BatchNorm1d, Linear
 from .tcn import TCN
 
 
@@ -25,14 +27,15 @@ class LemaireTCN(nn.Module):
                  n_filters: int = 32, nb_stacks: int = 3,
                  kernel_size: int = 3, Nd: int = 8,
                  dropout_rate: float = 0.275,
-                 use_skip_connections: bool = False):
+                 use_skip_connections: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.tcn = TCN(in_dim, n_filters=n_filters, kernel_size=kernel_size,
                        nb_stacks=nb_stacks,
                        dilations=tuple(2 ** d for d in range(Nd)),
                        dropout_rate=dropout_rate,
-                       use_skip_connections=use_skip_connections)
-        self.out = nn.Linear(patch_size * n_filters, n_classes)
+                       use_skip_connections=use_skip_connections, dtype=dtype)
+        self.out = Linear(patch_size * n_filters, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.tcn(x)
@@ -49,13 +52,14 @@ class LemaireMTL(nn.Module):
                  kernel_size: int = 3, Nd: int = 8,
                  dropout_rate: float = 0.275, head_width: int = 16,
                  cascaded: bool = False, with_noise: bool = False,
-                 head_layers: int = 1, use_skip_connections: bool = False):
+                 head_layers: int = 1, use_skip_connections: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.tcn = TCN(in_dim, n_filters=n_filters, kernel_size=kernel_size,
                        nb_stacks=nb_stacks,
                        dilations=tuple(2 ** d for d in range(Nd)),
                        dropout_rate=dropout_rate,
-                       use_skip_connections=use_skip_connections)
+                       use_skip_connections=use_skip_connections, dtype=dtype)
         # The JAX cascaded heads take only n_classes.
         self.heads = (CascadedMTLHeads(patch_size * n_filters,
                                        n_classes=n_classes) if cascaded
@@ -63,7 +67,7 @@ class LemaireMTL(nn.Module):
                                     n_classes=n_classes,
                                     head_width=head_width,
                                     with_noise=with_noise,
-                                    head_layers=head_layers))
+                                    head_layers=head_layers, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         # The TCN returns (B, T, C); flattening in that order is what the
@@ -81,15 +85,16 @@ class LemaireMTLIntermediateFusion(nn.Module):
 
     def __init__(self, in_dim: int, patch_size: int = 68, n_classes: int = 3,
                  n_filters: int = 32, nb_stacks: int = 3,
-                 dropout_rate: float = 0.275):
+                 dropout_rate: float = 0.275,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.tcn_H = TCN(in_dim, n_filters=n_filters, nb_stacks=nb_stacks,
-                         dropout_rate=dropout_rate)
+                         dropout_rate=dropout_rate, dtype=dtype)
         self.tcn_P = TCN(in_dim, n_filters=n_filters, nb_stacks=nb_stacks,
-                         dropout_rate=dropout_rate)
+                         dropout_rate=dropout_rate, dtype=dtype)
         width = 2 * patch_size * n_filters
         self.fusion_bn = BatchNorm1d(width, **BN_KW)
-        self.heads = MTLHeads(width, n_classes=n_classes)
+        self.heads = MTLHeads(width, n_classes=n_classes, dtype=dtype)
 
     def forward(self, inputs: dict[str, torch.Tensor]
                 ) -> dict[str, torch.Tensor]:

@@ -10,6 +10,10 @@ Layout: the trunk runs ``(B, C, T)`` internally, as ``nn.Conv1d`` wants;
 :class:`TCN` takes and returns time-major ``(B, T, C)`` like the JAX
 module.  Submodule names equal the flax names, so ``weights.from_flax``
 maps parameters by path.
+
+``dtype`` (flax's): the TCN casts its input to it, and every convolution,
+the channel normalisation, the residual sums and the final ReLU run in it
+(the trunk has no BatchNorm).  The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -17,12 +21,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import Dropout
+from .layers import Conv1d, Dropout
 
 
 def channel_normalization(x: torch.Tensor) -> torch.Tensor:
     """Per-timestep max-abs channel normalisation of ``(B, C, T)``
-    (keras-tcn 'norm_relu'): ``x / (max_c |x| + 1e-5)``."""
+    (keras-tcn 'norm_relu'): ``x / (max_c |x| + 1e-5)``, in x's dtype."""
     return x / (x.abs().amax(dim=1, keepdim=True) + 1e-5)
 
 
@@ -36,12 +40,13 @@ class SpatialDropout1D(Dropout):
 
 class TCNResidualBlock(nn.Module):
     def __init__(self, n_filters: int, kernel_size: int, dilation: int,
-                 dropout_rate: float):
+                 dropout_rate: float, dtype: torch.dtype | None = None):
         super().__init__()
-        self.dilated_conv = nn.Conv1d(n_filters, n_filters, kernel_size,
-                                      dilation=dilation, padding="same")
+        self.dilated_conv = Conv1d(n_filters, n_filters, kernel_size,
+                                   dilation=dilation, padding="same",
+                                   compute_dtype=dtype)
         self.dropout = SpatialDropout1D(dropout_rate)
-        self.conv_1x1 = nn.Conv1d(n_filters, n_filters, 1)
+        self.conv_1x1 = Conv1d(n_filters, n_filters, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The block's output and its skip branch (the 1x1 conv's)."""
@@ -60,20 +65,24 @@ class TCN(nn.Module):
                  nb_stacks: int = 3,
                  dilations: tuple = (1, 2, 4, 8, 16, 32, 64, 128),
                  dropout_rate: float = 0.275,
-                 use_skip_connections: bool = False):
+                 use_skip_connections: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.use_skip_connections = use_skip_connections
-        self.initial_conv = nn.Conv1d(in_dim, n_filters, kernel_size,
-                                      padding="same")
+        self.dtype = dtype
+        self.initial_conv = Conv1d(in_dim, n_filters, kernel_size,
+                                   padding="same", compute_dtype=dtype)
         self.block_names = []
         for s in range(nb_stacks):
             for d in dilations:
                 name = f"stack{s}_dilation{d}"
                 self.add_module(name, TCNResidualBlock(
-                    n_filters, kernel_size, d, dropout_rate))
+                    n_filters, kernel_size, d, dropout_rate, dtype))
                 self.block_names.append(name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.initial_conv(x.transpose(1, 2))
         skips = []
         for name in self.block_names:

@@ -54,7 +54,8 @@ class ModelSpec:
 
 def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
               patch_size: int = 68, dropout_rate: float = 0.275,
-              in_dim: int | None = None, **arch_kwargs) -> nn.Module:
+              in_dim: int | None = None, dtype: torch.dtype | None = None,
+              **arch_kwargs) -> nn.Module:
     """Build a model by its reference name, sized for ``patch_size``-frame
     patches of ``in_dim`` feature rows (default: its preset's features at
     ``n_mels`` bands, by default the preset's, 120 where that is -1; flax
@@ -67,23 +68,30 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     the JAX zoo): ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``,
     ``use_skip_connections``, ``head_width``, ``head_layers`` (MTL); the
     intermediate-fusion model drops all but ``n_filters`` and
-    ``nb_stacks``."""
+    ``nb_stacks``.  ``dtype=torch.bfloat16``: mixed-precision compute with
+    float32 parameters and outputs, layer by layer as flax's ``dtype=``
+    (``models.layers``); None (default) computes in float32."""
     if name not in MTL:
         raise ValueError(f"unknown model {name!r}")
     if arch_kwargs and not name.startswith("Lemaire"):
         raise ValueError(f"arch_kwargs not supported for {name!r}")
-    # The reference computes in float32 (train/config.py compute_dtype).
-    # cuDNN convolutions default to TF32 on the GPU, which keeps ~3 decimal
-    # digits, so both TF32 switches are turned off where a model is built.
+    # The float32 layers compute in float32 in either mode (a bfloat16 model
+    # keeps its BatchNorms, output layers and Jang's mel-scale layers in
+    # float32, as flax does).  cuDNN convolutions default to TF32 on the
+    # GPU, which keeps ~3 decimal digits, so both TF32 switches are turned
+    # off where a model is built.  A bfloat16 layer's products accumulate in
+    # float32 as XLA's do: cuBLAS may otherwise reduce split-K partial sums
+    # in bfloat16.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     preset = MODEL_PRESETS[name]
     if n_mels is None:
         n_mels = preset_n_mels(preset)
     if name.startswith("Jang"):
         return JangCNN(n_classes=n_classes, mtl=MTL[name],
                        n_mels=n_mels if MTL[name] else 64,
-                       patch_size=patch_size)
+                       patch_size=patch_size, dtype=dtype)
     if in_dim is None:
         in_dim = feature_dim(preset["feat_name"], n_fft=preset["n_fft"],
                              n_mels=n_mels)
@@ -91,22 +99,23 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
         name.split("_")[0])
     if cnn is not None:
         return cnn(in_dim, patch_size=patch_size, n_classes=n_classes,
-                   mtl=MTL[name])
+                   mtl=MTL[name], dtype=dtype)
     if name == "Lemaire_et_al_MTL_IF":
         kw = {k: v for k, v in arch_kwargs.items() if k not in IF_DROPPED}
         return LemaireMTLIntermediateFusion(
             in_dim // 2, patch_size=patch_size, n_classes=n_classes,
-            dropout_rate=dropout_rate, **kw)
+            dropout_rate=dropout_rate, dtype=dtype, **kw)
     if MTL[name]:
         variant = {"Lemaire_et_al_Cascaded_MTL": dict(cascaded=True),
                    "Lemaire_et_al_MTL_5class": dict(with_noise=True,
                                                     n_classes=5)}
         kw = {"n_classes": n_classes, **variant.get(name, {})}
         return LemaireMTL(in_dim, patch_size=patch_size,
-                          dropout_rate=dropout_rate, **kw, **arch_kwargs)
+                          dropout_rate=dropout_rate, dtype=dtype, **kw,
+                          **arch_kwargs)
     arch_kwargs.pop("head_width", None)
     return LemaireTCN(in_dim, patch_size=patch_size, n_classes=n_classes,
-                      dropout_rate=dropout_rate, **arch_kwargs)
+                      dropout_rate=dropout_rate, dtype=dtype, **arch_kwargs)
 
 
 def get_spec(name: str, **kwargs) -> ModelSpec:
@@ -117,7 +126,7 @@ def get_spec(name: str, **kwargs) -> ModelSpec:
 def load_model(weights: str, device: torch.device, model: str,
                patch_size: int = 68) -> nn.Module:
     """The named model, sized by its preset, in eval mode on ``device``
-    with weights from an npz (flax keys)."""
+    with weights from an npz (flax keys).  Serving computes in float32."""
     net = get_model(model, patch_size=patch_size)
     net.load_state_dict(from_flax(load_npz(weights)))
     return net.to(device).eval()

@@ -25,12 +25,16 @@ def _state_dir(path: str) -> str:
     return os.path.join(os.path.abspath(path), "state")
 
 
+def model_npz(path: str) -> str:
+    """The model's ``.npz`` (flax keys) in the checkpoint at ``path``."""
+    return os.path.join(_state_dir(path), "model.npz")
+
+
 def save_checkpoint(path: str, state: TrainState,
                     metadata: dict | None = None) -> None:
     out = _state_dir(path)
     os.makedirs(out, exist_ok=True)
-    save_npz(os.path.join(out, "model.npz"),
-             to_flax(state.module.state_dict()))
+    save_npz(model_npz(path), to_flax(state.module.state_dict()))
     opt = {"step": np.asarray(state.step)}
     for idx, entries in state.optimizer.state_dict()["state"].items():
         for name, value in entries.items():
@@ -49,7 +53,7 @@ def restore_checkpoint(path: str, template: TrainState
     place); returns the state and the metadata."""
     out = _state_dir(path)
     template.module.load_state_dict(
-        from_flax(load_npz(os.path.join(out, "model.npz"))))
+        from_flax(load_npz(model_npz(path))))
     saved: dict = {}
     with np.load(os.path.join(out, "optimizer.npz")) as z:
         step = int(z["step"])
@@ -70,7 +74,7 @@ def restore_checkpoint(path: str, template: TrainState
 
 
 def checkpoint_exists(path: str) -> bool:
-    return os.path.exists(os.path.join(_state_dir(path), "model.npz"))
+    return os.path.exists(model_npz(path))
 
 
 def update_metadata(path: str, fields: dict) -> None:

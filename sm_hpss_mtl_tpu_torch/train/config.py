@@ -93,7 +93,7 @@ class ExperimentConfig:
     clip_patches: int = 0
     #: device pipeline: floor on the crop length in seconds
     min_crop_s: float = 0.0
-    #: 'float32' (reference parity); 'bfloat16' is not ported
+    #: 'float32' (reference parity) or 'bfloat16' (mixed precision)
     compute_dtype: str = "float32"
     #: fused-frontend DFT precision: only 'highest' is served
     dft_precision: str = "highest"

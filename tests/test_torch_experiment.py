@@ -194,13 +194,16 @@ def test_cli_mtl_needs_device_cpu_without_a_gpu(monkeypatch, tmp_path):
     argv = ["--data", str(tmp_path), "--output", str(tmp_path / "res")]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmtl.main(argv)
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        tmtl.main(argv + ["--device", "cpu", "--bf16"])
     with pytest.raises(SystemExit):                 # argparse refuses it
         tmtl.main(argv + ["--device", "cpu", "--dft-precision", "bf16x3"])
-    # What waits: bf16 (above).  Lemaire's variants are ported (ROADMAP
-    # §1 item 7): the runner takes them, the folds then fail on the empty
-    # corpus.
+    # bf16 compute is ported: the runner takes --bf16, the fold then fails
+    # on the empty corpus; a compute dtype JAX does not have is refused.
+    with pytest.raises(FileNotFoundError):
+        tmtl.main(argv + ["--device", "cpu", "--bf16"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        texp._check_ported(tconfig.ExperimentConfig(compute_dtype="float16"))
+    # Lemaire's variants are ported (ROADMAP §1 item 7): the runner takes
+    # them, the folds then fail on the empty corpus.
     for model in ("Lemaire_et_al_Cascaded_MTL", "Lemaire_et_al_MTL_5class",
                   "Lemaire_et_al_MTL_IF"):
         texp._check_ported(tconfig.ExperimentConfig(model=model))

@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "cli.five_class", "cli.fuse_intermediate", "cli.fuse_late",
                 "cli.make_folds", "eval.fusion", "cli.tune",
                 "utils.bayesopt", "train.multitrial", "cli.featurize",
-                "cli.tsne", "train.transfer", "data.balance"):
+                "cli.tsne", "train.transfer", "data.balance",
+                "data.codecs"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -48,6 +49,24 @@ def test_port_imports_neither_jax_nor_jax_package():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env={k: v for k, v in os.environ.items()
                         if k != "PYTHONPATH"})
+
+
+def test_new_tests_import_only_checked_modules():
+    """The port's modules that the bf16, fold and codec tests import are
+    among those the test above imports without JAX."""
+    import ast
+    mods = set(_modules())
+    for name in ("test_torch_bf16.py", "test_torch_bf16_folds.py",
+                 "test_torch_codecs.py"):
+        tree = ast.parse((REPO / "tests" / name).read_text())
+        used = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and (node.module or "") \
+                    .startswith("sm_hpss_mtl_tpu_torch"):
+                for alias in node.names:
+                    full = f"{node.module}.{alias.name}"
+                    used.add(full if full in mods else node.module)
+        assert used and used <= mods, (name, sorted(used - mods))
 
 
 def test_cli_without_device_cpu_raises_when_no_gpu(monkeypatch, tmp_path):
@@ -111,7 +130,9 @@ def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",
-                                    "tools/hpss_ab.py"])
+                                    "tools/hpss_ab.py",
+                                    "tools/bf16_step_bars.py",
+                                    "tools/bf16_probe.py"])
 def test_chip_scripts_import_neither_jax_nor_jax_package(script):
     # Both run on the GPU machine, which has no JAX: importing them (not
     # running them) must pull in neither jax nor the JAX package.

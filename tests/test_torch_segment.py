@@ -325,3 +325,112 @@ def test_cli_segment_cnn_mtl_matches_jax_cli(tmp_path,
         for k in ("track_S", "track_M", "track_R", "track_3C"):
             assert t[k].shape == j[k].shape
             np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed,n,win,n_labels", [(0, 200, 11, 3),
+                                                 (1, 500, 50, 2),
+                                                 (2, 31, 31, 4),
+                                                 (3, 64, 7, 5)])
+def test_mode_filtering_matches_jax(seed, n, win, n_labels):
+    """The port's ``mode_filtering`` equals the JAX one and the reference
+    loop (an even window widens by one; a track no longer than the window
+    keeps its labels)."""
+    x = np.random.default_rng(seed).integers(0, n_labels, n)
+    got = tseg.mode_filtering(x.copy(), win)
+    np.testing.assert_array_equal(got, jseg.mode_filtering(x.copy(), win))
+    want = x.copy()
+    half = (win | 1) // 2
+    for i in range(half, len(x) - half):
+        u, c = np.unique(x[i - half:i + half], return_counts=True)
+        want[i] = u[np.argmax(c)]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("standardize", [True, "chunk", "featuregram",
+                                         False, "none"])
+def test_segmenter_scopes_match_jax(jax_constant_rows_fixed, standardize):
+    """The three standardization scopes of the JAX segmenter on the same
+    features: per chunk (the default), over the whole featuregram, and
+    none (the reference's DAFx streaming path)."""
+    x = _broadcast(2.0, 6)
+    fv = np.asarray(jfg.featuregram(jnp.asarray(x),
+                                    feat_name="LogMelHarmPercSpec", n_mels=40))
+    W, chunk = 16, 50
+
+    def jpredict(b):
+        return {"S": jax.nn.sigmoid(0.05 * jnp.mean(b[:, :, :8], axis=(1, 2))
+                                    + 0.3 * jnp.mean(b[:, :, 40:44],
+                                                     axis=(1, 2)))[:, None]}
+
+    def tpredict(b):
+        return {"S": torch.sigmoid(0.05 * b[:, :, :8].mean(dim=(1, 2))
+                                   + 0.3 * b[:, :, 40:44].mean(dim=(1, 2))
+                                   )[:, None]}
+
+    kw = dict(patch_size=W, chunk_frames=chunk, standardize=standardize)
+    want = jseg.StreamingSegmenter(predict_fn=jpredict, **kw)
+    got = tseg.StreamingSegmenter(predict_fn=tpredict, **kw)
+    t0 = want.frame_probabilities(fv)["S"]
+    t1 = got.frame_probabilities(torch.tensor(fv))["S"]
+    assert t1.shape == t0.shape == (fv.shape[1] - W + 1, 1)
+    np.testing.assert_allclose(t1, t0, rtol=0, atol=1e-5)
+    # The scopes differ from one another on these features.
+    other = "none" if got._scope() != "none" else "chunk"
+    t2 = tseg.StreamingSegmenter(predict_fn=tpredict, patch_size=W,
+                                 chunk_frames=chunk, standardize=other
+                                 ).frame_probabilities(torch.tensor(fv))["S"]
+    assert np.abs(t2 - t1).max() > 1e-2
+    with pytest.raises(ValueError, match="standardize"):
+        tseg.StreamingSegmenter(predict_fn=tpredict, patch_size=W,
+                                standardize="file").frame_probabilities(
+                                    torch.tensor(fv))
+
+
+def test_cli_segment_ckpt_matches_jax_cli(tmp_path, jax_constant_rows_fixed):
+    """``--ckpt`` serves the port's fold checkpoint (``state/model.npz``,
+    as ``cli.mtl`` writes it) as the JAX CLI serves its own, and as
+    ``--weights`` serves the same parameters; the JAX package's orbax
+    checkpoint is refused with a message that says so, and exactly one of
+    ``--ckpt`` and ``--weights`` is taken."""
+    from sm_hpss_mtl_tpu_torch.models.zoo import load_model
+    from sm_hpss_mtl_tpu_torch.train.checkpoint import save_checkpoint
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    from sm_hpss_mtl_tpu_torch.train.state import TrainState
+
+    wav = str(tmp_path / "b.wav")
+    wavfile.write(wav, 16000,
+                  (_broadcast(1.4, 7) * 32767).astype(np.int16))
+    jckpt, npz = _jax_checkpoint(tmp_path, "Lemaire_et_al_MTL",
+                                 (2, 68, 240), 8)
+    net = load_model(npz, torch.device("cpu"), "Lemaire_et_al_MTL")
+    opt, _ = for_model("Lemaire_et_al_MTL", net.parameters(), tr_steps=1)
+    ckpt = str(tmp_path / "fold0_ckpt")
+    save_checkpoint(ckpt, TrainState(net, opt), {"epoch": 0})
+
+    common = [wav, "--head", "S", "--chunk-frames", "32", "--smooth-win",
+              "11"]
+    out = {}
+    jprob, jlab = jcli.main(common + ["--ckpt", jckpt,
+                                      "--out", str(tmp_path / "j.npz")])
+    for tag, src in (("ckpt", ["--ckpt", ckpt]), ("weights",
+                                                  ["--weights", npz])):
+        out[tag] = tcli.main(common + src + [
+            "--device", "cpu", "--out", str(tmp_path / f"{tag}.npz")])
+    np.testing.assert_array_equal(out["ckpt"][0], out["weights"][0])
+    np.testing.assert_allclose(out["ckpt"][0], jprob, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(out["ckpt"][1], jlab)
+    with np.load(tmp_path / "j.npz") as j, \
+            np.load(tmp_path / "ckpt.npz") as c, \
+            np.load(tmp_path / "weights.npz") as w:
+        for k in ("track_S", "track_M", "track_R", "track_3C"):
+            np.testing.assert_array_equal(c[k], w[k])
+            np.testing.assert_allclose(c[k], j[k], rtol=0, atol=1e-4)
+
+    with pytest.raises(ValueError, match="orbax"):
+        tcli.main([wav, "--ckpt", jckpt, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        tcli.main([wav, "--ckpt", str(tmp_path / "none"), "--device", "cpu"])
+    for argv in ([wav, "--device", "cpu"],
+                 [wav, "--ckpt", ckpt, "--weights", npz, "--device", "cpu"]):
+        with pytest.raises(SystemExit):
+            tcli.main(argv)
