@@ -16,7 +16,10 @@ Phases, each of which must pass:
    21-51) at the edge lengths of each pair's half width and of K1's tile,
    the training and tuning launches, 20 and 60 mel bands, short and long
    clips, with times, bounds, registers, spills and blocks per SM per
-   pair (``phase_pairs``);
+   pair (``phase_pairs``); K1 and K2 in halo mode (the time-sharded front
+   end's shards) at the first, an interior and the last shard's edge
+   flags, at every shard shape of phase 11 and at l_harm 51's smallest
+   block, with the mode's times and bounds (``phase_halo``);
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -97,11 +100,23 @@ Phases, each of which must pass:
    10 s broadcast encoded to mp3, decoded and served through
    ``cli.segment``, card and CPU (else an ``{"mp3": ...}`` line says
    which library is missing);
-11. checks on the launch counts, and that every launch shape of phases 4-10
+11. parallel, on the one card as a mesh of ``cuda:0`` repeated: the
+   time-sharded front end (``parallel.stft_hpss_mel_time_sharded`` at mel
+   and full resolution, ``featuregram_time_sharded`` with its pad and tail
+   splice) over 4 and 8 shards of the production leg of
+   ``MULTICHIP_r05.json`` against one unsharded K1 or K2 launch, at every
+   join; ``cli.segment``'s multi-device branch (``devices=[cuda:0] * 4``)
+   on the 10-minute broadcast against the one-device run (features within
+   0.02 dB, tracks within 1e-3); ``parallel.make_dp_train_step`` at world
+   size 1 over NCCL on a Lemaire-MTL patch step and audio step (K1 inside)
+   against ``make_train_step`` from the same weights; ``fit_multi`` of four
+   trials over two shards against the unsharded run; the readings on a
+   ``{"parallel": ...}`` line;
+12. checks on the launch counts, and that every launch shape of phases 4-11
    (the bf16 steps' and their timings' too) was checked in phase 3 (K1
    and K2 also at 12 clips x 43760 samples, the device pipeline's launch
    on a corpus of MUSAN's size, and K1 at 20 x 43760, the 5-class model's
-   there); the launches per median pair.
+   there); the launches per median pair and in halo mode.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -114,9 +129,10 @@ Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
 and K4) against K1 at the same length.  Every bound prices the medians
 at the shared-core networks' count, the least work known.  Prints a
 ``{"kernels": [...]}`` line (each kernel with a record per median pair
-under ``pairs``), a serving-times line, a resynthesis line, an evaluation
-line, a training line, a tuning line, the script's total seconds, the
-card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
+under ``pairs``, and K1's and K2's halo mode as records of their own), a
+serving-times line, a resynthesis line, an evaluation line, a training
+line, a tuning line, a parallel line, the script's total seconds, the card
+line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or no GPU is present.  Imports
 nothing of JAX.
 """
@@ -171,6 +187,22 @@ TRAIN_SHAPES = ((48, 11120), (12, 43760))
 #: K1's launches in the 5-class device pipeline: the same crops for five
 #: classes.
 FIVE_CLASS_SHAPES = ((80, 11120), (20, 43760))
+#: The time-sharded front end's edge flags (mirror_left, mirror_right) of
+#: the first, an interior and the last shard.
+HALO_FLAGS = ((1, 0), (0, 0), (0, 1))
+#: K1's and K2's halo-mode launches, (B, frames a shard, l_harm): the
+#: production leg of MULTICHIP_r05.json (2 x 1536 frames) over 8 and 4
+#: shards, the 10-minute broadcast over 4 shards (59 998 frames padded to
+#: 60 000), and l_harm 51 at its smallest legal block (2 * 25 frames).
+HALO_SHAPES = ((2, 192, 21), (2, 384, 21), (1, 15000, 21), (1, 50, 51))
+#: Phase 11: the production leg's frames, the featuregram run's (3 short of
+#: a multiple of 4 and 8: the pad and the tail splice), the shard counts on
+#: the one card, the segmenter's shards, the tuner's trial shards.
+SHARD_FRAMES, SHARD_FG_FRAMES, SHARD_COUNTS = 1536, 1533, (4, 8)
+SEGMENT_SHARDS, TRIAL_SHARDS = 4, 2
+#: The tail splice of ``featuregram_time_sharded``: 3 * (l_harm // 2)
+#: frames through the dispatcher (K1 or K2).
+SPLICE_FRAMES = 3 * (21 // 2)
 #: Lemaire's variants: Cascaded-MTL, the 5-class model, intermediate fusion.
 CASCADED, FIVE, IF = ("Lemaire_et_al_Cascaded_MTL",
                       "Lemaire_et_al_MTL_5class", "Lemaire_et_al_MTL_IF")
@@ -592,6 +624,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         {6024, 16384, 16394, 16404} | eval_frames["K1"])]
     k1_cases += [(400, 21, 11, B, n_frames(N, 400, 160))
                  for B, N in TRAIN_SHAPES + FIVE_CLASS_SHAPES]
+    k1_cases += [(400, 21, 11, B, SPLICE_FRAMES) for B in (1, 2)]
     k1_err = 0.0
     for n_fft, lh, lp, B, T in k1_cases:
         y = audio(n_fft, B, T)
@@ -614,6 +647,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     k2_cases += [(400, 21, 11, 1, T) for T in sorted(eval_frames["K2_400"])]
     k2_cases += [(n_fft, 21, 11, B, n_frames(N, n_fft, 160))
                  for n_fft in (512, 400) for B, N in TRAIN_SHAPES]
+    k2_cases += [(400, 21, 11, 2, SPLICE_FRAMES)]
     k2_err = 0.0
     for n_fft, lh, lp, B, T in k2_cases:
         y = audio(n_fft, B, T)
@@ -1085,18 +1119,26 @@ def recorded():
     the launches per median pair (``by_pair``, keyed ``"l_harm,l_perc"``)."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
-           "launches": {},
+           "launches": {}, "halo": Counter(),
            "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")}}
     f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
                                     hpss._launch_mel)
 
     def f_rec(y, M, **kw):
         k = "K2" if M is None else "K1"
-        rec["shapes"][k].add(
-            (kw["n_fft"], kw["l_harm"], kw["l_perc"],
-             y.numel() // y.shape[-1],
-             1 + (y.shape[-1] - kw["n_fft"]) // kw["hop_length"]))
+        T = 1 + (y.shape[-1] - kw["n_fft"]) // kw["hop_length"]
+        key = (kw["n_fft"], kw["l_harm"], kw["l_perc"],
+               y.numel() // y.shape[-1])
+        if kw.get("halo_in_audio"):
+            # Halo mode: the frames a shard, then the shard's edge flags.
+            key += (T - 2 * (kw["l_harm"] // 2), "halo",
+                    *(int(f) for f in kw["edge_flags"]))
+        else:
+            key += (T,)
+        rec["shapes"][k].add(key)
         out = f_launch(y, M, **kw)
+        if kw.get("halo_in_audio"):
+            rec["halo"][k] += 1
         rec["by_pair"][k][f"{kw['l_harm']},{kw['l_perc']}"] += 1
         return out
 
@@ -1135,17 +1177,20 @@ def recorded():
 
 def serve(model: str, wav: str, weights: str, out: str, device: str,
           x: np.ndarray, chunk_frames: int = 10000,
-          source: str = "--weights") -> dict:
+          source: str = "--weights", devices=None) -> dict:
     """One ``cli.segment`` run (host clock around it) of the weights .npz,
     or with ``source="--ckpt"`` of a fold checkpoint; outputs checked.
-    Also returns the launches and launch shapes of each kernel."""
+    ``devices``: the GPUs ``cli.segment`` shards the features over (its
+    function argument).  Also returns the launches and launch shapes of
+    each kernel."""
     from sm_hpss_mtl_tpu_torch.cli import segment as cli
 
     with recorded() as rec:
         t0 = time.perf_counter()
         prob, labels = cli.main([wav, "--model", model, source, weights,
                                  "--device", device, "--chunk-frames",
-                                 str(chunk_frames), "--out", out])
+                                 str(chunk_frames), "--out", out],
+                                devices=devices)
         total_s = time.perf_counter() - t0
 
     n_fft = cli.MODEL_PRESETS[model]["n_fft"]
@@ -1163,7 +1208,7 @@ def serve(model: str, wav: str, weights: str, out: str, device: str,
 
     return {"tracks": tracks, "launches": rec["launches"], "frames": T,
             "total_s": total_s, "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"]}
+            "by_pair": rec["by_pair"], "halo": rec["halo"]}
 
 
 def time_legs(model: str, x: np.ndarray, wav: str, weights: str, out: str,
@@ -2623,6 +2668,375 @@ def late_fusion_checkpoints(root: str) -> tuple[str, str]:
     return tuple(paths)
 
 
+def phase_halo(card: str, checked: dict) -> tuple[dict, list]:
+    """K1 and K2 in halo mode (``frontend.launch(halo_in_audio=True)``, the
+    time-sharded front end's launch) against their plain versions on the
+    card (phase 3, continued): each shard shape of ``HALO_SHAPES`` at each
+    edge flag pair of ``HALO_FLAGS``, added to the checked shapes.  Then
+    the kernel records of the mode: K1 at the 10-minute broadcast's shard
+    (1 x 15 000 frames, an interior shard's flags) and K2 at the
+    production leg's 4-shard cut (2 x 384 frames), each with its time,
+    device time, plain time and bound at that shape (launches still
+    None), and the device time of a launch without halo on the same audio
+    (its ``T + 2*ht`` frames: the same DFTs, the halo frames output too),
+    the two device times taken in turns (halo, whole, whole, halo).
+    Returns the max |delta| per kernel and the two records."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    M = mel_filterbank(22050, 400, 120, device="cuda")
+    err = {"K1": 0.0, "K2": 0.0}
+
+    def inputs(B, T, lh, flags):
+        y = torch.randn((B, 400 + (T + 2 * (lh // 2) - 1) * 160),
+                        generator=gen, device="cuda")
+        return y, dict(n_fft=400, win_length=400, hop_length=160,
+                       l_harm=lh, l_perc=11, halo_in_audio=True,
+                       edge_flags=flags)
+
+    for B, T, lh in HALO_SHAPES:
+        for flags in HALO_FLAGS:
+            y, kw = inputs(B, T, lh, flags)
+            for k, basis in (("K1", M), ("K2", None)):
+                want = (frontend.stft_hpss_plain(y, **kw) if basis is None
+                        else frontend.stft_hpss_mel_plain(y, basis, **kw))
+                err[k] = max(err[k], compare(
+                    f"{k} halo mode flags={flags} l_harm={lh} B={B} T={T}",
+                    frontend.launch(y, basis, **kw), want, RTOL, ATOL))
+                checked[k].add((400, lh, 11, B, T, "halo", *flags))
+                del want
+    print(f"kernels in halo mode: {2 * len(HALO_SHAPES) * len(HALO_FLAGS)} "
+          f"shapes ok, max |delta| K1 {err['K1']:.3e}, K2 {err['K2']:.3e}",
+          flush=True)
+
+    _, shared = median_comparators()
+    nnz = int((M != 0).sum())
+    records = []
+    for k, basis, (B, T) in (("K1", M, (1, 15000)), ("K2", None, (2, 384))):
+        y, kw = inputs(B, T, 21, (0, 0))
+        run = lambda: frontend.launch(y, basis, **kw)  # noqa: E731
+        plain = ((lambda: frontend.stft_hpss_plain(y, **kw)) if basis is None
+                 else (lambda: frontend.stft_hpss_mel_plain(y, basis, **kw)))
+        ms, plain_ms = cuda_ms(run, reps=50), cuda_ms(plain, reps=3,
+                                                      batches=3)
+        whole = functools.partial(frontend.launch, y, basis,
+                                  **{k: v for k, v in kw.items()
+                                     if k not in ("halo_in_audio",
+                                                  "edge_flags")})
+        turns = {"halo": [], "whole": []}
+        for name in ("halo", "whole", "whole", "halo"):
+            turns[name].append(device_ms(run if name == "halo" else whole,
+                                         "frontend_kernel"))
+        dev_ms = {k: None if None in v else sum(v) / len(v)
+                  for k, v in turns.items()}
+        mel = dict(n_mels=120, mel_nnz=nnz) if basis is not None else {}
+        bound, by, _ = frontend_bound_ms(T, y.shape[-1], 400,
+                                         shared[(21, 11)], card, B=B, **mel)
+        records.append({
+            "name": ("stft_hpss_mel" if basis is not None else "stft_hpss")
+            + " (halo mode)", "route": "cuda",
+            "source": "sm_hpss_mtl_tpu_torch/csrc/frontend.cu",
+            "replaces": "sm_hpss_mtl_tpu/ops/frontend_pallas.py:"
+            + ("207" if basis is not None else "219"),
+            "launches": None, "max_abs_err": err[k], "ms": ms[0],
+            "plain_ms": plain_ms[0], "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "ms_spread": ms[1:],
+            "device_ms": dev_ms["halo"],
+            "device_ms_same_audio_without_halo": dev_ms["whole"],
+            "device_ms_turns": turns,
+            "timed_shape": [B, T], "timed_flags": [0, 0],
+            "halo_modes_checked": [list(f) for f in HALO_FLAGS],
+            "halo_of": "sm_hpss_mtl_tpu/ops/frontend_pallas.py:164 "
+                       "(edge_flags, halo_in_audio :267)"})
+    return err, records
+
+
+def _run_of(rec: dict) -> dict:
+    """A ``recorded`` block's launches, shapes, per-pair and halo counts, as
+    the phase-12 checks read a path's run."""
+    return {k: rec[k] for k in ("launches", "shapes", "by_pair", "halo")}
+
+
+def _period_ms(fn, steps: int = 20) -> tuple[float, list]:
+    """Median step period of ``fn`` on the card (CUDA events, a call's
+    start to the next one's, the first two left out) and its spread."""
+    import torch
+    marks = []
+    for _ in range(steps):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        fn()
+    torch.cuda.synchronize()
+    times = sorted(marks[i].elapsed_time(marks[i + 1])
+                   for i in range(2, steps - 1))
+    return times[len(times) // 2], [times[0], times[-1]]
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronise, warm."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def sharded_frontend_checks(card: str) -> tuple[dict, dict]:
+    """``stft_hpss_mel_time_sharded`` (mel and full resolution) over 4 and
+    8 shards of the one card on the production leg's audio (2 x 1536
+    frames), and ``featuregram_time_sharded`` (``LogMelHarmPercSpec``,
+    ``LogHarmPercSpec``) on 2 x 1533 frames (the pad and the tail splice),
+    recorded as one path; then each against one unsharded K1 or K2 launch
+    on the same audio, outside the record: K1's bar everywhere and 0.02 dB
+    on the features, and the max |delta| at every join, frames
+    ``[j*T_local - ht, j*T_local + ht)``."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    from sm_hpss_mtl_tpu_torch.ops.featuregram import featuregram
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.parallel import (featuregram_time_sharded,
+                                                make_mesh,
+                                                stft_hpss_mel_time_sharded)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    y = torch.randn((2, 400 + (SHARD_FRAMES - 1) * 160), generator=gen,
+                    device="cuda")
+    yf = y[:, :400 + (SHARD_FG_FRAMES - 1) * 160]
+    M = mel_filterbank(22050, 400, 120, device="cuda")
+    feats = ("LogMelHarmPercSpec", "LogHarmPercSpec")
+    got = {}
+    with recorded() as rec:
+        for n in SHARD_COUNTS:
+            mesh = make_mesh(n_data=1, n_time=n, devices=[dev] * n)
+            for name, basis in (("mel", M), ("fullres", None)):
+                got[(n, name)] = stft_hpss_mel_time_sharded(y, basis, mesh)
+            for fname in feats:
+                got[(n, fname)] = featuregram_time_sharded(
+                    yf, mesh, feat_name=fname)
+    want_halo = 2 * sum(SHARD_COUNTS)
+    check(rec["halo"] == Counter({"K1": want_halo, "K2": want_halo})
+          and rec["launches"] == {"K1": want_halo + len(SHARD_COUNTS),
+                                  "K2": want_halo + len(SHARD_COUNTS),
+                                  "K3": 0, "K4": 0},
+          f"sharded front end: launches {rec['launches']}, halo mode "
+          f"{dict(rec['halo'])}")
+    ht = 21 // 2
+    out = {}
+
+    def joins(g, w, n, T):
+        Tl = -(-T // n)
+        return [max(float((a - b)[..., j * Tl - ht:j * Tl + ht].abs().max())
+                    for a, b in zip(g, w)) for j in range(1, n)]
+
+    kw = dict(n_fft=400, win_length=400, hop_length=160, l_harm=21,
+              l_perc=11)
+    for name, basis in (("mel", M), ("fullres", None)):
+        want = frontend.launch(y, basis, **kw)
+        for n in SHARD_COUNTS:
+            g = got[(n, name)]
+            err = compare(f"sharded {name} front end, {n} shards", g, want,
+                          RTOL, ATOL)
+            out[f"{name}_{n}_shards"] = {
+                "max_abs_delta": err,
+                "per_join_max_abs_delta": joins(g, want, n, SHARD_FRAMES)}
+    for fname in feats:
+        want = featuregram(yf, feat_name=fname)
+        for n in SHARD_COUNTS:
+            g = got[(n, fname)]
+            check(g.shape == want.shape, f"{fname} {n} shards: shape")
+            db = float((g - want).abs().max())
+            check(db <= FEATURE_DB_TOL and bool(torch.isfinite(g).all()),
+                  f"{fname} over {n} shards vs unsharded {db:.4f} dB")
+            out[f"{fname}_{n}_shards"] = {
+                "max_abs_db": db,
+                "per_join_max_abs_db": joins((g,), (want,), n,
+                                             SHARD_FG_FRAMES)}
+    return _run_of(rec), out
+
+
+def dp_step_checks(corpus: dict, rendezvous: str) -> tuple[dict, dict]:
+    """Data parallelism at world size 1 over NCCL (a file rendezvous):
+    ``make_dp_train_step`` on a full-width Lemaire-MTL patch step (the
+    CPU's patches of one crop batch) and audio step (K1 inside, 48 x 11120
+    samples, recorded as a path), each against ``make_train_step`` from
+    the same weights on the card, dropout off, held to the patch step's
+    bars; then the two steps' periods in turns.  The group is destroyed
+    at the end: later phases run single-process."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
+    from sm_hpss_mtl_tpu_torch.parallel import make_dp_train_step
+    from sm_hpss_mtl_tpu_torch.train.endtoend import audio_featurizer
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    from sm_hpss_mtl_tpu_torch.train.state import TrainState
+    model = "Lemaire_et_al_MTL"
+    d = torch.device("cuda", 0)
+    audio, labels = next(_crops(corpus, SEED, model))
+    net = _seeded(model, dropout=False)
+    _, patches = _features_card_vs_cpu(audio, model)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    noise = _bn_fed_biases(net)
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}",
+                            rank=0, world_size=1)
+    out, run = {}, None
+    try:
+        for kind, batch in (("patch_step", patches), ("audio_step", audio)):
+            is_audio = kind == "audio_step"
+            a, y = to_device(batch, d), to_device(labels, d)
+            single, s_state, s_step, lr = _train_setup("cuda", net, SEED,
+                                                       audio=is_audio)
+            loss_s = float(s_step(s_state, a, y)["loss"])
+            model_ = copy.deepcopy(net).to(d)
+            opt, _ = for_model(model, model_.parameters(), tr_steps=100000)
+            featurize = (audio_featurizer(
+                _feature_config(model), patch_size=68, patch_shift=68,
+                max_patches=1, input_kind=INPUT_KIND[model])
+                if is_audio else None)
+            dp_step = make_dp_train_step(
+                model_, opt, mtl=True, l2_reg=0.01, featurize=featurize,
+                generator=torch.Generator(device=d).manual_seed(SEED))
+            state = TrainState(model_, opt)
+            with recorded() as rec:
+                loss_d = float(dp_step(state, a, y)["loss"])
+            if is_audio:
+                check(rec["launches"]["K1"] == 1,
+                      f"DP audio step launches {rec['launches']}")
+                run = _run_of(rec)
+            out[kind] = _hold_step(
+                f"DP {kind} at world size 1", before,
+                {k: v.detach().cpu() for k, v in single.state_dict().items()},
+                {k: v.detach().cpu() for k, v in model_.state_dict().items()},
+                loss_s, loss_d, noise, lr, STEP_UPDATE_RTOL)
+            turns = {"dp": [], "single": []}
+            for name in ("single", "dp", "dp", "single"):
+                turns[name].append(_period_ms(
+                    (lambda: dp_step(state, a, y)) if name == "dp"
+                    else (lambda: s_step(s_state, a, y))))
+            out[kind].update({
+                "dp_step_ms": sum(t[0] for t in turns["dp"]) / 2,
+                "single_step_ms": sum(t[0] for t in turns["single"]) / 2,
+                "dp_step_ms_spread": [min(t[1][0] for t in turns["dp"]),
+                                      max(t[1][1] for t in turns["dp"])]})
+    finally:
+        dist.destroy_process_group()
+    return run, out
+
+
+def trial_sharding_checks(corpus: dict) -> dict:
+    """``fit_multi`` of four trials (``_multi_trials``: loss weights and lr
+    scales, dropout on) on the CPU's patches of one crop batch, over a mesh
+    of the card twice (``TRIAL_SHARDS`` shards of two trials) and unsharded:
+    each trial's weights and val loss held to the multi-trial step's bars
+    against the unsharded run's (one epoch, so each trial's best is its
+    last)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.prefetch import to_device
+    from sm_hpss_mtl_tpu_torch.parallel import make_mesh
+    from sm_hpss_mtl_tpu_torch.train.multitrial import (fit_multi,
+                                                        init_trials,
+                                                        unstack_trial)
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    model = "Lemaire_et_al_MTL"
+    d = torch.device("cuda", 0)
+    audio, labels = next(_crops(corpus, SEED, model))
+    _, patches = _features_card_vs_cpu(audio, model)
+    net = _seeded(model)
+    trials = _multi_trials()
+    x, y = to_device(patches, d), to_device(labels, d)
+
+    def stream():
+        while True:
+            yield x, y
+
+    def make_opt(ps):
+        return for_model(model, ps, 100000, trial_axis=True)[0]
+
+    kw = dict(mtl=True, trials=trials, heads=("3C", "M", "R", "S"),
+              epochs=1, steps_per_epoch=4, val_steps=1, l2_reg=0.01,
+              base_seed=SEED, verbose=False)
+    mesh = make_mesh(devices=[d] * TRIAL_SHARDS)
+    t0 = time.perf_counter()
+    sharded = fit_multi(net, make_opt, stream(), stream(), mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = fit_multi(net, make_opt, stream(), stream(), device=d, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(len(sharded.shards) == TRIAL_SHARDS and all(
+        next(iter(st.params.values())).shape[0] == len(trials)
+        // TRIAL_SHARDS for st in sharded.shards),
+          "trial sharding: the trials were not cut over the mesh")
+    before = unstack_trial(init_trials(net, [SEED], make_opt, "cpu"), 0)
+    noise = _bn_fed_biases(net)
+    held = [_hold_step(
+        f"trial sharding, trial {i}", before, unstack_trial(plain.state, i),
+        unstack_trial(sharded.state, i), float(plain.best_val_loss[i]),
+        float(sharded.best_val_loss[i]), noise, 0.002 * t["lr_scale"],
+        STEP_UPDATE_RTOL) for i, t in enumerate(trials)]
+    return {"trials": held, "shards": TRIAL_SHARDS,
+            "sharded_total_s": sharded_s, "unsharded_total_s": plain_s}
+
+
+def phase_parallel(card: str, corpus: dict, x600: np.ndarray, wav600: str,
+                   weights: str, out, slabbed: dict) -> tuple[dict, dict]:
+    """Phase 11: the port's multi-device paths on the one card (a mesh of
+    ``cuda:0`` repeated).  Returns the runs of the paths that launch
+    kernels and the readings."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.cli import segment as cli
+    runs, read = {}, {}
+    runs["sharded_frontend"], read["sharded_frontend"] = \
+        sharded_frontend_checks(card)
+
+    lem = "Lemaire_et_al_MTL"
+    dev = torch.device("cuda", 0)
+    devs = [dev] * SEGMENT_SHARDS
+    runs["segment_sharded"] = seg = serve(lem, wav600, weights,
+                                          out("s600.npz"), "cuda", x600,
+                                          devices=devs)
+    check(seg["halo"] == Counter({"K1": SEGMENT_SHARDS})
+          and seg["launches"]["K1"] == SEGMENT_SHARDS + 1,
+          f"sharded segmenter launches {seg['launches']}, halo mode "
+          f"{dict(seg['halo'])}")
+    track = max(float(np.abs(seg["tracks"][k] - slabbed["tracks"][k]).max())
+                for k in ("track_S", "track_M"))
+    check(track <= TRACK_TOL, f"sharded segmenter tracks vs one device "
+                              f"{track:.3e}")
+    preset = cli.MODEL_PRESETS[lem]
+    sharded = cli._featurize_broadcast(x600, preset, dev, devs)
+    single = cli._featurize_broadcast(x600, preset, dev)
+    db = float((sharded - single).abs().max())
+    check(sharded.shape == single.shape and db <= FEATURE_DB_TOL,
+          f"sharded segmenter features vs one device {db:.4f} dB")
+    del sharded, single
+    read["segment"] = {
+        "shards": SEGMENT_SHARDS, "frames": seg["frames"],
+        "features_max_abs_db_vs_one_device": db,
+        "tracks_max_abs_delta_vs_one_device": track,
+        "first_run_total_ms": 1e3 * seg["total_s"],
+        "featurize_sharded_ms": _host_ms(
+            lambda: cli._featurize_broadcast(x600, preset, dev, devs)),
+        "featurize_one_device_ms": _host_ms(
+            lambda: cli._featurize_broadcast(x600, preset, dev))}
+
+    runs["dp_audio"], read["dp_world_1"] = dp_step_checks(
+        corpus, out("nccl_rendezvous"))
+    read["trial_sharding"] = trial_sharding_checks(corpus)
+    return runs, read
+
+
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source for every median pair at once, one nvcc
     process each (``ops/_nvcc.py``: one library per source and pair); load
@@ -2715,6 +3129,12 @@ def run() -> None:
             f"{e['name']} {e['ms']:.4f} ms [{e['ms_spread'][0]:.4f}, "
             f"{e['ms_spread'][1]:.4f}] at {e['timed_shape']}"
             for e in entries), flush=True)
+        _, halo_records = phase_halo(card, checked)
+        print("[3 halo] ok; " + "; ".join(
+            f"{e['name']} {e['ms']:.4f} ms, device {e['device_ms']} ms at "
+            f"{e['timed_shape']} (without halo on the same audio "
+            f"{e['device_ms_same_audio_without_halo']} ms)"
+            for e in halo_records), flush=True)
         t_pairs = time.perf_counter()
         pair_entries = phase_pairs(card, checked, train_corpus)
         print(f"[3 pairs] ok, {time.perf_counter() - t_pairs:.1f} s",
@@ -3132,6 +3552,32 @@ def run() -> None:
                                             out("u600.npz"),
                                             j600["total_s"])}
 
+        t_par = time.perf_counter()
+        par_runs, parallel = phase_parallel(card, train_corpus, x600, wav600,
+                                            wpath[lem], out, slabbed)
+        runs.update(par_runs)
+        fe, seg_read = parallel["sharded_frontend"], parallel["segment"]
+        dp_read = parallel["dp_world_1"]
+        print(f"[11 parallel] sharded front end vs one launch, max |delta| "
+              f"at the joins: " + ", ".join(
+                  f"{k} {max(v.get('per_join_max_abs_delta', v.get('per_join_max_abs_db'))):.2e}"
+                  for k, v in fe.items())
+              + f"; segmenter over {SEGMENT_SHARDS} shards: features "
+              f"{seg_read['features_max_abs_db_vs_one_device']:.5f} dB, "
+              f"tracks {seg_read['tracks_max_abs_delta_vs_one_device']:.2e}, "
+              f"featurize {seg_read['featurize_sharded_ms']:.1f} ms vs "
+              f"{seg_read['featurize_one_device_ms']:.1f} ms on one device; "
+              f"DP world 1 patch step loss "
+              f"{dp_read['patch_step']['loss_rel']:.2e}, updates "
+              f"{dp_read['patch_step']['update_rel_max']:.2e}, audio step "
+              f"loss {dp_read['audio_step']['loss_rel']:.2e}, updates "
+              f"{dp_read['audio_step']['update_rel_max']:.2e}, step "
+              f"{dp_read['audio_step']['dp_step_ms']:.3f} ms vs "
+              f"{dp_read['audio_step']['single_step_ms']:.3f} ms; trial "
+              f"sharding updates "
+              f"{max(t['update_rel_max'] for t in parallel['trial_sharding']['trials']):.2e}"
+              f"; {time.perf_counter() - t_par:.1f} s", flush=True)
+
     paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
                     "classify_60", "train_device", "train_host",
                     "train_lemaire_fls", "train_doukhan", "cascaded_60",
@@ -3139,10 +3585,12 @@ def run() -> None:
                     "train_cascaded", "train_five", "train_if_device",
                     "train_if_host", *(n for n, _, _ in TUNE_RUNS),
                     "featurize", "tsne", "train_bf16", "lemaire_60_ckpt",
-                    "scopes_60", *(["mp3_10"] if "mp3_10" in runs else [])),
+                    "scopes_60", *(["mp3_10"] if "mp3_10" in runs else []),
+                    "sharded_frontend", "segment_sharded", "dp_audio"),
              "K2": ("jang_60", "jang_600", "jang_10", "eval_jang", "pap_60",
                     "pap_10", "eval_papakostas", "train_jang_device",
-                    "train_jang_host", "train_papakostas"),
+                    "train_jang_host", "train_papakostas",
+                    "sharded_frontend"),
              "K3": ("resynth_60", "eval_jang", "eval_papakostas"),
              "K4": ("eval_lemaire", "eval_five", "eval_if")}
     for entry, (kernel, names) in zip(entries, paths.items()):
@@ -3162,7 +3610,13 @@ def run() -> None:
               == entry["launches"], f"{kernel}: launches per pair do not "
               "add up")
         entry["pairs"] = pair_entries[kernel]
-    print("[11 checks] ok", flush=True)
+    # The halo-mode records: the launches of that mode among each kernel's.
+    for rec, kernel in zip(halo_records, ("K1", "K2")):
+        rec["launches"] = sum(runs[n].get("halo", {}).get(kernel, 0)
+                              for n in paths[kernel])
+        check(rec["launches"] > 0, f"{kernel} never ran in halo mode")
+        entries.append(rec)
+    print("[12 checks] ok", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"serving": {
         "card": card, "lemaire_mtl": lem_t, "jang_mtl": jang_t,
@@ -3267,7 +3721,22 @@ def run() -> None:
                       "launch_shapes": feat["launch_shapes"]},
         "tsne": {k: v for k, v in tsne_run.items()
                  if k not in ("shapes", "by_pair")}}}, default=str))
-    print(f"[12 total] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"parallel": {
+        "card": card, **parallel,
+        "readings": {
+            "k1_halo_device_ms_1x15000": halo_records[0]["device_ms"],
+            "k1_whole_device_ms_1x16404": entries[0]["device_ms"],
+            "featurize_600s_sharded_ms": seg_read["featurize_sharded_ms"],
+            "featurize_600s_one_device_ms":
+            seg_read["featurize_one_device_ms"],
+            "featurize_600s_slabbed_ms_time_legs":
+            lem_t["slabbed_600s"]["featurize_ms"],
+            "dp_world_1_audio_step_ms": dp_read["audio_step"]["dp_step_ms"],
+            "single_audio_step_ms": dp_read["audio_step"]["single_step_ms"],
+            "dp_world_1_patch_step_ms": dp_read["patch_step"]["dp_step_ms"],
+            "single_patch_step_ms": dp_read["patch_step"]["single_step_ms"]}
+    }}, default=str))
+    print(f"[13 total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,8 +23,11 @@ both pipelines and the tester.
 
 ``pipeline='auto'`` is the device pipeline on CUDA and the host pipeline on
 the CPU.  Everything runs on ``device``, CUDA unless the caller asks for
-the CPU.  One process; the JAX package's multi-host file sharding is not
-ported (ROADMAP §1, item 9).
+the CPU.  Under several processes (``parallel.initialize_from_env``:
+torchrun's environment with ``SMHPSS_DISTRIBUTED=1``, or the JAX package's
+coordinator variables) each process reads its own round-robin shard of the
+fold's training and validation files and draws from its own seed, as the
+JAX runner does; one process runs as before.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from ..eval.metrics import accuracy
 from ..eval.tester import FileWiseTester
 from ..models.lemaire import init_weights
 from ..models.zoo import MTL, ModelSpec, get_spec
+from ..parallel.distributed import (initialize_from_env, per_process_seed,
+                                    process_file_shard)
 from ..train.checkpoint import (checkpoint_exists, restore_checkpoint,
                                 update_metadata)
 from ..train.config import ExperimentConfig
@@ -238,7 +243,11 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
     train_files = _class_subset(train_files, config.n_classes)
     test_files = _class_subset(test_files, config.n_classes)
     tr_files, va_files = split_train_val(train_files, seed=config.seed)
-    data_seed = config.seed
+    # Several processes: each reads a disjoint file shard and draws from a
+    # decorrelated stream; the model's weights stay seeded by config.seed.
+    tr_files = process_file_shard(tr_files)
+    va_files = process_file_shard(va_files)
+    data_seed = per_process_seed(config.seed)
 
     fold_stats = None
     if config.frame_level_scaling:
@@ -432,6 +441,8 @@ def run_experiment(config: ExperimentConfig, folds=None, *,
     the caller passes ``device="cpu"``; CUDA without a GPU raises."""
     device = resolve_device(device)
     _check_ported(config)
+    # Several processes where the environment asks for them; a no-op in one.
+    initialize_from_env()
     cv_file_list = load_or_create_folds(config)
 
     if not config.tr_steps:

@@ -18,7 +18,10 @@ that ``cli.mtl`` (``train/checkpoint.py``) writes, as the JAX CLI's
 orbax checkpoints are refused: the port reads its own.  The input is a wav
 or an mp3 (``data/audio.py::read_audio``).  The model serves in float32
 whatever precision it was trained in, as the JAX CLI's.  Runs on CUDA
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  With several GPUs visible, the Mel-HPSS
+features of a broadcast of at least 20 frames a GPU are computed
+time-sharded over all of them (``parallel.featuregram_time_sharded``: K1
+in halo mode on each), as the JAX CLI shards over its devices.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ from ..eval.segment import (StreamingSegmenter,
                             interval_annotations_to_markers,
                             read_interval_csv)
 from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, MTL, load_model
-from ..ops.featuregram import featuregram, featuregram_slabbed
+from ..ops.featuregram import _parse, featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
+from ..parallel import Mesh, featuregram_time_sharded
 from ..train.checkpoint import model_npz
 from ..train.config import MODEL_PRESETS, preset_n_mels
 
@@ -53,12 +57,28 @@ MODELS = ("Lemaire_et_al_MTL", "Lemaire_et_al_Cascaded_MTL",
 SLAB_THRESHOLD_FRAMES = 16384
 
 
-def _featurize_broadcast(x: np.ndarray, preset: dict,
-                         device: torch.device) -> torch.Tensor:
-    """Featuregram ``(D, T)`` of a whole broadcast, on ``device``."""
+def _featurize_broadcast(x: np.ndarray, preset: dict, device: torch.device,
+                         devices=None) -> torch.Tensor:
+    """Featuregram ``(D, T)`` of a whole broadcast, on ``device``.
+
+    ``devices`` (default: every visible GPU on CUDA, ``[device]`` on the
+    CPU): with more than one, a Mel-HPSS featName and at least 20 frames a
+    device, the time axis is sharded over them through the fused front
+    end's halo mode, as in the JAX CLI; a device may repeat."""
     kw = dict(feat_name=preset["feat_name"], n_fft=preset["n_fft"],
               n_mels=preset_n_mels(preset))
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+    _, is_mel, harm, perc = _parse(preset["feat_name"])
+    n_dev = len(devices)
     true_t = n_frames(len(x), preset["n_fft"], 160)
+    if n_dev > 1 and is_mel and (harm or perc) and true_t // n_dev >= 20:
+        mesh = Mesh(devices, ("time",))
+        return featuregram_time_sharded(
+            torch.as_tensor(np.asarray(x, np.float32), device=device), mesh,
+            **kw)
     if true_t > SLAB_THRESHOLD_FRAMES:
         return featuregram_slabbed(
             torch.as_tensor(np.asarray(x, np.float32), device=device), **kw)
@@ -118,7 +138,10 @@ def segmenter(model: str, predict_fn, *, patch_size: int = 68,
         batch_windows=IMAGE_BATCH_WINDOWS if kind == "image" else None)
 
 
-def main(argv=None):
+def main(argv=None, *, devices=None):
+    """The command line; ``devices`` (a function argument only, not a flag)
+    overrides the GPUs the features are sharded over (e.g. ``[cuda:0] *
+    4``: four shards on one card)."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("audio", help="input wav or mp3 (any length), or a "
                                  "precomputed featuregram .npy with --spec")
@@ -152,7 +175,7 @@ def main(argv=None):
                              dtype=torch.float32, device=device)
     else:
         x, _ = read_audio(args.audio)
-        fv = _featurize_broadcast(x, preset, device)
+        fv = _featurize_broadcast(x, preset, device, devices)
 
     model = load_model(weights, device, args.model, args.patch_size)
     seg = segmenter(args.model, model, patch_size=args.patch_size,

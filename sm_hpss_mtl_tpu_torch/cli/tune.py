@@ -18,7 +18,9 @@
 Results go to the tab-separated ``Performance_Tuning.csv`` in
 ``--output``; the best setting is printed.  Runs on CUDA unless
 ``--device cpu`` is given; without a GPU it raises.  ``--shard-trials``
-(trials over several GPUs) raises: ROADMAP §1, item 9.
+(with ``--vmap`` or ``--mode seeds``) shards the trial axis over every
+visible GPU (``parallel.make_mesh``), or over the one CPU with ``--device
+cpu``; the trial count must divide evenly.
 
     python -m sm_hpss_mtl_tpu_torch.cli.tune --data corpus --mode grid \\
         --param l_harm [--device cpu]
@@ -41,7 +43,8 @@ from ..data.folds import get_train_test_files
 from ..data.prefetch import DevicePrefetcher
 from ..device import resolve_device
 from ..train.config import ExperimentConfig
-from ..train.multitrial import fit_multi, refuse_sharded_trials
+from ..parallel.mesh import make_mesh
+from ..train.multitrial import fit_multi
 from ..train.optimizers import for_model
 from ..utils.bayesopt import ARCH_SPACE, MTL_HEADS_SPACE, BayesOptimizer
 from ..utils.results import append_results
@@ -98,9 +101,10 @@ def run_vmapped_trials(base: ExperimentConfig, trials: list[dict],
     """Train the shape-invariant ``trials`` (loss weights, lr scales,
     seeds) as one multi-trial program (``train/multitrial.py``) on one
     host batch stream of fold ``fold``: the host pipeline (``Featurizer``
-    on ``device``, ``BalancedBatcher``) on one GPU.  Returns one row per
-    trial: its settings, best val loss and accuracy, and best epoch."""
-    refuse_sharded_trials(mesh)
+    on ``device``, ``BalancedBatcher``).  ``mesh`` shards the trials over
+    its 'data' devices (``train.multitrial.fit_multi``).  Returns one row
+    per trial: its settings, best val loss and accuracy, and best
+    epoch."""
     device = resolve_device(device)
     _check_ported(base)
     cv_file_list = load_or_create_folds(base)
@@ -142,7 +146,7 @@ def run_vmapped_trials(base: ExperimentConfig, trials: list[dict],
             heads=tuple(heads) if spec.mtl and heads else None,
             epochs=base.epochs, steps_per_epoch=base.tr_steps,
             val_steps=max(base.v_steps, 1), l2_reg=base.l2_reg,
-            base_seed=base.seed, device=device, verbose=verbose)
+            base_seed=base.seed, mesh=mesh, device=device, verbose=verbose)
     finally:
         train_iter.close()
         val_iter.close()
@@ -179,8 +183,8 @@ def main(argv=None):
                    help="train shape-invariant trials as one multi-trial "
                         "program (grid --param loss_weights only)")
     p.add_argument("--shard-trials", action="store_true",
-                   help="shard the trial axis over several GPUs: not "
-                        "ported yet (ROADMAP §1, item 9)")
+                   help="with --vmap/--mode seeds: shard the trial axis "
+                        "over the visible GPUs (trials must divide evenly)")
     p.add_argument("--param", choices=list(GRID_RANGES), default="l_harm")
     p.add_argument("--space", choices=["arch", "mtl-heads"], default="arch")
     p.add_argument("--algo", choices=["random", "bayes"], default="random")
@@ -195,7 +199,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    refuse_sharded_trials(True if args.shard_trials else None)
     device = resolve_device(args.device)
 
     base = ExperimentConfig(
@@ -215,7 +218,12 @@ def main(argv=None):
         else:
             raise SystemExit("--vmap supports --param loss_weights only "
                              "(other grid params change tensor shapes)")
-        rows = run_vmapped_trials(base, trials, args.fold, device=device)
+        mesh = None
+        if args.shard_trials:
+            mesh = make_mesh(devices=[device] if device.type == "cpu"
+                             else None)
+        rows = run_vmapped_trials(base, trials, args.fold, mesh=mesh,
+                                  device=device)
         for row in rows:
             append_results(args.output, args.fold, row, suffix="Tuning")
             print(row, flush=True)

@@ -58,6 +58,15 @@
 //     outside [0, T) are read back through the symmetric rule from the
 //     magnitude rows (as the JAX kernel's edge fix copies rows), so edge
 //     tiles do less work and every T >= 1 works.
+//   - Halo mode (the time-sharded front end, parallel/frontend_shard.py; the
+//     JAX kernel's halo_in_audio and edge_flags): the audio carries
+//     HT = l_harm/2 frames of a neighbour's audio before frame 0 and after
+//     frame T-1, and each side has a flag.  At a side whose flag is 0 those
+//     frames are real: the real range grows to [-HT, T + HT) there and the
+//     medians read them as they are.  At a side whose flag is 1 the audio
+//     there is ignored and the symmetric rule applies, as for a whole
+//     signal.  Nothing else changes: the flags move the bounds lo and hi of
+//     the real range, and the audio is staged HT*hop samples later.
 //   - Shared memory is the audio rows plus the magnitudes (64 x F floats),
 //     95 KB at n_fft 400 and 110 KB at 512, so two blocks (16 warps) run
 //     per SM; registers are capped at 128 by __launch_bounds__ for that.
@@ -155,7 +164,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
                 const float* __restrict__ mel, const int2* __restrict__ bands,
                 float* __restrict__ out_h, float* __restrict__ out_p, int N,
-                int T, int n_fft, int win_length, int hop, int n_mels) {
+                int T, int n_fft, int win_length, int hop, int n_mels,
+                int halo, int mirror_l, int mirror_r) {
   constexpr int HT = Geometry<LH>::HT;
   constexpr int HP = LP / 2;
   constexpr int TILE = Geometry<LH>::TILE;
@@ -164,9 +174,14 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
   const int n_audio = audio_floats(n_fft, hop);
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
+  // Frames in [lo, hi) are real (their audio is in y); output frame t
+  // starts at sample (t + off) * hop.  Without halo both flags are 1.
+  const int off = halo ? HT : 0;
+  const int lo = mirror_l ? 0 : -HT;
+  const int hi = mirror_r ? T : T + HT;
   // The real frames this tile's medians read: [f_lo, f_hi).
-  const int f_lo = max(0, t0 - HT);
-  const int f_hi = min(T, t0 + TILE + HT);
+  const int f_lo = max(lo, t0 - HT);
+  const int f_hi = min(hi, t0 + TILE + HT);
   const int n_real = f_hi - f_lo;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -178,7 +193,7 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
   // Stage the samples of frames f_lo .. f_hi-1 as rows of `hop`; the rows
   // past them are zeroed (read only by DFT rows that are discarded).
   {
-    const float* src = y + (size_t)b * N + (size_t)f_lo * hop;
+    const float* src = y + (size_t)b * N + (size_t)(f_lo + off) * hop;
     const int span = (n_real - 1) * hop + n_fft;
     const int quads = hop / 4;
     const int n_quads = (n_audio / pitch) * quads;
@@ -326,8 +341,14 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
 
   // Medians and soft masks.  In an interior tile every frame of the medians
   // is real and frame t0 - HT + r sits in row r; edge tiles map frames
-  // through the symmetric rule.
-  const bool interior = t0 - HT >= 0 && t0 + TILE + HT <= T;
+  // outside [lo, hi) through the symmetric rule at the mirrored side (one
+  // reflection lands in the real range when the other side is real).
+  const bool interior = t0 - HT >= lo && t0 + TILE + HT <= hi;
+  const bool both = mirror_l && mirror_r;
+  auto edge = [&](int f) {
+    if (both) return sym(f, T);
+    return f < lo ? -1 - f : (f >= hi ? 2 * T - 1 - f : f);
+  };
   auto masks = [&](int i, int k, float* sh, float* sp) {
     const int t = t0 + i;
     float v[LH];
@@ -337,7 +358,7 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
     } else {
 #pragma unroll
       for (int j = 0; j < LH; ++j)
-        v[j] = mag[(sym(t - HT + j, T) - f_lo) * F + k];
+        v[j] = mag[(edge(t - HT + j) - f_lo) * F + k];
     }
     const float harm = Median<LH>::run(v);
     const float* row = mag + (t - f_lo) * F;
@@ -415,6 +436,19 @@ bool geometry_ok(int n_fft, int win_length, int hop) {
          (n_fft - win_length) % 2 == 0;
 }
 
+// The halo switch and the edge flags: without halo both sides mirror, and
+// the audio holds the T output frames (and, in halo mode, HT more on each
+// side).
+bool halo_ok(int N, int T, int n_fft, int hop, int l_harm, int halo,
+             int mirror_l, int mirror_r) {
+  if (halo != 0 && halo != 1) return false;
+  if ((mirror_l != 0 && mirror_l != 1) || (mirror_r != 0 && mirror_r != 1))
+    return false;
+  if (!halo && !(mirror_l && mirror_r)) return false;
+  const long long frames = (long long)T + (halo ? 2 * (l_harm / 2) : 0);
+  return T >= 1 && (long long)N >= (frames - 1) * hop + n_fft;
+}
+
 template <int LH, int LP, bool FULLRES>
 cudaError_t prepare(int n_fft, int hop, size_t* bytes) {
   *bytes = (size_t)smem_floats(n_fft, hop) * sizeof(float);
@@ -431,7 +465,7 @@ template <int LH, int LP, bool FULLRES>
 cudaError_t launch(const float* y, const float4* basis, const float* mel,
                    const int2* bands, float* out_h, float* out_p, int B, int N,
                    int T, int n_fft, int win_length, int hop, int n_mels,
-                   cudaStream_t stream) {
+                   int halo, int mirror_l, int mirror_r, cudaStream_t stream) {
   size_t bytes;
   cudaError_t e = prepare<LH, LP, FULLRES>(n_fft, hop, &bytes);
   if (e != cudaSuccess) return e;
@@ -439,7 +473,7 @@ cudaError_t launch(const float* y, const float4* basis, const float* mel,
   const dim3 grid((T + TILE - 1) / TILE, B);
   frontend_kernel<LH, LP, FULLRES><<<grid, THREADS, bytes, stream>>>(
       y, basis, mel, bands, out_h, out_p, N, T, n_fft, win_length, hop,
-      n_mels);
+      n_mels, halo, mirror_l, mirror_r);
   return cudaGetLastError();
 }
 
@@ -458,8 +492,9 @@ template <bool FULLRES>
 int dispatch(const void* y, const void* basis, const void* mel,
              const void* bands, void* out_h, void* out_p, int B, int N, int T,
              int n_fft, int win_length, int hop, int l_harm, int l_perc,
-             int n_mels, void* stream) {
-  if (!geometry_ok(n_fft, win_length, hop))
+             int n_mels, int halo, int mirror_l, int mirror_r, void* stream) {
+  if (!geometry_ok(n_fft, win_length, hop) ||
+      !halo_ok(N, T, n_fft, hop, l_harm, halo, mirror_l, mirror_r))
     return (int)cudaErrorInvalidValue;
   const float* yy = static_cast<const float*>(y);
   const float4* bb = static_cast<const float4*>(basis);
@@ -471,7 +506,8 @@ int dispatch(const void* y, const void* basis, const void* mel,
 #define HPSS_LAUNCH(LH, LP)                                                 \
   if (l_harm == LH && l_perc == LP)                                         \
     return launch<LH, LP, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft, \
-                                   win_length, hop, n_mels, st);
+                                   win_length, hop, n_mels, halo, mirror_l, \
+                                   mirror_r, st);
   HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
 #undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -486,25 +522,33 @@ extern "C" {
 // lays it out (the window symmetric about n_fft/2, zero at n = 0);
 // mel: (n_mels, n_fft/2+1) f32; bands: (n_mels, 2) int32, each band's
 // nonzero bins [lo, hi); out_h, out_p: (B, n_mels, T) f32,
-// T = 1 + (N - n_fft) / hop >= 1.  n_fft and hop must be multiples of 8.
+// T = 1 + (N - n_fft) / hop >= 1, or with halo = 1 that less 2*(l_harm/2):
+// the audio then carries l_harm/2 frames before frame 0 and after frame
+// T-1, real at a side whose flag (mirror_l, mirror_r) is 0, ignored and
+// replaced by the symmetric mirror at a side whose flag is 1.  Without halo
+// both flags must be 1.  n_fft and hop must be multiples of 8.
 // Returns a cudaError_t; cudaErrorInvalidValue for a (l_harm, l_perc) pair
-// this library was not built for (HPSS_FOR_EACH_PAIR) or an unsupported
-// geometry.  Does not synchronise.
+// this library was not built for (HPSS_FOR_EACH_PAIR), an unsupported
+// geometry or flags, or audio too short for T.  Does not synchronise.
 int k1_stft_hpss_mel(const void* y, const void* basis, const void* mel,
                      const void* bands, void* out_h, void* out_p, int B, int N,
                      int T, int n_fft, int win_length, int hop, int l_harm,
-                     int l_perc, int n_mels, void* stream) {
+                     int l_perc, int n_mels, int halo, int mirror_l,
+                     int mirror_r, void* stream) {
   return dispatch<false>(y, basis, mel, bands, out_h, out_p, B, N, T, n_fft,
-                         win_length, hop, l_harm, l_perc, n_mels, stream);
+                         win_length, hop, l_harm, l_perc, n_mels, halo,
+                         mirror_l, mirror_r, stream);
 }
 
 // Launches K2 on `stream`.  y and basis as for k1_stft_hpss_mel; out_h,
 // out_p: (B, n_fft/2+1, T) f32.  Returns as k1_stft_hpss_mel does.
 int k2_stft_hpss(const void* y, const void* basis, void* out_h, void* out_p,
                  int B, int N, int T, int n_fft, int win_length, int hop,
-                 int l_harm, int l_perc, void* stream) {
+                 int l_harm, int l_perc, int halo, int mirror_l, int mirror_r,
+                 void* stream) {
   return dispatch<true>(y, basis, nullptr, nullptr, out_h, out_p, B, N, T,
-                        n_fft, win_length, hop, l_harm, l_perc, 0, stream);
+                        n_fft, win_length, hop, l_harm, l_perc, 0, halo,
+                        mirror_l, mirror_r, stream);
 }
 
 // Blocks of K2 (fullres != 0) or K1 that one SM holds at once, from

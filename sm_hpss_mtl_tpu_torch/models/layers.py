@@ -7,7 +7,13 @@ towards the unbiased one, which drifts by ``n/(n-1)`` on every update.
 :class:`BatchNorm1d` and :class:`BatchNorm2d` subclass torch's, so state_dict
 keys and ``isinstance`` checks stay, and differ only in train mode: they
 normalise with the batch statistics and update the running ones with the
-biased variance.  Eval mode is torch's, unchanged.
+biased variance.  Eval mode is torch's, unchanged.  With a process group
+set (:func:`use_process_group`, the data-parallel step of
+``parallel/dp.py``), train mode takes the mean and the biased variance over
+the group's global batch, with gradients through the reduction, and moves
+the running statistics by them, as flax's BatchNorm under GSPMD reduces
+over the global batch.  Not ``nn.SyncBatchNorm``: its running variance is
+the unbiased one, and it does not promote bfloat16 inputs.
 
 Dropout draws from an explicit ``torch.Generator`` on the activations'
 device, set on the module by :func:`use_generator` (the train steps call
@@ -31,6 +37,7 @@ No ``torch.autocast``: its list of operators is not flax's.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -78,16 +85,42 @@ class Conv2d(_Compute, nn.Conv2d):
         return self._conv_forward(x, w, None)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the gradient is summed the same way (each
+    process's share of the global statistics feeds every process's
+    loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class _BiasedRunningVariance:
     """Train-mode forward shared by the two BatchNorm classes.  The input
     is promoted to the parameters' type first (float32 for bfloat16
     activations), in both modes."""
+
+    #: The process group whose global batch train mode normalises over
+    #: (:func:`use_process_group`); None for this process's batch.
+    process_group = None
+    sync = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.ndim))
+        if self.sync:
+            return self._global_batch(x, dims)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=dims, correction=0)
             self.running_mean.lerp_(mean, self.momentum)
@@ -96,6 +129,25 @@ class _BiasedRunningVariance:
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
+    def _global_batch(self, x: torch.Tensor, dims: list) -> torch.Tensor:
+        """Normalise by the group's global mean and biased variance (two
+        passes, each one reduction over the group)."""
+        group = self.process_group
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        count = torch.tensor([x.numel() / x.shape[1]], dtype=x.dtype,
+                             device=x.device)
+        sums = _AllReduceSum.apply(torch.cat([x.sum(dims), count]), group)
+        mean = sums[:-1] / sums[-1].detach()
+        xc = x - mean.view(shape)
+        var = _AllReduceSum.apply(xc.square().sum(dims), group) \
+            / sums[-1].detach()
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return (xc * torch.rsqrt(var + self.eps).view(shape)
+                * self.weight.view(shape) + self.bias.view(shape))
+
 
 class BatchNorm1d(_BiasedRunningVariance, nn.BatchNorm1d):
     pass
@@ -103,6 +155,17 @@ class BatchNorm1d(_BiasedRunningVariance, nn.BatchNorm1d):
 
 class BatchNorm2d(_BiasedRunningVariance, nn.BatchNorm2d):
     pass
+
+
+def use_process_group(model: nn.Module, group=None) -> nn.Module:
+    """Make ``model``'s BatchNorm layers take their train-mode statistics
+    over the global batch of process group ``group`` (None: the default
+    group, which must be initialized).  Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, _BiasedRunningVariance):
+            m.process_group = group
+            m.sync = True
+    return model
 
 
 class Dropout(nn.Module):

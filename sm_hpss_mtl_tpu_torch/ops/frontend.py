@@ -18,6 +18,15 @@ launched, it raises.  :func:`launch` runs K1 or K2 at any length, without
 the short-clip branch (``chip_smoke.py`` holds the kernels to their plain
 versions through it).
 
+Halo mode (``halo_in_audio=True``, the JAX kernel's argument of that name):
+the audio already carries ``l_harm//2`` frames of a neighbour's audio
+before frame 0 and after frame ``T-1`` (``T = n_frames(N) - 2*(l_harm//2)``),
+as the time-sharded front end (``parallel/frontend_shard.py``) hands each
+shard.  ``edge_flags = (mirror_left, mirror_right)`` says per side whether
+that audio is ignored and the symmetric edge mirror applies (1, a global
+edge) or the medians read those frames as they are (0, a shard join).
+Without halo both flags are 1.
+
 The kernels compute the DFT on the tensor cores in split TF32 (each
 operand a sum of two TF32 halves, three products per k-step), from each
 frame folded into its even and odd parts (see ``csrc/frontend.cu``):
@@ -54,9 +63,9 @@ def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
     """The kernels' library for one median pair, built at first use."""
     lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p]
+    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 12 + [p]
     lib.k1_stft_hpss_mel.restype = i
-    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 8 + [p]
+    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 11 + [p]
     lib.k2_stft_hpss.restype = i
     lib.k1_blocks_per_sm.argtypes = [i] * 5
     lib.k1_blocks_per_sm.restype = i
@@ -154,37 +163,73 @@ def _fragments_on(n_fft: int, win_length: int,
     return torch.as_tensor(dft_fragments(n_fft, win_length), device=device)
 
 
+def _edge_flags(halo_in_audio: bool, edge_flags) -> tuple[int, int]:
+    """``edge_flags`` as two ints in {0, 1}; without halo only (1, 1)."""
+    flags = tuple(int(f) for f in edge_flags)
+    if len(flags) != 2 or not set(flags) <= {0, 1}:
+        raise ValueError(f"edge_flags must be two of 0 and 1, got "
+                         f"{edge_flags!r}")
+    if not halo_in_audio and flags != (1, 1):
+        raise ValueError("edge_flags other than (1, 1) need halo_in_audio: "
+                         "without a halo both edges are global")
+    return flags
+
+
 def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
                         n_fft: int = 400, win_length: int = 400,
                         hop_length: int = 160, l_harm: int = 21,
-                        l_perc: int = 11, power: float = 2.0
+                        l_perc: int = 11, power: float = 2.0,
+                        halo_in_audio: bool = False, edge_flags=(1, 1)
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """stft_mag -> hpss -> mel projection: ``(..., N)`` audio and an
     ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps, float32 (all of
-    it in float64 for float64 audio)."""
+    it in float64 for float64 audio).  Halo mode as in the module doc."""
     H, P = stft_hpss_plain(y, n_fft=n_fft, win_length=win_length,
                            hop_length=hop_length, l_harm=l_harm,
-                           l_perc=l_perc, power=power)
+                           l_perc=l_perc, power=power,
+                           halo_in_audio=halo_in_audio, edge_flags=edge_flags)
     M = mel_basis.to(device=H.device, dtype=H.dtype)
     return torch.matmul(M, H), torch.matmul(M, P)
 
 
 def stft_hpss_plain(y: torch.Tensor, *, n_fft: int = 400,
                     win_length: int = 400, hop_length: int = 160,
-                    l_harm: int = 21, l_perc: int = 11, power: float = 2.0
+                    l_harm: int = 21, l_perc: int = 11, power: float = 2.0,
+                    halo_in_audio: bool = False, edge_flags=(1, 1)
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """stft_mag -> hpss: ``(..., N)`` audio -> two ``(..., F, T)`` maps."""
+    """stft_mag -> hpss: ``(..., N)`` audio -> two ``(..., F, T)`` maps.
+    In halo mode the harmonic median runs over the halo frames of each side
+    whose flag is 0 and mirrors at each side whose flag is 1."""
+    ml, mr = _edge_flags(halo_in_audio, edge_flags)
     S = stft_mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
-    return hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
+    if not halo_in_audio:
+        return hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
+    ht = l_harm // 2
+    T = S.shape[-1] - 2 * ht
+    if T < 1:
+        raise ValueError(f"halo mode needs more than {2 * ht} frames, got "
+                         f"{S.shape[-1]}")
+    if ml and mr:
+        return hpss_plain(S[..., ht:ht + T], l_harm=l_harm, l_perc=l_perc,
+                          power=power)
+    f = torch.arange(-ht, T + ht, device=S.device)
+    lo, hi = (0 if ml else -ht), (T if mr else T + ht)
+    f = torch.where(f < lo, -1 - f, torch.where(f >= hi, 2 * T - 1 - f, f))
+    return hpss_mod.hpss_from_extended(S.index_select(-1, f + ht),
+                                       l_harm=l_harm, l_perc=l_perc,
+                                       power=power)
 
 
 def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
-           win_length: int, hop_length: int, l_harm: int, l_perc: int
+           win_length: int, hop_length: int, l_harm: int, l_perc: int,
+           halo_in_audio: bool = False, edge_flags=(1, 1)
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 with a mel basis ``M``; K2 (full resolution) with ``M=None``, on
-    CUDA audio ``(..., N)`` of any length of at least one frame.  The
-    dispatchers send clips under ``2*(l_harm//2)`` frames elsewhere; this
-    launches the fused kernel whatever the length."""
+    CUDA audio ``(..., N)`` of any length of at least one frame (in halo
+    mode, of more than ``2*(l_harm//2)`` frames).  The dispatchers send
+    clips under ``2*(l_harm//2)`` frames elsewhere; this launches the fused
+    kernel whatever the length."""
+    ml, mr = _edge_flags(halo_in_audio, edge_flags)
     F = 1 + n_fft // 2
     if y.dtype != torch.float32:
         raise TypeError("frontend kernel takes float32 audio")
@@ -208,9 +253,11 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
         raise ValueError("kernel takes a window centred symmetrically: "
                          "n_fft - win_length must be even")
     lead, N = y.shape[:-1], y.shape[-1]
-    T = n_frames(N, n_fft, hop_length)
+    halo = 2 * (l_harm // 2) if halo_in_audio else 0
+    T = n_frames(N, n_fft, hop_length) - halo
     if T < 1:
-        raise ValueError(f"{N} samples are shorter than one frame of {n_fft}")
+        raise ValueError(f"{N} samples are shorter than {halo + 1} frames "
+                         f"of {n_fft}")
     y2 = y.reshape(-1, N).contiguous()
     B = y2.shape[0]
     rows = F if M is None else M.shape[0]
@@ -227,7 +274,7 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
             err = lib.k2_stft_hpss(
                 y2.data_ptr(), basis.data_ptr(), out_h.data_ptr(),
                 out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
-                l_harm, l_perc, stream)
+                l_harm, l_perc, int(halo_in_audio), ml, mr, stream)
         else:
             M = M.contiguous()
             bands = _band_ranges_of(M)
@@ -235,7 +282,7 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
                 y2.data_ptr(), basis.data_ptr(), M.data_ptr(),
                 bands.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N,
                 T, n_fft, win_length, hop_length, l_harm, l_perc, rows,
-                stream)
+                int(halo_in_audio), ml, mr, stream)
     name = "stft_hpss" if M is None else "stft_hpss_mel"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -246,20 +293,23 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
 
 
 def _dispatch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft,
-              win_length, hop_length, l_harm, l_perc):
+              win_length, hop_length, l_harm, l_perc, halo_in_audio=False,
+              edge_flags=(1, 1)):
     """The CUDA route of :func:`stft_hpss_mel` (``M`` given) and
     :func:`stft_hpss` (``M=None``): clips under ``2*(l_harm//2)`` frames go
     through ``stft_mag`` and K4 or K3, as ``frontend_pallas._dispatch``
-    sends them to ``hpss_pallas``; longer ones launch K1 or K2."""
+    sends them to ``hpss_pallas``; longer ones, and every halo-mode call,
+    launch K1 or K2."""
     T = n_frames(y.shape[-1], n_fft, hop_length)
-    if 1 <= T < 2 * (l_harm // 2):
+    if not halo_in_audio and 1 <= T < 2 * (l_harm // 2):
         S = stft_mag(y.to(torch.float32), n_fft=n_fft,
                      win_length=win_length, hop_length=hop_length)
         if M is None:
             return hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc)
         return hpss_mod.hpss_mel(S, M, l_harm=l_harm, l_perc=l_perc)
     return launch(y, M, n_fft=n_fft, win_length=win_length,
-                  hop_length=hop_length, l_harm=l_harm, l_perc=l_perc)
+                  hop_length=hop_length, l_harm=l_harm, l_perc=l_perc,
+                  halo_in_audio=halo_in_audio, edge_flags=edge_flags)
 
 
 def _check_modes(power: float, dft_precision: str) -> None:
@@ -274,7 +324,8 @@ def _check_modes(power: float, dft_precision: str) -> None:
 def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
                   n_fft: int = 400, win_length: int = 400,
                   hop_length: int = 160, l_harm: int = 21, l_perc: int = 11,
-                  power: float = 2.0, dft_precision: str = "highest"
+                  power: float = 2.0, dft_precision: str = "highest",
+                  halo_in_audio: bool = False, edge_flags=(1, 1)
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Audio ``(..., N)`` -> ``(mel(H), mel(P))``, each ``(..., n_mels, T)``.
 
@@ -285,10 +336,12 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     2, what every feature family uses); another power raises.  CPU tensors
     take the plain version; CUDA tensors launch K1 (each launch adds one to
     ``stft_hpss_mel.launches``), or for clips under ``2*(l_harm//2)``
-    frames the plain ``stft_mag`` and K4."""
+    frames the plain ``stft_mag`` and K4.  Halo mode as in the module doc
+    (always K1 on CUDA)."""
     _check_modes(power, dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc)
+              l_harm=l_harm, l_perc=l_perc, halo_in_audio=halo_in_audio,
+              edge_flags=edge_flags)
     if y.device.type == "cpu":
         return stft_hpss_mel_plain(y, mel_basis, **kw)
     if y.device.type == "cuda":
@@ -298,7 +351,8 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
 
 def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
               hop_length: int = 160, l_harm: int = 21, l_perc: int = 11,
-              power: float = 2.0, dft_precision: str = "highest"
+              power: float = 2.0, dft_precision: str = "highest",
+              halo_in_audio: bool = False, edge_flags=(1, 1)
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Audio ``(..., N)`` -> full-resolution ``(H, P)`` masked magnitudes,
     each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
@@ -309,7 +363,8 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     the plain ``stft_mag`` and K3."""
     _check_modes(power, dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc)
+              l_harm=l_harm, l_perc=l_perc, halo_in_audio=halo_in_audio,
+              edge_flags=edge_flags)
     if y.device.type == "cpu":
         return stft_hpss_plain(y, **kw)
     if y.device.type == "cuda":

@@ -97,6 +97,24 @@ def hpss_plain(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     return S * mh, S * mp
 
 
+def hpss_from_extended(S_ext: torch.Tensor, *, l_harm: int = 21,
+                       l_perc: int = 11, power: float = 2.0
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hpss_plain` of ``(..., F, T + 2*(l_harm//2))`` magnitudes whose
+    time axis already carries ``l_harm//2`` frames of context on each side
+    (a neighbour's frames or a mirror): ``(H, P)`` of the ``T`` centre
+    frames.  The harmonic median reads the context as it is; the
+    percussive one is over the centre frames' bins, symmetric as usual."""
+    ht = l_harm // 2
+    T = S_ext.shape[-1] - 2 * ht
+    harm = S_ext.unfold(-1, l_harm, 1).median(dim=-1).values
+    S = S_ext[..., ht:ht + T]
+    perc = _sliding_median(S, l_perc, dim=-2)
+    mh, mp = softmask(harm, perc, power), softmask(perc, harm, power)
+    S = S.to(real_dtype(S))
+    return S * mh, S * mp
+
+
 def hpss_mel_plain(S: torch.Tensor, mel_basis: torch.Tensor, *,
                    l_harm: int = 21, l_perc: int = 11, power: float = 2.0
                    ) -> tuple[torch.Tensor, torch.Tensor]:

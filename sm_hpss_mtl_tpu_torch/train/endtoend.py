@@ -94,7 +94,11 @@ def _broadcast_labels(labels, k: int):
     return tile(labels)
 
 
-def _featurizer(cfg: FeatureConfig, **patch_kw) -> Callable:
+def audio_featurizer(cfg: FeatureConfig, **patch_kw) -> Callable:
+    """``(audio (B, n), clip_labels) -> (patches, row labels)``: the device
+    featurizer the audio steps run first (``featurize=`` of
+    ``train.state.make_train_step`` and ``parallel.make_dp_train_step``);
+    ``patch_kw`` as :func:`device_featurize_patches` takes them."""
     def featurize(audio: torch.Tensor, labels):
         batch = device_featurize_patches(audio, cfg, **patch_kw)
         rows = next(iter(batch.values())) if isinstance(batch, dict) else batch
@@ -117,7 +121,7 @@ def make_audio_train_step(model, optimizer, cfg: FeatureConfig, *,
     """``(state, audio (B, n), clip_labels) -> metrics``: featurization,
     the forward and backward passes and the optimizer update
     (``train.state.make_train_step`` after the device featurizer)."""
-    featurize = _featurizer(cfg, patch_size=patch_size,
+    featurize = audio_featurizer(cfg, patch_size=patch_size,
                             patch_shift=patch_shift, input_kind=input_kind,
                             skewness_vector=skewness_vector,
                             fold_stats=fold_stats,
@@ -136,7 +140,7 @@ def make_audio_eval_step(model, cfg: FeatureConfig, *, patch_size: int,
                          n_patches_per_clip: int | None = None) -> Callable:
     """``(state, audio, clip_labels) -> metrics``, the eval analog of
     :func:`make_audio_train_step` (keys of ``train.state.make_eval_step``)."""
-    featurize = _featurizer(cfg, patch_size=patch_size,
+    featurize = audio_featurizer(cfg, patch_size=patch_size,
                             patch_shift=patch_shift, input_kind=input_kind,
                             skewness_vector=skewness_vector,
                             fold_stats=fold_stats,

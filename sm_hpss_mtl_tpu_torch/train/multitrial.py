@@ -23,8 +23,11 @@ trial's step is exactly its single-trial step
   trial and step instead, so the streams differ from its own.
 
 Seed replicates are trials whose initial weights come from their own seed
-(``models.lemaire.init_weights``).  Trials on several GPUs (``mesh=``) are
-ROADMAP §1 item 9.
+(``models.lemaire.init_weights``).  ``fit_multi(mesh=...)`` shards the trial
+axis over the mesh's ``data`` devices: each trains its ``T/D`` trials with
+the vmapped step on its own copy of every batch, with no communication (the
+trials are independent), as the JAX package's ``shard_map`` over the trial
+axis.
 """
 
 from __future__ import annotations
@@ -50,15 +53,6 @@ from .state import augment, l2_kernels
 # torch.func: vmap runs it per trial (exact, and small).
 warnings.filterwarnings("ignore", message=".*batching rule for aten::lerp_",
                         category=UserWarning)
-
-
-def refuse_sharded_trials(mesh) -> None:
-    """Raise for a trial axis sharded over several GPUs (the JAX package's
-    ``mesh=``), which the port does not have yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "trials sharded over several GPUs are not ported yet "
-            "(ROADMAP §1, item 9)")
 
 
 def stack_hyperparams(trials: list[dict], heads: tuple | None,
@@ -314,11 +308,45 @@ def make_multi_eval_step(model: nn.Module, *, mtl: bool) -> Callable:
 class MultiFitResult:
     state: MultiState  # stacked; trial i via unstack_trial
     n_trials: int
+    #: With ``mesh=``: each data device's own state (its slice of the
+    #: trials, their optimizer and generators), in trial order; ``state``
+    #: then holds every trial's parameters and buffers on the first device
+    #: and no optimizer.
+    shards: list = field(default_factory=list)
     best_val_loss: np.ndarray = None  # (n,)
     best_epoch: np.ndarray = None  # (n,)
     best_accuracy: np.ndarray = None  # (n,) val accuracy at the best epoch
     history: list = field(default_factory=list)  # per-epoch dict of (n,)
     training_time: float = 0.0
+
+
+def _trial_groups(n: int, mesh, device) -> list:
+    """``(device, trial indices)`` per data device of ``mesh`` (all trials
+    on ``device`` without one)."""
+    if mesh is None:
+        return [(torch.device(device), list(range(n)))]
+    n_data = mesh.shape["data"]
+    if n % n_data:
+        raise ValueError(f"{n} trials do not shard over {n_data} devices; "
+                         "pad the trial list")
+    k = n // n_data
+    return [(dev, list(range(g * k, (g + 1) * k)))
+            for g, dev in enumerate(mesh.along("data"))]
+
+
+def _merged(states: list) -> MultiState:
+    """Every trial's parameters and buffers of ``states`` (the shards of
+    one run) stacked on the first one's device."""
+    dev = next(iter(states[0].params.values())).device
+
+    def cat(key, part):
+        return torch.cat([getattr(st, part)[key].detach().to(dev)
+                          for st in states])
+
+    return MultiState({k: cat(k, "params") for k in states[0].params},
+                      {k: cat(k, "buffers") for k in states[0].buffers},
+                      None, [g for st in states for g in st.generators],
+                      states[0].step)
 
 
 def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
@@ -336,18 +364,26 @@ def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
     that seed.  Early stopping is joint: training stops once EVERY trial
     has gone ``patience`` epochs without a ``min_delta`` val-loss
     improvement; each trial's best epoch is its own, and its weights at
-    that epoch are restored at the end.  ``mesh`` (trials over several
-    GPUs) raises ``NotImplementedError`` (ROADMAP §1, item 9)."""
-    refuse_sharded_trials(mesh)
+    that epoch are restored at the end.
+
+    ``mesh`` (``parallel.make_mesh``; ``device`` is then unused): shard the
+    trial axis over the mesh's 'data' devices, ``len(trials)`` evenly; each
+    trains its trials on its own copy of every batch, no communication.
+    A device may repeat."""
     n = len(trials)
-    hyper = stack_hyperparams(trials, heads, device)
+    groups = _trial_groups(n, mesh, device)
     seeds = [int(t.get("seed", base_seed)) for t in trials]
-    state = init_trials(model, seeds, make_optimizer, device)
+    states = [init_trials(model, [seeds[i] for i in idx], make_optimizer,
+                          dev) for dev, idx in groups]
+    hypers = [stack_hyperparams([trials[i] for i in idx], heads, dev)
+              for dev, idx in groups]
+    where = [(g, j) for g, (_, idx) in enumerate(groups)
+             for j in range(len(idx))]
     train_step = make_multi_train_step(model, mtl=mtl,
                                        augment_noise=augment_noise,
                                        l2_reg=l2_reg)
     eval_step = make_multi_eval_step(model, mtl=mtl)
-    result = MultiFitResult(state=state, n_trials=n,
+    result = MultiFitResult(state=states[0], n_trials=n,
                             best_val_loss=np.full(n, np.inf),
                             best_epoch=np.full(n, -1),
                             best_accuracy=np.full(n, np.nan))
@@ -355,18 +391,24 @@ def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
     wait = np.zeros(n, int)
     t0 = time.process_time()
 
+    def each(batch, labels, step):
+        """``step`` on every shard with its copy of the batch."""
+        return [step(st, _to(batch, dev), _to(labels, dev), hy)
+                for st, hy, (dev, _) in zip(states, hypers, groups)]
+
     for epoch in range(epochs):
         tr_loss = []
         for _ in range(steps_per_epoch):
             batch, labels = next(train_iter)
-            tr_loss.append(train_step(state, batch, labels, hyper)["loss"])
-        va = [eval_step(state, *next(val_iter), hyper)
-              for _ in range(val_steps)]
-        # One device-to-host copy per epoch.
-        fetched = torch.stack(
-            [torch.stack(tr_loss).mean(0),
-             torch.stack([r["loss"] for r in va]).mean(0),
-             torch.stack([r["accuracy"] for r in va]).mean(0)]).cpu().numpy()
+            tr_loss.append([r["loss"] for r in each(batch, labels,
+                                                    train_step)])
+        va = [each(*next(val_iter), eval_step) for _ in range(val_steps)]
+        # One device-to-host copy per shard and epoch.
+        fetched = np.concatenate([torch.stack(
+            [torch.stack([t[g] for t in tr_loss]).mean(0),
+             torch.stack([r[g]["loss"] for r in va]).mean(0),
+             torch.stack([r[g]["accuracy"] for r in va]).mean(0)]
+        ).cpu().numpy() for g in range(len(groups))], axis=1)
         tr_mean, val_loss, val_acc = (fetched[0].astype(np.float64),
                                       fetched[1].astype(np.float64),
                                       fetched[2].astype(np.float64))
@@ -378,7 +420,8 @@ def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
                   f"{np.array2string(val_loss, precision=4)}", flush=True)
         improved = val_loss < result.best_val_loss - min_delta
         for i in np.flatnonzero(improved):
-            best[i] = unstack_trial(state, int(i))
+            g, j = where[i]
+            best[i] = unstack_trial(states[g], j)
         result.best_val_loss = np.where(improved, val_loss,
                                         result.best_val_loss)
         result.best_epoch = np.where(improved, epoch, result.best_epoch)
@@ -397,7 +440,18 @@ def fit_multi(model: nn.Module, make_optimizer: Callable, train_iter,
         for i, sd in enumerate(best):
             if sd is None:
                 continue
-            for k, v in {**state.params, **state.buffers}.items():
-                v[i].copy_(sd[k])
+            g, j = where[i]
+            for k, v in {**states[g].params, **states[g].buffers}.items():
+                v[j].copy_(sd[k])
+    if mesh is not None:
+        result.shards = states
+        result.state = _merged(states)
     return result
 
+
+def _to(tree, device: torch.device):
+    """A batch or label tree (tensors, dicts of them) on ``device``; the
+    same tensors where they are there already."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, non_blocking=True)

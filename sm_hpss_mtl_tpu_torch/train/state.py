@@ -93,7 +93,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                     mtl: bool, generator: torch.Generator,
                     loss_weights: dict | None = None, l2_reg: float = 0.0,
                     augment_noise: bool = False,
-                    featurize: Callable | None = None) -> Callable:
+                    featurize: Callable | None = None,
+                    before_update: Callable | None = None) -> Callable:
     """``(state, batch, labels) -> metrics``: one optimizer update of
     ``model`` in place; ``state.step`` counts it.
 
@@ -102,7 +103,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     applies :func:`augment`.  Dropout and augmentation draw from
     ``generator``.  ``featurize`` maps ``(batch, labels)`` to the model's
     input and per-row labels first, outside autograd (the device pipeline,
-    ``train.endtoend``)."""
+    ``train.endtoend``).  ``before_update()`` runs between the backward
+    pass and the optimizer's update (``parallel.dp`` averages the
+    gradients over its process group there)."""
     use_generator(model, generator)
     kernels = l2_kernels(model) if l2_reg else []
 
@@ -119,6 +122,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
             total = total + l2_reg * sum(k.square().sum() for k in kernels)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if before_update is not None:
+            before_update()
         optimizer.step()
         state.step += 1
         metrics = {"loss": total.detach(),

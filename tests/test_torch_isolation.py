@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "cli.make_folds", "eval.fusion", "cli.tune",
                 "utils.bayesopt", "train.multitrial", "cli.featurize",
                 "cli.tsne", "train.transfer", "data.balance",
-                "data.codecs"):
+                "data.codecs", "parallel", "parallel.mesh",
+                "parallel.distributed", "parallel.halo",
+                "parallel.frontend_shard", "parallel.dp"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -51,13 +53,26 @@ def test_port_imports_neither_jax_nor_jax_package():
                         if k != "PYTHONPATH"})
 
 
+def test_parallel_names_neither_jax_nor_the_jax_package():
+    # parallel/ copies what it needs from the JAX package (process_file_shard)
+    # and names it only as "the JAX package": no import, no module path.
+    import re
+    pattern = re.compile(r"import jax|sm_hpss_mtl_tpu\b")
+    files = sorted((PKG / "parallel").glob("*.py"))
+    assert len(files) == 6
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not pattern.search(line), f"{path.name}:{n}: {line}"
+
+
 def test_new_tests_import_only_checked_modules():
-    """The port's modules that the bf16, fold and codec tests import are
-    among those the test above imports without JAX."""
+    """The port's modules that the bf16, fold, codec and parallel tests
+    import are among those the test above imports without JAX."""
     import ast
     mods = set(_modules())
     for name in ("test_torch_bf16.py", "test_torch_bf16_folds.py",
-                 "test_torch_codecs.py"):
+                 "test_torch_codecs.py", "test_torch_parallel.py",
+                 "test_torch_distributed.py"):
         tree = ast.parse((REPO / "tests" / name).read_text())
         used = set()
         for node in ast.walk(tree):
@@ -132,7 +147,8 @@ def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",
                                     "tools/hpss_ab.py",
                                     "tools/bf16_step_bars.py",
-                                    "tools/bf16_probe.py"])
+                                    "tools/bf16_probe.py",
+                                    "tools/multi_gpu_check.py"])
 def test_chip_scripts_import_neither_jax_nor_jax_package(script):
     # Both run on the GPU machine, which has no JAX: importing them (not
     # running them) must pull in neither jax nor the JAX package.

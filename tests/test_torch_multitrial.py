@@ -297,7 +297,48 @@ def test_fit_multi_early_stop_and_best_restore():
 
 
 def test_trials_over_several_gpus_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # Trials shard over the mesh's data devices only evenly, with the JAX
+    # package's message.
+    from sm_hpss_mtl_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(n_data=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="3 trials do not shard over 2"):
         tmulti.fit_multi(_net(), _lemaire_sgd, iter(()), iter(()),
-                         mtl=True, trials=[{}], heads=None, epochs=1,
-                         steps_per_epoch=1, val_steps=1, mesh=object())
+                         mtl=True, trials=[{}] * 3, heads=None, epochs=1,
+                         steps_per_epoch=1, val_steps=1, mesh=mesh)
+
+
+def test_trial_sharding_matches_unsharded():
+    # The JAX package's test of the same name, on 4 CPU devices: each
+    # trains its trial on its own copy of the batch, and every trial ends
+    # as in the unsharded run (dropout and augmentation on).
+    from sm_hpss_mtl_tpu_torch.parallel import make_mesh
+    x, labels = _batch(11)
+
+    def stream():
+        while True:
+            yield torch.from_numpy(x), _t(labels)
+
+    trials = [{"seed": s} for s in range(3)] + [
+        {"seed": 3, "lr_scale": 0.5,
+         "loss_weights": {"S": 0.5, "M": 0.1, "R": 0.3, "3C": 0.1}}]
+    kw = dict(mtl=True, trials=trials, heads=HEADS, epochs=2,
+              steps_per_epoch=2, val_steps=1, augment_noise=True,
+              verbose=False)
+    net = _net(dropout_rate=0.1)
+    mesh = make_mesh(n_data=4, devices=[torch.device("cpu")] * 4)
+    sharded = tmulti.fit_multi(net, _lemaire_sgd, stream(), stream(),
+                               mesh=mesh, **kw)
+    plain = tmulti.fit_multi(net, _lemaire_sgd, stream(), stream(), **kw)
+    np.testing.assert_allclose(sharded.best_val_loss, plain.best_val_loss,
+                               rtol=1e-5)
+    for a, b in zip(sharded.history, plain.history):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+    # The trial axis really is cut: one state of one trial per device.
+    assert len(sharded.shards) == 4
+    assert all(next(iter(st.params.values())).shape[0] == 1
+               for st in sharded.shards)
+    for i in range(4):
+        got = tmulti.unstack_trial(sharded.state, i)
+        for k, w in tmulti.unstack_trial(plain.state, i).items():
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=1e-6,
+                                       err_msg=f"trial {i} {k}")

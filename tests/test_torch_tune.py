@@ -152,10 +152,41 @@ def test_tune_without_device_cpu_raises_when_no_gpu(monkeypatch, tmp_path):
                    "l_harm"])
 
 
-def test_tune_shard_trials_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tune.main(["--data", str(tmp_path), "--mode", "seeds",
-                   "--shard-trials", "--device", "cpu"])
+def _cpu_mesh(n):
+    from sm_hpss_mtl_tpu_torch.parallel import make_mesh
+    return lambda devices=None: make_mesh(devices=[torch.device("cpu")] * n)
+
+
+def test_tune_shard_trials_raises(toy, tmp_path, monkeypatch):
+    # Over a mesh of 2 devices, 3 seed replicates do not shard: the JAX
+    # package's message.
+    monkeypatch.setattr(tune, "make_mesh", _cpu_mesh(2))
+    with pytest.raises(ValueError, match="3 trials do not shard over 2"):
+        tune.main(["--data", toy, "--output", str(tmp_path), "--mode",
+                   "seeds", "--trials", "3", "--vmap", "--shard-trials",
+                   *TINY, "--device", "cpu"])
+
+
+def test_tune_shard_trials_writes_the_tuning_csv(toy, tmp_path,
+                                                 monkeypatch):
+    # --shard-trials with --device cpu: a mesh of the one CPU, the JAX CLI's
+    # columns; over 4 devices (a mesh of the CPU four times) each trains
+    # one replicate, and every row equals the unsharded run's.
+    argv = ["--data", toy, "--mode", "seeds", "--trials", "4", "--vmap",
+            *TINY, "--device", "cpu"]
+    out = str(tmp_path / "one")
+    one, best = tune.main(argv + ["--output", out, "--shard-trials"])
+    assert len(one) == 4 and best in one
+    assert _header(out) == (
+        "fold\ttrial\tseed\tval_loss\taccuracy\tbest_epoch")
+    plain, _ = tune.main(argv + ["--output", str(tmp_path / "plain")])
+    monkeypatch.setattr(tune, "make_mesh", _cpu_mesh(4))
+    four, _ = tune.main(argv + ["--output", str(tmp_path / "four"),
+                                "--shard-trials"])
+    for rows in (one, four):
+        assert [r["seed"] for r in rows] == ["0", "1", "2", "3"]
+        np.testing.assert_allclose([r["val_loss"] for r in rows],
+                                   [r["val_loss"] for r in plain], rtol=1e-5)
 
 
 def test_skip_connections_match_jax():
