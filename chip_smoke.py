@@ -100,6 +100,19 @@ Phases, each of which must pass:
    10 s broadcast encoded to mp3, decoded and served through
    ``cli.segment``, card and CPU (else an ``{"mp3": ...}`` line says
    which library is missing);
+10b. host: the native host kernels (``sm_hpss_mtl_tpu_torch/native``, built
+   with g++ on this host) against their numpy twins at
+   ``tests/test_native.py``'s tolerances; ``utils.time_op`` on K1 at 48
+   clips x 11120 samples beside ``cuda_ms`` of the same launch (a ratio
+   outside 0.5-2 fails), ``utils.device_trace``'s trace naming K1's kernel
+   (in a fresh process; in this one its K1 events are a reading) and
+   ``utils.stage_timer``'s sink; ``tools/scale_rehearsal_torch.py`` at
+   smoke size in a child process (4 + 4 files at a tenth of their
+   durations, 2 epochs, the device pipeline): per-epoch rows, the steps of
+   ``with_steps_from_durations`` on its folds, its K1 launches (counted in
+   the child, added to K1's) and K1 against its plain version at each of
+   the child's launch shapes that phase 3 did not check; the readings on
+   a ``{"host": ...}`` line;
 11. parallel, on the one card as a mesh of ``cuda:0`` repeated: the
    time-sharded front end (``parallel.stft_hpss_mel_time_sharded`` at mel
    and full resolution, ``featuregram_time_sharded`` with its pad and tail
@@ -131,8 +144,8 @@ at the shared-core networks' count, the least work known.  Prints a
 ``{"kernels": [...]}`` line (each kernel with a record per median pair
 under ``pairs``, and K1's and K2's halo mode as records of their own), a
 serving-times line, a resynthesis line, an evaluation line, a training
-line, a tuning line, a parallel line, the script's total seconds, the card
-line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
+line, a tuning line, a parallel line, a host line, the script's total
+seconds, the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or no GPU is present.  Imports
 nothing of JAX.
 """
@@ -3037,6 +3050,216 @@ def phase_parallel(card: str, corpus: dict, x600: np.ndarray, wav600: str,
     return runs, read
 
 
+#: The fold-at-scale tool's smoke run (phase 10b): the corpus and budget.
+SCALE_SMOKE = ("--n-music", "4", "--n-speech", "4", "--dur-scale", "0.1",
+               "--epochs", "2", "--pipelines", "device")
+#: time_op on K1 against cuda_ms of the same launch: a reading outside
+#: this ratio would be a gross fault of the timer.
+TIME_OP_RATIO = (0.5, 2.0)
+#: K1 launches inside the device_trace check and reading.
+TRACE_LAUNCHES = 20
+
+
+def native_checks() -> dict:
+    """The native host kernels (``sm_hpss_mtl_tpu_torch/native``) built on
+    this host and held to their numpy twins at ``tests/test_native.py``'s
+    tolerances (phase 10b)."""
+    import scipy.stats
+    import torch
+    from sm_hpss_mtl_tpu_torch import native
+    from sm_hpss_mtl_tpu_torch.data.batcher import scale_frames
+    from sm_hpss_mtl_tpu_torch.ops import reference as ref
+    from sm_hpss_mtl_tpu_torch.ops import silence
+    from sm_hpss_mtl_tpu_torch.ops.patches import (extract_patches_np,
+                                                   standardize_rows)
+    t0 = time.perf_counter()
+    check(native.available(),
+          f"the native host kernels did not build:\n{native.build_error()}")
+    rng = np.random.default_rng(SEED)
+    for T, W, shift in ((500, 68, 68), (40, 68, 68), (300, 249, 24)):
+        fv = rng.standard_normal((12, T)).astype(np.float32)
+        check(np.array_equal(native.extract_patches(fv, W, shift),
+                             extract_patches_np(fv, W, shift)),
+              f"native extract_patches T={T} W={W} shift={shift}")
+    fv = rng.standard_normal((8, 123)).astype(np.float32)
+    fv[3] = 2.5
+    d_std = float(np.abs(native.standardize_rows(fv) - standardize_rows(
+        torch.from_numpy(fv.astype(np.float64))).numpy()).max())
+    check(d_std <= 1e-5, f"native standardize_rows: {d_std:.3e}")
+    fv = rng.standard_normal((6, 50)).astype(np.float32)
+    mean = rng.standard_normal(6).astype(np.float32)
+    stdev = np.abs(rng.standard_normal(6)).astype(np.float32)
+    want = scale_frames(fv, mean, stdev)
+    d_scale = float(np.abs(native.scale_frames(fv, mean, stdev) - want).max())
+    check(np.allclose(native.scale_frames(fv, mean, stdev), want, rtol=1e-5,
+                      atol=1e-6), f"native scale_frames: {d_scale:.3e}")
+    x = 0.5 * rng.standard_normal(3 * SR).astype(np.float32)
+    x[SR // 2:SR] = 1e-5
+    x[2 * SR:2 * SR + SR // 2] = 1e-5
+    e = ref.rms_energy(x, 400, 160)
+    got, want = native.remove_silence(x, e, SR), silence.remove_silence(
+        x, e, SR)
+    check(all(np.array_equal(got[i], want[i]) for i in range(3))
+          and abs(got[3] - want[3]) < 1e-9 and len(got[0]) < len(x),
+          "native remove_silence")
+    fv = rng.standard_normal((4, 10, 20))
+    fns = {"mean": np.mean, "variance": np.var, "skew": scipy.stats.skew,
+           "kurtosis": scipy.stats.kurtosis}
+    for stat, axis in (("mean", 0), ("variance", 1), ("skew", 0),
+                       ("kurtosis", 1)):
+        want = np.stack([fns[stat](fv[i], axis=axis) for i in range(4)])
+        check(np.allclose(native.patch_statistics(fv, stat, axis), want,
+                          rtol=1e-8, atol=1e-10),
+              f"native patch_statistics {stat} axis {axis}")
+    z = np.zeros((48, 68, 240), np.float32)
+    native.add_gaussian_noise(z, 1.0, seed=42)
+    moments = {"mean": float(z.mean()), "var": float(z.var()),
+               "tail_3_sigma": float((np.abs(z) > 3).mean())}
+    check(abs(moments["mean"]) < 5e-3 and abs(moments["var"] - 1) < 5e-3
+          and abs(moments["tail_3_sigma"] - 0.0027) < 5e-4,
+          f"native add_gaussian_noise moments {moments}")
+    return {"library": str(native.LIB_PATH), "standardize_max_abs": d_std,
+            "scale_frames_max_abs": d_scale, "noise_moments": moments,
+            "s": time.perf_counter() - t0}
+
+
+def timer_checks(tmp: str) -> dict:
+    """``utils.time_op`` on K1 at the training launch beside ``cuda_ms`` of
+    the same launch, ``device_trace`` naming K1's kernel, ``stage_timer``'s
+    sink (phase 10b)."""
+    import glob
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.utils import device_trace, stage_timer, time_op
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, N = TRAIN_SHAPES[0]
+    y = torch.randn((B, N), generator=gen, device="cuda")
+    M = mel_filterbank(22050, 400, 120, device="cuda")
+    sink = {}
+    with stage_timer("time_op", sink, verbose=False):
+        # The carry takes one element of each launch's output, so every
+        # application depends on the one before it.
+        op_s = time_op(lambda c: (c[0], c[1] + frontend.stft_hpss_mel(
+            c[0], M)[0][0, 0, 0]), (y, torch.zeros((), device="cuda")))
+    ev_ms = cuda_ms(lambda: frontend.stft_hpss_mel(y, M), reps=20)
+    ratio = 1e3 * op_s / ev_ms[0]
+    check(op_s > 0 and TIME_OP_RATIO[0] <= ratio <= TIME_OP_RATIO[1],
+          f"time_op on K1 {1e3 * op_s:.4f} ms against cuda_ms "
+          f"{ev_ms[0]:.4f} ms")
+    rec = sink.get("time_op", {})
+    check(set(rec) == {"wall_s", "process_s"} and rec["wall_s"] > 0,
+          f"stage_timer's sink: {sink}")
+    # device_trace in this process is a reading: here, after the earlier
+    # phases' profiler sessions, its trace held no CUDA kernel in four of
+    # five runs (PERF.md §7).  The check runs it in a fresh process.
+    with device_trace(os.path.join(tmp, "trace_here")) as prof:
+        for _ in range(TRACE_LAUNCHES):
+            frontend.stft_hpss_mel(y, M)
+        torch.cuda.synchronize()
+    here_events = sum(ev.count for ev in prof.key_averages()
+                      if "frontend_kernel" in ev.key)
+    log_dir = os.path.join(tmp, "trace")
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        "from sm_hpss_mtl_tpu_torch.ops import frontend\n"
+        "from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank\n"
+        "from sm_hpss_mtl_tpu_torch.utils import device_trace\n"
+        f"y = torch.randn({B}, {N}, device='cuda')\n"
+        "M = mel_filterbank(22050, 400, 120, device='cuda')\n"
+        "frontend.stft_hpss_mel(y, M)\n"
+        "torch.cuda.synchronize()\n"
+        f"with device_trace({log_dir!r}):\n"
+        f"    for _ in range({TRACE_LAUNCHES}):\n"
+        "        frontend.stft_hpss_mel(y, M)\n"
+        "    torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, "the device_trace process failed:\n"
+          + proc.stderr[-3000:])
+    files = glob.glob(os.path.join(log_dir, "trace.*.json"))
+    check(len(files) == 1, f"device_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    traced = [e["name"] for e in events if e.get("cat") == "kernel"
+              and "frontend_kernel" in str(e.get("name", ""))]
+    kernels = sorted(set(traced))
+    check(bool(kernels), "device_trace's trace names no K1 kernel; event "
+          f"categories {dict(Counter(e.get('cat') for e in events))}")
+    return {"shape": [B, N], "time_op_ms": 1e3 * op_s, "cuda_ms": ev_ms[0],
+            "cuda_ms_spread": ev_ms[1:], "ratio": ratio,
+            "stage_timer": rec, "trace_kernels": kernels,
+            "trace_k1_launches": TRACE_LAUNCHES,
+            "trace_k1_events": len(traced),
+            "trace_k1_events_in_this_process": here_events}
+
+
+def scale_tool_check(card: str, tmp: str, checked: dict) -> dict:
+    """``tools/scale_rehearsal_torch.py`` end to end on the card at smoke
+    size in a child process: per-epoch rows, the steps of
+    ``with_steps_from_durations`` on its folds, K1 launched; K1 then held
+    against its plain version at each launch shape of the child that
+    phase 3 did not check (phase 10b)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.data.folds import load_cv_folds
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.train.config import ExperimentConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    root, out = os.path.join(tmp, "scale_corpus"), os.path.join(tmp,
+                                                                "scale.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "tools",
+                                      "scale_rehearsal_torch.py"),
+         *SCALE_SMOKE, "--root", root, "--out", out, "--poll-s", "1"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "the scale tool failed:\n"
+          + (proc.stdout + proc.stderr)[-4000:])
+    with open(out) as f:
+        row = json.load(f)["pipelines"]["device"]
+    check(row["status"] == "finished" and row["epochs_run"] == 2
+          and len(row["epochs"]) == 2
+          and [r["epoch"] for r in row["epochs"]] == [0.0, 1.0],
+          f"the scale tool's epochs: {row.get('epochs')}")
+    cv = load_cv_folds(os.path.join(root, "cv_info"))
+    want = ExperimentConfig(batch_size=16, patch_size=68, patch_shift=68
+                            ).with_steps_from_durations(
+        {k: v for k, v in cv["total_duration"].items()
+         if k in ("music", "speech", "speech+music")})
+    got = (row["tr_steps"], row["v_steps"], row["ts_steps"])
+    check(got == (want.tr_steps, want.v_steps, want.ts_steps),
+          f"the scale tool's steps {got}")
+    check(row["k1_launches"] > 0, "the scale tool launched no K1")
+    check(row["device"] == card, f"the scale tool's card {row['device']}")
+    check(set(row["stages"]) == {"corpus", "folds", "fit", "test"},
+          f"the scale tool's stages {row['stages']}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = {tuple(s) for s in row["k1_shapes"]}
+    new = sorted(shapes - checked["K1"])
+    err = 0.0
+    for n_fft, lh, lp, B, T in new:
+        y = torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
+                        device="cuda")
+        M = mel_filterbank(22050, n_fft, 120, device="cuda")
+        kw = dict(n_fft=n_fft, win_length=400, hop_length=160, l_harm=lh,
+                  l_perc=lp)
+        err = max(err, compare(
+            f"K1 (scale tool) n_fft={n_fft} B={B} T={T}",
+            frontend.launch(y, M, **kw),
+            frontend.stft_hpss_mel_plain(y, M, **kw), RTOL, ATOL))
+        checked["K1"].add((n_fft, lh, lp, B, T))
+    return {"argv": list(SCALE_SMOKE), "wall_s": wall,
+            "k1_launches": row["k1_launches"],
+            "k1_shapes": row["k1_shapes"], "k1_shapes_checked_here": new,
+            "k1_max_abs_delta_here": err,
+            **{k: row[k] for k in ("tr_steps", "v_steps", "ts_steps",
+                                   "epochs_run", "warm_step_ms", "accuracy",
+                                   "stages")}}
+
+
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source for every median pair at once, one nvcc
     process each (``ops/_nvcc.py``: one library per source and pair); load
@@ -3552,6 +3775,25 @@ def run() -> None:
                                             out("u600.npz"),
                                             j600["total_s"])}
 
+
+        # Phase 10b: the native host kernels, the timers, and the
+        # fold-at-scale tool at smoke size in a child process.
+        t_host = time.perf_counter()
+        host = {"native": native_checks(), "timers": timer_checks(tmp),
+                "scale_tool": scale_tool_check(card, tmp, checked)}
+        print(f"[10b host] native kernels ok ({host['native']['s']:.1f} s); "
+              f"time_op on K1 {host['timers']['time_op_ms']:.4f} ms vs "
+              f"cuda_ms {host['timers']['cuda_ms']:.4f} ms; trace "
+              f"{host['timers']['trace_k1_events']} of {TRACE_LAUNCHES} K1 "
+              f"launches (in this process "
+              f"{host['timers']['trace_k1_events_in_this_process']}); "
+              f"scale tool "
+              f"{host['scale_tool']['epochs_run']} epochs of "
+              f"{host['scale_tool']['tr_steps']} steps, K1 launches "
+              f"{host['scale_tool']['k1_launches']}, "
+              f"{host['scale_tool']['wall_s']:.1f} s; "
+              f"{time.perf_counter() - t_host:.1f} s", flush=True)
+
         t_par = time.perf_counter()
         par_runs, parallel = phase_parallel(card, train_corpus, x600, wav600,
                                             wpath[lem], out, slabbed)
@@ -3616,6 +3858,12 @@ def run() -> None:
                               for n in paths[kernel])
         check(rec["launches"] > 0, f"{kernel} never ran in halo mode")
         entries.append(rec)
+    # The scale tool's path (phase 10b) ran in its own process, which
+    # counted its K1 launches (all at (21, 11)).
+    entries[0]["launches"] += host["scale_tool"]["k1_launches"]
+    for rec in pair_entries["K1"]:
+        if tuple(rec["pair"]) == (21, 11):
+            rec["launches"] += host["scale_tool"]["k1_launches"]
     print("[12 checks] ok", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"serving": {
@@ -3736,6 +3984,7 @@ def run() -> None:
             "dp_world_1_patch_step_ms": dp_read["patch_step"]["dp_step_ms"],
             "single_patch_step_ms": dp_read["patch_step"]["single_step_ms"]}
     }}, default=str))
+    print(json.dumps({"host": {"card": card, **host}}, default=str))
     print(f"[13 total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ JAX runner does; one process runs as before.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 from dataclasses import replace
@@ -61,6 +62,7 @@ from ..train.loop import (EARLY_STOP_MIN_DELTA, EARLY_STOP_PATIENCE,
                           FitResult, evaluate_generator, fit)
 from ..train.optimizers import for_model
 from ..train.state import TrainState, make_predict
+from ..utils.profiling import stage_timer
 from ..utils.results import (append_results, dump_configuration,
                              dump_model_summary)
 
@@ -223,12 +225,19 @@ def _device_pipeline(config, spec, feat_cfg, tr_files, va_files, data_seed,
 
 def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
              verbose: bool = True, resume: bool = True,
-             device: str | torch.device = "cuda") -> dict:
+             device: str | torch.device = "cuda",
+             timings: dict | None = None) -> dict:
     """Train and evaluate one fold of ``config.model``; returns the results
     row and what produced it.  ``resume=True``: a finished fold's
     checkpoint is restored instead of retrained, an interrupted one
-    continues for the remaining epochs."""
+    continues for the remaining epochs.  ``timings``, where given,
+    receives the ``stage_timer`` records of the stages 'fit' and 'test'
+    (the file-wise test and the generator evaluation)."""
     device = resolve_device(device)
+
+    def stage(name):
+        return (stage_timer(name, timings, verbose=verbose)
+                if timings is not None else contextlib.nullcontext())
     _check_ported(config)
     feat_cfg = config.feature_config()
     spec = model_spec(config)
@@ -335,71 +344,76 @@ def run_fold(config: ExperimentConfig, cv_file_list: dict, fold: int,
                 "wall_time_s": round(result.wall_time, 2)})
         return result
 
-    try:
-        if resume and checkpoint_exists(ckpt_dir):
-            state, meta = restore_checkpoint(
-                ckpt_dir, TrainState(model, optimizer))
-            finished, done_epochs = _resume_status(meta, csv_log,
-                                                   config.epochs)
-            if finished:
-                result = FitResult(state=state,
-                                   best_val_loss=meta.get("val_loss",
-                                                          float("nan")),
-                                   best_epoch=meta.get("epoch", -1))
-                if verbose:
-                    print(f"fold {fold}: restored finished checkpoint "
-                          f"(best epoch {result.best_epoch})", flush=True)
-            else:
-                if verbose:
-                    print(f"fold {fold}: checkpoint is mid-training "
-                          f"({done_epochs}/{config.epochs} epochs), "
-                          "resuming for the remaining budget", flush=True)
-                result = _run_fit(state=state, initial_epoch=done_epochs,
-                                  initial_best=meta.get("val_loss",
-                                                        float("inf")))
-        else:
-            result = _run_fit()
-    finally:
-        train_iter.close()
-        val_iter.close()
-
-    predict = make_predict(model)
-    tester = FileWiseTester(
-        featurizer=fz, predict_fn=lambda x: predict(result.state, x),
-        folder=config.data_root, feat_name=feat_cfg.feat_name,
-        input_kind=config.input_kind, dual_tower=dual,
-        patch_size=config.patch_size,
-        test_patch_shift=config.test_patch_shift,
-        frame_level_scaling=config.frame_level_scaling,
-        fold_stats=fold_stats, skewness_vector=config.skewness_vector)
-    test_res = tester.test_model(test_files, verbose=verbose)
-
-    row = {"val_loss": round(result.best_val_loss, 4),
-           "epochs_run": len(result.history),
-           "train_time_s": round(result.training_time, 1),
-           "wall_time_s": round(result.wall_time, 1)}
-    if config.ts_steps:
-        # The reference's evaluate-on-generator metrics (TS_STEPS batches
-        # of the balanced test stream).
-        eval_steps = max(config.ts_steps, 1)
-        if config.max_eval_steps and eval_steps > config.max_eval_steps:
-            print(f"fold {fold}: generator eval capped at "
-                  f"{config.max_eval_steps} of {eval_steps} TS steps "
-                  "(config.max_eval_steps; 0 = uncapped)", flush=True)
-            eval_steps = config.max_eval_steps
-        test_iter = DevicePrefetcher(
-            BalancedBatcher(fz, config.data_root, test_files,
-                            replace(bcfg, seed=config.seed + 2),
-                            fold_stats=fold_stats), device)
+    with stage("fit"):
         try:
-            gen = evaluate_generator(model, result.state,
-                                     _label_map(test_iter, spec.mtl),
-                                     eval_steps, mtl=spec.mtl,
-                                     loss_weights=config.loss_weights)
+            if resume and checkpoint_exists(ckpt_dir):
+                state, meta = restore_checkpoint(
+                    ckpt_dir, TrainState(model, optimizer))
+                finished, done_epochs = _resume_status(meta, csv_log,
+                                                       config.epochs)
+                if finished:
+                    result = FitResult(
+                        state=state,
+                        best_val_loss=meta.get("val_loss", float("nan")),
+                        best_epoch=meta.get("epoch", -1))
+                    if verbose:
+                        print(f"fold {fold}: restored finished checkpoint "
+                              f"(best epoch {result.best_epoch})",
+                              flush=True)
+                else:
+                    if verbose:
+                        print(f"fold {fold}: checkpoint is mid-training "
+                              f"({done_epochs}/{config.epochs} epochs), "
+                              "resuming for the remaining budget",
+                              flush=True)
+                    result = _run_fit(
+                        state=state, initial_epoch=done_epochs,
+                        initial_best=meta.get("val_loss", float("inf")))
+            else:
+                result = _run_fit()
         finally:
-            test_iter.close()
-        row["gen_loss"] = round(gen["loss"], 4)
-        row["gen_accuracy"] = round(gen["accuracy"], 4)
+            train_iter.close()
+            val_iter.close()
+
+    with stage("test"):
+        predict = make_predict(model)
+        tester = FileWiseTester(
+            featurizer=fz, predict_fn=lambda x: predict(result.state, x),
+            folder=config.data_root, feat_name=feat_cfg.feat_name,
+            input_kind=config.input_kind, dual_tower=dual,
+            patch_size=config.patch_size,
+            test_patch_shift=config.test_patch_shift,
+            frame_level_scaling=config.frame_level_scaling,
+            fold_stats=fold_stats, skewness_vector=config.skewness_vector)
+        test_res = tester.test_model(test_files, verbose=verbose)
+
+        row = {"val_loss": round(result.best_val_loss, 4),
+               "epochs_run": len(result.history),
+               "train_time_s": round(result.training_time, 1),
+               "wall_time_s": round(result.wall_time, 1)}
+        if config.ts_steps:
+            # The reference's evaluate-on-generator metrics (TS_STEPS
+            # batches of the balanced test stream).
+            eval_steps = max(config.ts_steps, 1)
+            if (config.max_eval_steps
+                    and eval_steps > config.max_eval_steps):
+                print(f"fold {fold}: generator eval capped at "
+                      f"{config.max_eval_steps} of {eval_steps} TS steps "
+                      "(config.max_eval_steps; 0 = uncapped)", flush=True)
+                eval_steps = config.max_eval_steps
+            test_iter = DevicePrefetcher(
+                BalancedBatcher(fz, config.data_root, test_files,
+                                replace(bcfg, seed=config.seed + 2),
+                                fold_stats=fold_stats), device)
+            try:
+                gen = evaluate_generator(model, result.state,
+                                         _label_map(test_iter, spec.mtl),
+                                         eval_steps, mtl=spec.mtl,
+                                         loss_weights=config.loss_weights)
+            finally:
+                test_iter.close()
+            row["gen_loss"] = round(gen["loss"], 4)
+            row["gen_accuracy"] = round(gen["accuracy"], 4)
     row["accuracy"] = accuracy(test_res["ConfMat"])
     class_names = (["mu", "sp", "spmu", "no", "spno"])[:config.n_classes]
     for i, cls in enumerate(class_names):
@@ -436,9 +450,12 @@ def load_or_create_folds(config: ExperimentConfig) -> dict:
 def run_experiment(config: ExperimentConfig, folds=None, *,
                    smr_sweep: bool = False, verbose: bool = True,
                    resume: bool = True,
-                   device: str | torch.device = "cuda") -> list:
+                   device: str | torch.device = "cuda",
+                   timings: dict | None = None) -> list:
     """Run ``folds`` (default: all) of ``config`` on ``device``: CUDA unless
-    the caller passes ``device="cpu"``; CUDA without a GPU raises."""
+    the caller passes ``device="cpu"``; CUDA without a GPU raises.
+    ``timings`` receives each fold's stage times (``run_fold``), the last
+    fold's where there are several."""
     device = resolve_device(device)
     _check_ported(config)
     # Several processes where the environment asks for them; a no-op in one.
@@ -459,7 +476,7 @@ def run_experiment(config: ExperimentConfig, folds=None, *,
     results = []
     for fold in folds:
         out = run_fold(config, cv_file_list, fold, verbose=verbose,
-                       resume=resume, device=device)
+                       resume=resume, device=device, timings=timings)
         if smr_sweep:
             sweep = out["tester"].smr_sweep(out["test_files"],
                                             config.test_smr_levels)

@@ -6,9 +6,10 @@ wav files are read with ``scipy.io.wavfile``, mp3 files decoded by
 polyphase filtering when their rate differs from 16 kHz.
 :func:`load_and_preprocess_signal` is the reference's chain (normalize,
 RMS-gated silence removal, tile to at least 100 ms, normalize), with the
-numpy silence rule of ``ops/silence.py``.  :func:`make_toy_musan` writes a
-miniature MUSAN-shaped corpus (wavs and annotation CSVs) for the folds,
-the featurizer and the file-wise tester.
+silence rule in the native host kernels (``native/kernels.cpp``, as in
+the JAX package; ``ops/silence.py`` is its numpy twin).
+:func:`make_toy_musan` writes a miniature MUSAN-shaped corpus (wavs and
+annotation CSVs) for the folds, the featurizer and the file-wise tester.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ import numpy as np
 from scipy.io import wavfile
 from scipy.signal import lfilter, resample_poly
 
+from .. import native
 from ..ops import reference as ref
 from ..ops.mixing import normalize_signal_np
-from ..ops.silence import remove_silence
 
 TARGET_SR = 16000
 
@@ -94,7 +95,7 @@ def load_and_preprocess_signal(path: str, Tw: int = 25, Ts: int = 10
     frame_size = int(Tw * fs / 1000)
     frame_shift = int(Ts * fs / 1000)
     energy = ref.rms_energy(x, frame_size, frame_shift)
-    x, _, _, _ = remove_silence(x, energy, fs, Tw, Ts)
+    x, _, _, _ = native.remove_silence(x, energy, fs, Tw, Ts)
     while len(x) / fs < 0.1:
         x = np.append(x, x)
     return normalize_signal_np(x).astype(np.float32), fs
@@ -146,17 +147,22 @@ def _synth_noise(rng, n, fs):
 
 def make_toy_musan(root: str, *, n_per_class: int = 6,
                    duration_s: float | tuple = 3.0, fs: int = TARGET_SR,
-                   with_noise: bool = False, seed: int = 0) -> str:
+                   with_noise: bool = False, seed: int = 0,
+                   only: tuple | None = None) -> str:
     """Create ``root/{music,speech[,noise]}/*.wav`` and
     ``root/annotations/<class>.csv`` in the MUSAN layout that ``data.folds``
     reads.  Returns ``root``.
 
     ``duration_s`` may be a (lo, hi) tuple for per-file uniform random
-    durations."""
+    durations.  ``only`` restricts generation to a subset of the class
+    names, so that classes can be made with their own counts, durations
+    and seeds (``tools/scale_rehearsal_torch.py``)."""
     rng = np.random.default_rng(seed)
     classes = {"music": _synth_music, "speech": _synth_speech}
     if with_noise:
         classes["noise"] = _synth_noise
+    if only is not None:
+        classes = {k: v for k, v in classes.items() if k in only}
     annot_dir = os.path.join(root, "annotations")
     os.makedirs(annot_dir, exist_ok=True)
     for cls, synth in classes.items():

@@ -13,16 +13,17 @@ Semantics follow the reference's ``generator``:
   script, kept); R = [music_ratio, speech_ratio] with music [1, 0], speech
   [0, 1] and mixtures [10^(-dB/10), 1] (dB >= 0) or [1, 10^(dB/10)]
   (dB < 0); 3C one-hot.  The 5-class encodings differ (see there).
-- Per-file row standardization (split per HPSS component) is the port's
-  ``ops.patches.standardize_rows`` (constant rows centred to 0), which
-  equals the JAX package's native host kernel; or frame-level corpus
-  scaling with per-fold statistics.  Optionally each patch is replaced by
-  its skewness vector per row ('Row') or column ('Col',
-  ``ops.stats.patch_statistics``).
-- Optional Gaussian noise augmentation, scale drawn from {5e-3, 1e-3,
-  5e-4, 1e-4}, from the batcher's numpy generator (the JAX package draws
-  the field from its native sampler; the training runner keeps this off
-  and augments on the device).
+- Per-file row standardization (split per HPSS component) and patch
+  extraction run in the native host kernels (``native/kernels.cpp``, as
+  in the JAX package; constant rows centred to 0, as
+  ``ops.patches.standardize_rows``); or frame-level corpus scaling with
+  per-fold statistics.  Optionally each patch is replaced by its skewness
+  vector per row ('Row') or column ('Col', ``ops.stats.patch_statistics``).
+- Optional Gaussian noise augmentation: the scale drawn from {5e-3, 1e-3,
+  5e-4, 1e-4} and a seed drawn from the batcher's numpy generator, the
+  field from the native xoshiro256++ ziggurat sampler, so a batch equals
+  the JAX package's for the same corpus and seed.  The training runner
+  keeps this off and augments on the device.
 - Lemaire models take (N, T, D) patches ('time_mel'), CNNs (N, D, W, 1);
   with ``dual_tower`` a batch is ``{"harm_input", "perc_input"}``, the
   two halves of the features (the intermediate-fusion model).
@@ -37,7 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.patches import extract_patches_np, standardize_rows
+from .. import native
 from ..ops.stats import skewness_vectors
 from ..train.state import NOISE_SCALES
 from .featurize import Featurizer
@@ -294,10 +295,9 @@ class BalancedBatcher:
         out = []
         for part in parts:
             if not cfg.frame_level_scaling:
-                part = standardize_rows(torch.from_numpy(
-                    np.ascontiguousarray(part, np.float32))).numpy()
-            out.append(extract_patches_np(part, cfg.patch_size,
-                                          cfg.patch_shift))
+                part = native.standardize_rows(part)
+            out.append(native.extract_patches(part, cfg.patch_size,
+                                              cfg.patch_shift))
         patches = np.concatenate(out, axis=1) if dual else out[0]
         if cfg.skewness_vector:
             patches = skewness_vectors(torch.from_numpy(np.ascontiguousarray(
@@ -335,8 +335,8 @@ class BalancedBatcher:
 
         if self.cfg.augment_noise:
             scale = float(self.rng.choice(NOISE_SCALES))
-            x += (self.rng.standard_normal(x.shape, dtype=np.float32)
-                  * np.float32(scale))
+            native.add_gaussian_noise(
+                x, scale, int(self.rng.integers(np.iinfo(np.int64).max)))
         if self.cfg.dual_tower:
             x = split_dual(x, self.cfg.input_kind)
         return x, mtl_labels(bs, dbs)

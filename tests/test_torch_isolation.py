@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "cli.tsne", "train.transfer", "data.balance",
                 "data.codecs", "parallel", "parallel.mesh",
                 "parallel.distributed", "parallel.halo",
-                "parallel.frontend_shard", "parallel.dp"):
+                "parallel.frontend_shard", "parallel.dp", "native",
+                "utils", "utils.benchmarking", "utils.profiling"):
         assert f"sm_hpss_mtl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -72,7 +73,8 @@ def test_new_tests_import_only_checked_modules():
     mods = set(_modules())
     for name in ("test_torch_bf16.py", "test_torch_bf16_folds.py",
                  "test_torch_codecs.py", "test_torch_parallel.py",
-                 "test_torch_distributed.py"):
+                 "test_torch_distributed.py", "test_torch_native.py",
+                 "test_torch_utils.py", "test_torch_scale.py"):
         tree = ast.parse((REPO / "tests" / name).read_text())
         used = set()
         for node in ast.walk(tree):
@@ -148,7 +150,8 @@ def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
                                     "tools/hpss_ab.py",
                                     "tools/bf16_step_bars.py",
                                     "tools/bf16_probe.py",
-                                    "tools/multi_gpu_check.py"])
+                                    "tools/multi_gpu_check.py",
+                                    "tools/scale_rehearsal_torch.py"])
 def test_chip_scripts_import_neither_jax_nor_jax_package(script):
     # Both run on the GPU machine, which has no JAX: importing them (not
     # running them) must pull in neither jax nor the JAX package.
