@@ -19,7 +19,19 @@ Phases, each of which must pass:
    pair (``phase_pairs``); K1 and K2 in halo mode (the time-sharded front
    end's shards) at the first, an interior and the last shard's edge
    flags, at every shard shape of phase 11 and at l_harm 51's smallest
-   block, with the mode's times and bounds (``phase_halo``);
+   block, with the mode's times and bounds (``phase_halo``); the modes the
+   JAX kernels take beyond 'highest', power 2 and ``KERNEL_MEDIANS``
+   (``phase_modes``): K1 and K2 at ``dft_precision='bf16x3'`` against
+   their plain bf16x3 versions at every (21, 11) shape above, halo mode
+   included, with both precisions' times in turns beside their bounds and
+   the DFT as the kernels compute it on the tensor cores, bf16x3's error
+   against float64 many times split TF32's, and the 10-minute broadcast's
+   bf16x3 features; K1-K4 at powers 1 and 1.5 (a kernel argument) beside
+   power 2, and at the pairs (3, 3), (15, 7) and (61, 61) (networks
+   generated at the build) with times, registers and spills; ``cli.mtl
+   --dft-precision bf16x3 --pipeline device`` for Lemaire-MTL and Jang-MTL
+   (the bf16x3 counters move, the 'highest' ones do not) and one bf16x3
+   audio step card vs CPU;
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -129,7 +141,8 @@ Phases, each of which must pass:
    (the bf16 steps' and their timings' too) was checked in phase 3 (K1
    and K2 also at 12 clips x 43760 samples, the device pipeline's launch
    on a corpus of MUSAN's size, and K1 at 20 x 43760, the 5-class model's
-   there); the launches per median pair and in halo mode.
+   there); the launches per median pair, per mask power (all at 2) and
+   in halo mode.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Every kernel also reports its profiler device time, blocks
@@ -142,10 +155,12 @@ Jang's short evaluation shape, and K4 the short-clip route (``stft_mag``
 and K4) against K1 at the same length.  Every bound prices the medians
 at the shared-core networks' count, the least work known.  Prints a
 ``{"kernels": [...]}`` line (each kernel with a record per median pair
-under ``pairs``, and K1's and K2's halo mode as records of their own), a
-serving-times line, a resynthesis line, an evaluation line, a training
-line, a tuning line, a parallel line, a host line, the script's total
-seconds, the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
+under ``pairs`` and per other power under ``power_modes``, and K1's and
+K2's halo mode and bf16x3 as records of their own), a serving-times
+line, a resynthesis line, an evaluation line, a training line, a tuning
+line, a parallel line, a host line, a modes line, the script's total
+seconds, the card line, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero, and
 prints no result, if any phase fails or no GPU is present.  Imports
 nothing of JAX.
 """
@@ -364,6 +379,22 @@ RESYNTH_TOL = 1e-4
 #: H100 peaks (NVIDIA data sheet): HBM bytes/s and float32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = {"PCIe": 51e12, "default": 67e12}
+#: Dense tensor-core FLOP/s of the DFT's operands per DFT precision: bf16
+#: for 'bf16x3', TF32 for 'highest' (split TF32) (NVIDIA data sheet, SXM
+#: and PCIe parts).
+TENSOR_FLOPS = {"PCIe": {"bf16x3": 756e12, "highest": 378e12},
+                "default": {"bf16x3": 989e12, "highest": 495e12}}
+#: phase_modes: the mask powers besides 2 and the median pairs outside
+#: KERNEL_MEDIANS (the narrowest, an unlisted middle one, and the widest,
+#: whose K1 block keeps 64 - 60 = 4 output frames) it holds on the card.
+MODE_POWERS = (1.0, 1.5)
+MODE_PAIRS = ((3, 3), (15, 7), (61, 61))
+#: phase_modes: K1's and K2's error against float64 at 1 x 16404 frames in
+#: bf16x3 over that in split TF32 must reach this.  bf16's 8-bit halves
+#: leave about 30-40 times split TF32's 11-bit error on an H100, so a
+#: library that ran the split-TF32 body under the bf16x3 name reads about
+#: 1 and fails: the values show which body ran, not the name.
+BF16X3_ERR_FACTOR = 5.0
 #: Operations per bin of the soft masks (both masks and both products).
 MASK_OPS = 10
 
@@ -479,19 +510,23 @@ def _bound(nbytes: float, flops: float, card: str) -> tuple[float, str]:
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def median_comparators() -> tuple[dict, dict]:
+def median_comparators(extra_pairs=()) -> tuple[dict, dict]:
     """Comparators per output of the median networks in the checkout's
-    ``csrc/``, the sources phase 2 builds, counted from their text: per
-    width L, ``Median<L>`` (one network per window, as K1 and K2 run
-    them); per (l_harm, l_perc), harmonic plus percussive, the shared-core
-    networks K3 and K4 run, ``MedianCore<W, K>`` over its K outputs plus
-    one ``MedianMerge<K>`` each, with K the frames (``QT``) and bins
-    (``QF``) of ``hpss.cu``'s unit.  The shared-core count is the least
-    work known for the medians; every bound prices them with it."""
+    ``csrc/``, the sources phase 2 builds, counted from their text (and
+    from the networks generated for ``extra_pairs``, pairs outside
+    ``median.cuh``): per width L, ``Median<L>`` (one network per window, as
+    K1 and K2 run them); per (l_harm, l_perc), harmonic plus percussive,
+    the shared-core networks K3 and K4 run, ``MedianCore<W, K>`` over its K
+    outputs plus one ``MedianMerge<K>`` each, with K the frames (``QT``)
+    and bins (``QF``) of ``hpss.cu``'s unit, or ``Median<W>`` per window
+    where W is too narrow to share a core.  The shared-core count is the
+    least work known for the medians; every bound prices them with it."""
     import re
     from sm_hpss_mtl_tpu_torch.ops import _nvcc
     from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
-    head = (_nvcc.CSRC / "median.cuh").read_text()
+    from sm_hpss_mtl_tpu_torch.ops.median_networks import shares_core
+    head = (_nvcc.CSRC / "median.cuh").read_text() + "".join(
+        _nvcc.pair_networks(pair) for pair in extra_pairs)
     unit = (_nvcc.CSRC / "hpss.cu").read_text()
 
     def count(pattern):
@@ -506,11 +541,38 @@ def median_comparators() -> tuple[dict, dict]:
               for q in ("QF", "QT"))
 
     def shared(w, k):
+        if not shares_core(w, k):
+            return single[(w,)]
         return cores[(w, k)] / k + merges[(k,)]
 
     return ({w: n for (w,), n in single.items()},
             {(lh, lp): shared(lh, qt) + shared(lp, qf)
-             for lh, lp in KERNEL_MEDIANS})
+             for lh, lp in (*KERNEL_MEDIANS, *extra_pairs)})
+
+
+def dft_as_computed_ms(B: int, T: int, n_fft: int, card: str,
+                       dft_precision: str = "highest",
+                       win_length: int = 400) -> float:
+    """Least time of K1's and K2's DFT as the kernels compute it at (21, 11)
+    on the tensor cores, a reading beside ``bound_ms`` and not a bound of
+    the function (an FFT needs far less): each block's DFT rows (64 frame
+    rows, only the m16 tiles that hold real frames: the block's 44 output
+    frames and their harmonic halo) by the folded frame's k-steps
+    (``frontend.dft_steps``: 8 samples a step in split TF32, 16 in bf16x3)
+    by the padded bins (8 per group, cos and sin), 2 operations a product
+    and 3 products a product (hi*hi, hi*lo, lo*hi), over the dense
+    tensor-core peak of the operands' type (``TENSOR_FLOPS``).  ``T`` is
+    the output frames of each of ``B`` items."""
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    ht, tile = 10, 44
+    rows = sum(16 * -(-(min(T, t0 + tile + ht) - max(0, t0 - ht)) // 16)
+               for t0 in range(0, T, tile))
+    s_lo, s_hi = frontend.dft_steps(n_fft, win_length, dft_precision)
+    samples = (16 if dft_precision == "bf16x3" else 8) * (s_hi - s_lo)
+    bins = 8 * -(-(1 + n_fft // 2) // 8)
+    flops = B * rows * samples * bins * 2 * 2 * 3
+    peak = TENSOR_FLOPS["PCIe" if "PCIe" in card else "default"]
+    return 1e3 * flops / peak[dft_precision]
 
 
 def frontend_bound_ms(T: int, N: int, n_fft: int, comparators: float,
@@ -560,13 +622,14 @@ def k4_bound_ms(B: int, F: int, T: int, n_mels: int, mel_nnz: int,
     return _bound(nbytes, ops, card)
 
 
-def ptxas_report(source: str, kernel: str, pair=(21, 11)) -> dict:
+def ptxas_report(source: str, kernel: str, pair=(21, 11),
+                 dft_precision: str = "highest") -> dict:
     """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
     entry function of ``csrc/<source>``'s library for the median ``pair``
-    whose mangled name contains ``kernel``."""
+    and DFT precision whose mangled name contains ``kernel``."""
     from sm_hpss_mtl_tpu_torch.ops import _nvcc
-    return parse_ptxas(Path(str(_nvcc.library_path(source, pair))
-                            + ".log").read_text(), kernel)
+    return parse_ptxas(Path(str(_nvcc.library_path(
+        source, pair, dft_precision)) + ".log").read_text(), kernel)
 
 
 def parse_ptxas(log: str, kernel: str) -> dict:
@@ -771,6 +834,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
             **ptxas_report("frontend.cu",
                            f"frontend_kernelILi21ELi11ELb{int(fullres)}E"),
             "bound_direct_dft_ms": direct,
+            "dft_as_computed_ms": dft_as_computed_ms(1, T, n_fft, card),
             "comparators_per_output": single[21] + single[11],
             "bound_comparators_per_output": shared[(21, 11)],
             "bound_ms_at_own_networks": per_window[0],
@@ -823,7 +887,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     # frequent short evaluation item (1 x 257 x T, masked components).
     k3 = {"comparators_per_output": shared[(21, 11)],
           "blocks_per_sm": hpss.blocks_per_sm(mel=False),
-          **ptxas_report("hpss.cu", "hpss_kernelILi21ELi11ELb1E")}
+          **ptxas_report("hpss.cu", "hpss_kernelILi21ELi11ELb1ELb0E")}
     S = torch.rand((1, 201, 5998), generator=gen, device="cuda")
     bound, by = k3_bound_ms(1, 201, 5998, shared[(21, 11)], card)
     run = lambda: hpss.hpss_masks(S)  # noqa: E731
@@ -903,7 +967,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
         "device_ms_at_5998": full["device_ms"],
         "comparators_per_output": shared[(21, 11)],
         "blocks_per_sm": hpss.blocks_per_sm(mel=True),
-        **ptxas_report("hpss.cu", "hpss_mel_kernelILi21ELi11E"),
+        **ptxas_report("hpss.cu", "hpss_mel_kernelILi21ELi11ELb0E"),
         "short_clip_route": route})
     return entries, checked
 
@@ -1090,7 +1154,7 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
             "bound_ms": bound, "bound_by": by,
             "timed_shape": [1, 201, 5998], "timed_mode": "mask_only",
             "blocks_per_sm": hpss.blocks_per_sm(mel=False, **kw),
-            **ptxas_report("hpss.cu", f"hpss_kernelILi{lh}ELi{lp}ELb1E",
+            **ptxas_report("hpss.cu", f"hpss_kernelILi{lh}ELi{lp}ELb1ELb0E",
                            (lh, lp))})
         k4_rec = {}
         for T in (13, 5998):
@@ -1112,7 +1176,7 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
             full["device_ms"], "plain_ms_at_5998": full["plain_ms"],
             "bound_ms_at_5998": full["bound"][0],
             "blocks_per_sm": hpss.blocks_per_sm(mel=True, **kw),
-            **ptxas_report("hpss.cu", f"hpss_mel_kernelILi{lh}ELi{lp}E",
+            **ptxas_report("hpss.cu", f"hpss_mel_kernelILi{lh}ELi{lp}ELb0E",
                            (lh, lp))})
         for k in out:
             out[k][-1]["max_abs_err"] = err[(k, lh, lp)]
@@ -1129,11 +1193,14 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
 def recorded():
     """Counts every kernel launch of the code run inside, and the shape of
     each: the launch counts are set to 0 on entry and read on exit.  Also
-    the launches per median pair (``by_pair``, keyed ``"l_harm,l_perc"``)."""
+    the launches per median pair (``by_pair``, keyed ``"l_harm,l_perc"``)
+    and per mask power (``by_power``, keyed by the float power), and K1's
+    and K2's per DFT precision (``launches_by_precision``)."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
            "launches": {}, "halo": Counter(),
-           "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")}}
+           "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")},
+           "by_power": {k: Counter() for k in ("K1", "K2", "K3", "K4")}}
     f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
                                     hpss._launch_mel)
 
@@ -1148,11 +1215,17 @@ def recorded():
                     *(int(f) for f in kw["edge_flags"]))
         else:
             key += (T,)
+        # A mode other than the default: its name (phase_modes checks).
+        if kw.get("dft_precision", "highest") != "highest":
+            key += (kw["dft_precision"],)
+        if kw.get("power", 2.0) != 2.0:
+            key += (f"power{kw['power']}",)
         rec["shapes"][k].add(key)
         out = f_launch(y, M, **kw)
         if kw.get("halo_in_audio"):
             rec["halo"][k] += 1
         rec["by_pair"][k][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        rec["by_power"][k][float(kw.get("power", 2.0))] += 1
         return out
 
     def h_rec(S, **kw):
@@ -1161,6 +1234,7 @@ def recorded():
                                  kw["l_perc"], S.numel() // (F * T), F, T))
         out = h_launch(S, **kw)
         rec["by_pair"]["K3"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        rec["by_power"]["K3"][float(kw.get("power", 2.0))] += 1
         return out
 
     def m_rec(S, M, **kw):
@@ -1169,6 +1243,7 @@ def recorded():
                                  S.numel() // (F * T), F, T))
         out = m_launch(S, M, **kw)
         rec["by_pair"]["K4"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
+        rec["by_power"]["K4"][float(kw.get("power", 2.0))] += 1
         return out
 
     counters = (frontend.stft_hpss_mel, frontend.stft_hpss, hpss.hpss,
@@ -1177,12 +1252,18 @@ def recorded():
     try:
         for fn in counters:
             fn.launches = 0
+        for fn in counters[:2]:
+            fn.launches_by_precision = dict.fromkeys(
+                fn.launches_by_precision, 0)
         yield rec
         rec["launches"] = {
             "K1": frontend.stft_hpss_mel.launches,
             "K2": frontend.stft_hpss.launches,
             "K3": hpss.hpss.launches + hpss.hpss_masks.launches,
             "K4": hpss.hpss_mel.launches}
+        rec["launches_by_precision"] = {
+            "K1": dict(frontend.stft_hpss_mel.launches_by_precision),
+            "K2": dict(frontend.stft_hpss.launches_by_precision)}
     finally:
         frontend.launch, hpss._launch, hpss._launch_mel = (
             f_launch, h_launch, m_launch)
@@ -1221,7 +1302,8 @@ def serve(model: str, wav: str, weights: str, out: str, device: str,
 
     return {"tracks": tracks, "launches": rec["launches"], "frames": T,
             "total_s": total_s, "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"], "halo": rec["halo"]}
+            "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"], "halo": rec["halo"]}
 
 
 def time_legs(model: str, x: np.ndarray, wav: str, weights: str, out: str,
@@ -1314,6 +1396,7 @@ def resynth(wav: str, out_dir: str, device: str) -> dict:
         check(bool(np.isfinite(kept[k]).all()), f"resynthesis {k} not finite")
     return {**kept, "launches": rec["launches"], "shapes": rec["shapes"],
             "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"],
             "total_s": total_s}
 
 
@@ -1461,6 +1544,7 @@ def evaluate(model: str, corpus: dict, weights: str, device: str,
           f"{sorted(want)}")
     return {"result": res, "sweep": swept, "launches": rec["launches"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"],
             "test_model_s": t1 - t0,
             "sweep_s": t2 - t1, **seen}
 
@@ -1485,6 +1569,7 @@ def fuse_late(corpus: dict, ckpts: tuple, out: str, device: str) -> dict:
           "fuse_late wrote no Performance.csv")
     return {"result": res, "launches": rec["launches"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"],
             "total_s": total_s,
             "items": len(eval_item_frames(corpus, 400, sweep=False))}
 
@@ -1523,6 +1608,7 @@ def classify(wav: str, weights: str, device: str) -> dict:
           "classifier probabilities")
     return {"out": out, "launches": rec["launches"], "shapes": rec["shapes"],
             "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"],
             "total_s": total_s}
 
 
@@ -1650,6 +1736,8 @@ def train_cli(corpus: dict, out: str, pipeline: str,
           f"want {want} ({computes} featurized files)")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
             "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"],
+            "launches_by_precision": rec["launches_by_precision"],
             "total_s": total_s, "featurized_files": computes,
             "epoch_train_s": [h["epoch_train_s"] for h in hist],
             "fit_wall_s": fold["fit"].wall_time,
@@ -1668,12 +1756,15 @@ def _feature_config(model: str):
 
 def _train_setup(device: str, net, seed: int, audio: bool = True,
                  model: str = "Lemaire_et_al_MTL",
-                 optimizer: str | None = None, **step_kw):
+                 optimizer: str | None = None,
+                 dft_precision: str = "highest", **step_kw):
     """A copy of ``net`` on ``device``, an optimizer (``model``'s, or that
     of the ``optimizer`` family) and a train step at full width: the device
     pipeline's (``audio``: 16 clips per class, one 68-frame patch each, the
-    model's kernel inside) or the patch step.  Also the first lr."""
+    model's kernel inside, its DFT at ``dft_precision``) or the patch step.
+    Also the first lr."""
     import copy
+    import dataclasses
 
     import torch
     from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND
@@ -1685,7 +1776,9 @@ def _train_setup(device: str, net, seed: int, audio: bool = True,
                            tr_steps=100000)
     kw = dict(generator=torch.Generator(device=device).manual_seed(seed),
               l2_reg=0.01, **step_kw)
-    step = (make_audio_train_step(model_, opt, _feature_config(model),
+    feature_config = dataclasses.replace(_feature_config(model),
+                                         dft_precision=dft_precision)
+    step = (make_audio_train_step(model_, opt, feature_config,
                                   patch_size=68, patch_shift=68,
                                   n_patches_per_clip=1,
                                   input_kind=INPUT_KIND[model], **kw)
@@ -1725,7 +1818,8 @@ def _bn_fed_biases(model) -> set[str]:
 
 def _step_card_vs_cpu(net, batch, labels, audio: bool, update_rtol: float,
                       model: str = "Lemaire_et_al_MTL",
-                      optimizer: str | None = None) -> dict:
+                      optimizer: str | None = None,
+                      dft_precision: str = "highest") -> dict:
     """One train step of ``net`` on ``batch`` on the CPU and on the card:
     the loss, the BatchNorm statistics and every parameter's update (to
     ``update_rtol`` of its norm) held to their bars; the biases that feed
@@ -1740,14 +1834,15 @@ def _step_card_vs_cpu(net, batch, labels, audio: bool, update_rtol: float,
     for dev in ("cpu", "cuda"):
         model_, state, step, lr = _train_setup(dev, net, SEED, audio=audio,
                                                model=model,
-                                               optimizer=optimizer)
+                                               optimizer=optimizer,
+                                               dft_precision=dft_precision)
         d = torch.device(dev)
         loss = float(step(state, to_device(batch, d),
                           to_device(labels, d))["loss"])
         got[dev] = (loss, {k: v.detach().cpu()
                            for k, v in model_.state_dict().items()})
     (loss_cpu, cpu), (loss_gpu, gpu) = got["cpu"], got["cuda"]
-    tag = f"{model} {'audio' if audio else 'patch'} step"
+    tag = f"{model} {'audio' if audio else 'patch'} step ({dft_precision})"
     return _hold_step(tag, before, cpu, gpu, loss_cpu, loss_gpu, noise, lr,
                       update_rtol)
 
@@ -2211,7 +2306,8 @@ def scope_checks(wav: str, weights: str) -> dict:
                 seg.standardize = scope
                 tracks[dev, scope] = seg.frame_probabilities(fv)
     out = {"launches": rec["launches"], "shapes": rec["shapes"],
-           "by_pair": rec["by_pair"]}
+           "by_pair": rec["by_pair"],
+           "by_power": rec["by_power"]}
     for scope in ("featuregram", "none"):
         d = max(float(np.abs(tracks["cuda", scope][k]
                              - tracks["cpu", scope][k]).max())
@@ -2399,7 +2495,8 @@ def tune_cli(corpus: dict, out: str, name: str, argv: tuple,
                   for lh, lp in pairs}
         check(all(widths.values()), f"{name}: K1 launches per pair {widths}")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"], "total_s": total_s, "rows": rows,
+            "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"], "total_s": total_s, "rows": rows,
             "k1_launches_per_pair": widths}
 
 
@@ -2539,7 +2636,8 @@ def featurize_checks(corpus: dict, out: str) -> dict:
                                    os.path.join(out, dev), "--device", dev])
             total_s = time.perf_counter() - t0
         runs[dev] = {"launches": rec["launches"], "shapes": rec["shapes"],
-                     "by_pair": rec["by_pair"], "total_s": total_s,
+                     "by_pair": rec["by_pair"],
+                     "by_power": rec["by_power"], "total_s": total_s,
                      "computed": done,
                      "features": _cached_features(os.path.join(out, dev))}
     card, cpu = runs["cuda"], runs["cpu"]
@@ -2616,7 +2714,8 @@ def tsne_checks(corpus: dict) -> dict:
     # A bar under the skewness's range, 2 (n - 2) / sqrt(n - 1), holds.
     holds = bar < 2 * 66 / np.sqrt(67)
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"], "total_s": total_s,
+            "by_pair": rec["by_pair"],
+            "by_power": rec["by_power"], "total_s": total_s,
             "features_shape": list(gx.shape),
             "featuregram_max_abs_db_vs_cpu": db,
             "skew_max_abs_delta_vs_cpu": float(d.max()),
@@ -2766,10 +2865,390 @@ def phase_halo(card: str, checked: dict) -> tuple[dict, list]:
     return err, records
 
 
+def _plain_frontend(y, M, **kw):
+    """K1's (``M`` given) or K2's plain version."""
+    from sm_hpss_mtl_tpu_torch.ops import frontend
+    return (frontend.stft_hpss_plain(y, **kw) if M is None
+            else frontend.stft_hpss_mel_plain(y, M, **kw))
+
+
+def _turns(fns: dict, order: tuple, kernel: str, reps: int = 20) -> dict:
+    """``cuda_ms`` and ``device_ms`` of each of ``fns``, taken in the turns
+    of ``order`` (each name twice, as a, b, b, a); per name the mean of its
+    turns' medians and the turns themselves (a profiler turn that recorded
+    no such kernel reads None and is left out of the mean)."""
+    ms = {name: [] for name in fns}
+    dev = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(cuda_ms(fns[name], reps=reps, batches=5)[0])
+        dev[name].append(device_ms(fns[name], kernel, reps=reps))
+    seen = {name: [d for d in dev[name] if d is not None] for name in fns}
+    return {name: {"ms": sum(ms[name]) / len(ms[name]),
+                   "ms_turns": ms[name],
+                   "device_ms": (sum(seen[name]) / len(seen[name])
+                                 if seen[name] else None),
+                   "device_ms_turns": dev[name]} for name in fns}
+
+
+def phase_modes(card: str, checked: dict, corpus: dict, x600: np.ndarray,
+                out) -> tuple[list[dict], dict, dict, dict]:
+    """The front end's modes beyond 'highest', power 2 and the pairs of
+    ``KERNEL_MEDIANS`` on the card (phase 3, continued):
+
+    (a) K1 and K2 at ``dft_precision='bf16x3'`` (the JAX package's default)
+        against their plain bf16x3 versions at every launch shape phase 3
+        checked at (21, 11), halo mode included, at phase 3's bars (added to
+        the checked shapes with the mode's name); the 10-minute broadcast's
+        bf16x3 features against the plain bf16x3 ones (<= 0.02 dB) and, a
+        reading with no bar, against the plain 'highest' ones; both
+        precisions' times in turns (highest, bf16x3, bf16x3, highest),
+        device times, bounds and the DFT as the kernels compute it at 1 x
+        16404 frames and 48 x 11120 samples; at 1 x 16404 each precision's
+        error against float64, bf16x3's at least ``BF16X3_ERR_FACTOR``
+        times split TF32's (the values show the bf16x3 body ran);
+    (b) K1-K4 at the powers ``MODE_POWERS`` against their plain versions at
+        a short and a long shape each, with the long shape's times beside
+        power 2's, in turns;
+    (c) K1-K4 at the pairs ``MODE_PAIRS`` against their plain versions at
+        the edge lengths of each pair's half width and a long shape, with
+        times, bounds, registers and spills;
+    (d) the main path at the JAX CLI's default precision: ``cli.mtl
+        --dft-precision bf16x3 --pipeline device`` for Lemaire-MTL (K1) and
+        Jang-MTL (K2), one epoch of fold 0 on the training corpus at full
+        width, and one Lemaire-MTL audio step from the same weights on the
+        card and on the CPU, both at bf16x3, at the audio step's bars;
+    (e) during (d), the bf16x3 launch counters moved and the 'highest' ones
+        did not.
+    Returns K1's and K2's bf16x3 records (kernel entries of their own, the
+    launches those of (d)), the power records and the pair records per
+    kernel, and the readings."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
+    from sm_hpss_mtl_tpu_torch.ops.featuregram import featuregram_slabbed
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    banks = {n: mel_filterbank(22050, n, 120, device="cuda")
+             for n in (400, 512)}
+    nnz = {n: int((M != 0).sum()) for n, M in banks.items()}
+    single, shared = median_comparators(MODE_PAIRS)
+    geo = dict(win_length=400, hop_length=160)
+    t0 = time.perf_counter()
+
+    def audio(n_fft, B, T):
+        return torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
+                           device="cuda")
+
+    # (a) bf16x3 at every (21, 11) shape of phase 3.
+    err = {"K1": 0.0, "K2": 0.0}
+    added = []
+    for k in ("K1", "K2"):
+        for key in sorted(checked[k], key=str):
+            if key[1:3] != (21, 11) or isinstance(key[-1], str) and (
+                    key[-1] == "bf16x3" or key[-1].startswith("power")):
+                continue
+            n_fft, B, T = key[0], key[3], key[4]
+            kw = dict(n_fft=n_fft, l_harm=21, l_perc=11,
+                      dft_precision="bf16x3", **geo)
+            halo = 0
+            if len(key) > 5:                     # (..., T, "halo", ml, mr)
+                kw.update(halo_in_audio=True, edge_flags=key[6:8])
+                halo = 2 * (21 // 2)
+            y = audio(n_fft, B, T + halo)
+            M = banks[n_fft] if k == "K1" else None
+            err[k] = max(err[k], compare(
+                f"{k} bf16x3 {key}", frontend.launch(y, M, **kw),
+                _plain_frontend(y, M, **kw), RTOL, ATOL))
+            added.append((k, key + ("bf16x3",)))
+    for k, key in added:
+        checked[k].add(key)
+    print(f"modes: K1/K2 in bf16x3 at {len(added)} shapes of phase 3 ok, "
+          f"max |delta| K1 {err['K1']:.3e}, K2 {err['K2']:.3e}", flush=True)
+
+    x = torch.as_tensor(x600, device="cuda")
+    fkw = dict(feat_name="LogMelHarmPercSpec", n_fft=400, n_mels=120)
+    got = featuregram_slabbed(x, dft_precision="bf16x3", **fkw)
+    k1 = frontend.stft_hpss_mel
+    plain = {}
+    for prec in ("bf16x3", "highest"):
+        frontend.stft_hpss_mel = (
+            lambda y, M, dft_precision="highest", prec=prec, **kw:
+            frontend.stft_hpss_mel_plain(y, M, dft_precision=prec, **kw))
+        try:
+            plain[prec] = featuregram_slabbed(x, dft_precision=prec, **fkw)
+        finally:
+            frontend.stft_hpss_mel = k1
+    db = {prec: (got - want).abs().max().item()
+          for prec, want in plain.items()}
+    del got, plain
+    check(db["bf16x3"] <= FEATURE_DB_TOL,
+          f"bf16x3 features of the 10-minute broadcast differ from the "
+          f"plain bf16x3 ones by {db['bf16x3']:.4f} dB")
+
+    records = []
+    for k, n_fft, name in (("K1", 400, "stft_hpss_mel"),
+                           ("K2", 512, "stft_hpss")):
+        M = banks[n_fft] if k == "K1" else None
+        mel = dict(n_mels=120, mel_nnz=nnz[n_fft]) if M is not None else {}
+        lib = {prec: {**ptxas_report(
+            "frontend.cu", f"frontend_kernelILi21ELi11ELb{int(M is None)}E",
+            dft_precision=prec), "blocks_per_sm": frontend.blocks_per_sm(
+                fullres=M is None, n_fft=n_fft, hop_length=160, l_harm=21,
+                l_perc=11, dft_precision=prec)}
+            for prec in ("highest", "bf16x3")}
+        shapes = {}
+        for B, N in ((1, n_fft + 16403 * 160), (48, 11120)):
+            T = n_frames(N, n_fft, 160)
+            y = torch.randn((B, N), generator=gen, device="cuda")
+            kw = dict(n_fft=n_fft, l_harm=21, l_perc=11, **geo)
+            fns = {prec: functools.partial(frontend.launch, y, M,
+                                           dft_precision=prec, **kw)
+                   for prec in ("highest", "bf16x3")}
+            turns = _turns(fns, ("highest", "bf16x3", "bf16x3", "highest"),
+                           "frontend_kernel")
+            for prec in turns:
+                turns[prec]["bound_ms"], turns[prec]["bound_by"], _ = \
+                    frontend_bound_ms(T, N, n_fft, shared[(21, 11)], card,
+                                      B=B, **mel)
+                turns[prec]["dft_as_computed_ms"] = dft_as_computed_ms(
+                    B, T, n_fft, card, prec)
+            turns["bf16x3"]["plain_ms"] = cuda_ms(functools.partial(
+                _plain_frontend, y, M, dft_precision="bf16x3", **kw),
+                reps=3, batches=3)[0]
+            if B == 1:
+                ref = _plain_frontend(y.double(), None if M is None
+                                      else M.double(), **kw)
+                for prec in turns:
+                    turns[prec]["max_err_vs_f64"] = max(
+                        (g.double() - w).abs().max().item()
+                        for g, w in zip(fns[prec](), ref))
+                del ref
+                ratio = (turns["bf16x3"]["max_err_vs_f64"]
+                         / turns["highest"]["max_err_vs_f64"])
+                check(ratio >= BF16X3_ERR_FACTOR,
+                      f"{k} at 1 x {T}: bf16x3's error against float64 is "
+                      f"{ratio:.2f}x split TF32's, under "
+                      f"{BF16X3_ERR_FACTOR}x: the bf16x3 body did not run")
+                turns["bf16x3"]["err_vs_f64_over_highest"] = ratio
+            shapes[f"{B}x{N}"] = {"frames": T, **turns}
+        long = shapes[f"1x{n_fft + 16403 * 160}"]
+        records.append({
+            "name": f"{name} (bf16x3)", "route": "cuda",
+            "source": "sm_hpss_mtl_tpu_torch/csrc/frontend.cu",
+            "replaces": "sm_hpss_mtl_tpu/ops/frontend_pallas.py:"
+            + ("207" if M is not None else "219"),
+            "launches": None, "max_abs_err": err[k],
+            "ms": long["bf16x3"]["ms"], "plain_ms": long["bf16x3"]["plain_ms"],
+            "bound_ms": long["bf16x3"]["bound_ms"],
+            "bound_by": long["bf16x3"]["bound_by"], "library_ms": None,
+            "device_ms": long["bf16x3"]["device_ms"],
+            "dft_precision": "bf16x3",
+            "bf16x3_body": "sm_hpss_mtl_tpu/ops/frontend_pallas.py:130",
+            "timed_shape": [1, n_fft + 16403 * 160], "n_fft": n_fft,
+            "precisions_in_turns": shapes, "ptxas": lib,
+            **({"features_600s_max_abs_db_vs_plain_bf16x3": db["bf16x3"],
+                "features_600s_max_abs_db_vs_plain_highest": db["highest"]}
+               if M is not None else {})})
+        print(f"modes: {k} at 1 x 16404 frames device ms highest "
+              f"{long['highest']['device_ms']} bf16x3 "
+              f"{long['bf16x3']['device_ms']} (DFT as computed "
+              f"{long['highest']['dft_as_computed_ms']:.5f} / "
+              f"{long['bf16x3']['dft_as_computed_ms']:.5f} ms)", flush=True)
+
+    # (b) K1-K4 at the other powers.
+    powers = {"K1": [], "K2": [], "K3": [], "K4": []}
+    M = banks[400]
+    for p in MODE_POWERS:
+        kwp = dict(l_harm=21, l_perc=11, power=p)
+        e = Counter()
+        for k, n_fft in (("K1", 400), ("K2", 512)):
+            Mk = M if k == "K1" else None
+            for B, T in ((2, 7), (1, 16404)):
+                y = audio(n_fft, B, T)
+                kw = dict(n_fft=n_fft, **geo, **kwp)
+                e[k] = max(e[k], compare(
+                    f"{k} power {p} B={B} T={T}",
+                    frontend.launch(y, Mk, **kw),
+                    _plain_frontend(y, Mk, **kw), RTOL, ATOL))
+            kw = dict(n_fft=n_fft, l_harm=21, l_perc=11, **geo)
+            fns = {f"power {p}": functools.partial(frontend.launch, y, Mk,
+                                                   power=p, **kw),
+                   "power 2": functools.partial(frontend.launch, y, Mk, **kw)}
+            turns = _turns(fns, (f"power {p}", "power 2", "power 2",
+                                 f"power {p}"), "frontend_kernel")
+            bound, by, _ = frontend_bound_ms(
+                16404, y.shape[-1], n_fft, shared[(21, 11)], card,
+                **(dict(n_mels=120, mel_nnz=nnz[400]) if Mk is not None
+                   else {}))
+            powers[k].append({
+                "power": p, "launches": None, "max_abs_err": e[k],
+                "timed_shape": [1, y.shape[-1]], **turns[f"power {p}"],
+                "power_2": turns["power 2"],
+                "plain_ms": cuda_ms(functools.partial(
+                    _plain_frontend, y, Mk, power=p, **kw), reps=2,
+                    batches=3)[0],
+                "bound_ms": bound, "bound_by": by})
+        for F, T in ((201, 13), (201, 5998)):
+            B = 2 if T == 13 else 1
+            S = torch.rand((B, F, T), generator=gen, device="cuda") ** 3
+            for mo in (False, True):
+                fn, plain = ((hpss.hpss_masks, hpss.hpss_masks_plain) if mo
+                             else (hpss.hpss, hpss.hpss_plain))
+                e["K3"] = max(e["K3"], compare(
+                    f"K3 power {p} mask_only={mo} T={T}", fn(S, **kwp),
+                    plain(S, **kwp), K3_RTOL, K3_ATOL))
+            e["K4"] = max(e["K4"], compare(
+                f"K4 power {p} T={T}", hpss.hpss_mel(S, M, **kwp),
+                hpss.hpss_mel_plain(S, M, **kwp), K3_RTOL, K3_ATOL))
+        S = torch.rand((1, 201, 5998), generator=gen, device="cuda") ** 3
+        # K3's and K4's powf twins (POW true) and their ptxas reports.
+        for k, kernel, fn, plain, mangled in (
+                ("K3", "hpss_kernel", hpss.hpss_masks, hpss.hpss_masks_plain,
+                 "hpss_kernelILi21ELi11ELb1ELb1E"),
+                ("K4", "hpss_mel_kernel",
+                 functools.partial(hpss.hpss_mel, mel_basis=M),
+                 functools.partial(hpss.hpss_mel_plain, mel_basis=M),
+                 "hpss_mel_kernelILi21ELi11ELb1E")):
+            fns = {f"power {p}": functools.partial(fn, S, power=p),
+                   "power 2": functools.partial(fn, S)}
+            turns = _turns(fns, (f"power {p}", "power 2", "power 2",
+                                 f"power {p}"), kernel, reps=50)
+            bound, by = (k3_bound_ms(1, 201, 5998, shared[(21, 11)], card)
+                         if k == "K3" else
+                         k4_bound_ms(1, 201, 5998, 120, nnz[400],
+                                     shared[(21, 11)], card))
+            powers[k].append({
+                "power": p, "launches": None, "max_abs_err": e[k],
+                "timed_shape": [1, 201, 5998], **turns[f"power {p}"],
+                "power_2": turns["power 2"],
+                "plain_ms": cuda_ms(functools.partial(plain, S, power=p),
+                                    reps=2, batches=3)[0],
+                "bound_ms": bound, "bound_by": by,
+                **ptxas_report("hpss.cu", mangled)})
+    print("modes: powers " + "; ".join(
+        f"{k} " + ", ".join(f"p={r['power']}: {r['device_ms']} ms "
+                            f"(power 2 {r['power_2']['device_ms']}), "
+                            f"|delta| {r['max_abs_err']:.2e}" for r in v)
+        for k, v in powers.items()), flush=True)
+
+    # (c) the pairs outside KERNEL_MEDIANS.
+    pairs = {"K1": [], "K2": [], "K3": [], "K4": []}
+    for lh, lp in MODE_PAIRS:
+        ht = lh // 2
+        kwl = dict(l_harm=lh, l_perc=lp)
+        e = Counter()
+        for T in sorted({1, 7, max(1, 2 * ht - 1), 2 * ht, 2 * ht + 1, 68}):
+            for k, n_fft in (("K1", 400), ("K2", 512)):
+                Mk = M if k == "K1" else None
+                y = audio(n_fft, 2, T)
+                kw = dict(n_fft=n_fft, **geo, **kwl)
+                e[k] = max(e[k], compare(
+                    f"{k} l=({lh},{lp}) T={T}", frontend.launch(y, Mk, **kw),
+                    _plain_frontend(y, Mk, **kw), RTOL, ATOL))
+            S = torch.rand((2, 201, T), generator=gen, device="cuda") ** 3
+            for mo in (False, True):
+                fn, plain = ((hpss.hpss_masks, hpss.hpss_masks_plain) if mo
+                             else (hpss.hpss, hpss.hpss_plain))
+                e["K3"] = max(e["K3"], compare(
+                    f"K3 l=({lh},{lp}) mask_only={mo} T={T}", fn(S, **kwl),
+                    plain(S, **kwl), K3_RTOL, K3_ATOL))
+            e["K4"] = max(e["K4"], compare(
+                f"K4 l=({lh},{lp}) T={T}", hpss.hpss_mel(S, M, **kwl),
+                hpss.hpss_mel_plain(S, M, **kwl), K3_RTOL, K3_ATOL))
+        cmp = shared[(lh, lp)]
+        rec = {"pair": [lh, lp], "launches": None,
+               "comparators_per_output": cmp,
+               "comparators_per_output_own_networks": single[lh]
+               + single[lp], "networks": "generated"}
+        for k, n_fft in (("K1", 400), ("K2", 512)):
+            Mk = M if k == "K1" else None
+            y = audio(n_fft, 1, 16404)
+            kw = dict(n_fft=n_fft, **geo, **kwl)
+            run = functools.partial(frontend.launch, y, Mk, **kw)
+            ms = cuda_ms(run, reps=10, batches=5)
+            bound, by, _ = frontend_bound_ms(
+                16404, y.shape[-1], n_fft, cmp, card,
+                **(dict(n_mels=120, mel_nnz=nnz[400]) if Mk is not None
+                   else {}))
+            pairs[k].append({
+                **rec, "max_abs_err": e[k], "ms": ms[0], "ms_spread": ms[1:],
+                "device_ms": device_ms(run, "frontend_kernel", reps=10),
+                "plain_ms": cuda_ms(functools.partial(_plain_frontend, y, Mk,
+                                                      **kw),
+                                    reps=1, batches=3)[0],
+                "bound_ms": bound, "bound_by": by,
+                "timed_shape": [1, y.shape[-1]], "n_fft": n_fft,
+                "blocks_per_sm": frontend.blocks_per_sm(
+                    fullres=Mk is None, n_fft=n_fft, hop_length=160, **kwl),
+                **ptxas_report("frontend.cu", f"frontend_kernelILi{lh}ELi"
+                               f"{lp}ELb{int(Mk is None)}E", (lh, lp))})
+        S = torch.rand((1, 201, 5998), generator=gen, device="cuda") ** 3
+        for k, kernel, fn, plain, mangled, bound in (
+                ("K3", "hpss_kernel", hpss.hpss_masks, hpss.hpss_masks_plain,
+                 f"hpss_kernelILi{lh}ELi{lp}ELb1ELb0E",
+                 k3_bound_ms(1, 201, 5998, cmp, card)),
+                ("K4", "hpss_mel_kernel",
+                 functools.partial(hpss.hpss_mel, mel_basis=M),
+                 functools.partial(hpss.hpss_mel_plain, mel_basis=M),
+                 f"hpss_mel_kernelILi{lh}ELi{lp}ELb0E",
+                 k4_bound_ms(1, 201, 5998, 120, nnz[400], cmp, card))):
+            e[k] = max(e[k], compare(f"{k} l=({lh},{lp}) T=5998",
+                                     fn(S, **kwl), plain(S, **kwl),
+                                     K3_RTOL, K3_ATOL))
+            run = functools.partial(fn, S, **kwl)
+            ms = cuda_ms(run, reps=20, batches=5)
+            pairs[k].append({
+                **rec, "max_abs_err": e[k], "ms": ms[0], "ms_spread": ms[1:],
+                "device_ms": device_ms(run, kernel, reps=20),
+                "plain_ms": cuda_ms(functools.partial(plain, S, **kwl),
+                                    reps=1, batches=3)[0],
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "timed_shape": [1, 201, 5998],
+                "timed_mode": "mask_only" if k == "K3" else None,
+                "blocks_per_sm": hpss.blocks_per_sm(mel=k == "K4", **kwl),
+                **ptxas_report("hpss.cu", mangled, (lh, lp))})
+        print(f"modes: pair ({lh},{lp}) " + "; ".join(
+            f"{k} {pairs[k][-1]['device_ms']} ms "
+            f"({pairs[k][-1]['registers']} registers, "
+            f"{pairs[k][-1]['spill_stores']} B spilled), |delta| "
+            f"{pairs[k][-1]['max_abs_err']:.2e}" for k in pairs), flush=True)
+
+    # (d) the main path at the JAX CLI's default precision, and (e).
+    runs = {}
+    for model, k in (("Lemaire_et_al_MTL", "K1"), ("Jang_et_al_MTL", "K2")):
+        r = train_cli(corpus, out(f"modes_{model}"), "device", model=model,
+                      extra=("--dft-precision", "bf16x3"), epochs=1)
+        by = r["launches_by_precision"][k]
+        check(by["bf16x3"] == r["launches"][k] > 0 and by["highest"] == 0,
+              f"{model} --dft-precision bf16x3: launches per precision {by}")
+        _shapes_checked(f"{model} at bf16x3", r["shapes"], checked)
+        runs[model] = r
+    audio_, labels = next(_crops(corpus, SEED))
+    step = _step_card_vs_cpu(_seeded("Lemaire_et_al_MTL", dropout=False),
+                             audio_, labels, audio=True,
+                             update_rtol=STEP_AUDIO_UPDATE_RTOL,
+                             dft_precision="bf16x3")
+    for rec, r, k in zip(records, runs.values(), ("K1", "K2")):
+        rec["launches"] = r["launches_by_precision"][k]["bf16x3"]
+    readings = {
+        "card": card, "s": time.perf_counter() - t0,
+        "bf16x3_shapes_checked": len(added),
+        "features_600s_max_abs_db": db,
+        "audio_step_bf16x3_card_vs_cpu": step,
+        "main_path": {m: {"launches": r["launches"],
+                          "launches_by_precision": r["launches_by_precision"],
+                          "total_s": r["total_s"], "val_loss": r["val_loss"],
+                          "accuracy": r["accuracy"]}
+                      for m, r in runs.items()}}
+    return records, powers, pairs, readings
+
+
 def _run_of(rec: dict) -> dict:
-    """A ``recorded`` block's launches, shapes, per-pair and halo counts, as
-    the phase-12 checks read a path's run."""
-    return {k: rec[k] for k in ("launches", "shapes", "by_pair", "halo")}
+    """A ``recorded`` block's launches, shapes, per-pair, per-power and halo
+    counts, as the phase-12 checks read a path's run."""
+    return {k: rec[k] for k in ("launches", "shapes", "by_pair", "by_power",
+                                "halo")}
 
 
 def _period_ms(fn, steps: int = 20) -> tuple[float, list]:
@@ -3262,12 +3741,18 @@ def scale_tool_check(card: str, tmp: str, checked: dict) -> dict:
 
 def build_all() -> tuple[float, list[str]]:
     """Compile every CUDA source for every median pair at once, one nvcc
-    process each (``ops/_nvcc.py``: one library per source and pair); load
-    the libraries.  Returns the wall time and the ptxas reports."""
+    process each (``ops/_nvcc.py``: one library per source, pair and DFT
+    precision), with phase_modes' libraries; load the libraries.  Returns
+    the wall time and the ptxas reports."""
     from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend, hpss
     from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
     jobs = [(p.name, pair) for p in sorted(_nvcc.CSRC.glob("*.cu"))
             for pair in KERNEL_MEDIANS]
+    # phase_modes' libraries: K1/K2 in bf16x3 and the pairs outside
+    # KERNEL_MEDIANS, built with the rest (the powers are arguments).
+    jobs += [("frontend.cu", (21, 11), "bf16x3")]
+    jobs += [(src, pair) for pair in MODE_PAIRS
+             for src in ("frontend.cu", "hpss.cu")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as ex:
         libs = list(ex.map(lambda job: _nvcc.build(*job), jobs))
@@ -3362,6 +3847,18 @@ def run() -> None:
         pair_entries = phase_pairs(card, checked, train_corpus)
         print(f"[3 pairs] ok, {time.perf_counter() - t_pairs:.1f} s",
               flush=True)
+        mode_records, power_records, mode_pairs, modes = phase_modes(
+            card, checked, train_corpus, x600, out)
+        for k, recs in mode_pairs.items():
+            pair_entries[k].extend(recs)
+        print(f"[3 modes] ok, {modes['s']:.1f} s; bf16x3 main path "
+              + ", ".join(f"{m} {v['launches_by_precision']}"
+                          for m, v in modes["main_path"].items())
+              + "; audio step card vs CPU at bf16x3: update "
+              f"{modes['audio_step_bf16x3_card_vs_cpu']['update_rel_max']:.2e}"
+              f" of its norm; 10-minute features at bf16x3 vs plain "
+              f"'highest' {modes['features_600s_max_abs_db']['highest']:.4f}"
+              " dB", flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
@@ -3852,11 +4349,25 @@ def run() -> None:
               == entry["launches"], f"{kernel}: launches per pair do not "
               "add up")
         entry["pairs"] = pair_entries[kernel]
+        # The main path's launches per power: all at power 2, none at the
+        # powers phase_modes holds.
+        powers = Counter()
+        for n in names:
+            powers.update(runs[n]["by_power"][kernel])
+        check(powers[2.0] == entry["launches"], f"{kernel}: launches at "
+              f"power 2 {powers[2.0]} of {entry['launches']}")
+        for rec in power_records[kernel]:
+            rec["launches"] = powers[rec["power"]]
+        entry["power_modes"] = power_records[kernel]
     # The halo-mode records: the launches of that mode among each kernel's.
     for rec, kernel in zip(halo_records, ("K1", "K2")):
         rec["launches"] = sum(runs[n].get("halo", {}).get(kernel, 0)
                               for n in paths[kernel])
         check(rec["launches"] > 0, f"{kernel} never ran in halo mode")
+        entries.append(rec)
+    # K1 and K2 in bf16x3: their launches are phase_modes' main path's.
+    for rec in mode_records:
+        check(rec["launches"] > 0, f"{rec['name']} never launched")
         entries.append(rec)
     # The scale tool's path (phase 10b) ran in its own process, which
     # counted its K1 launches (all at (21, 11)).
@@ -3880,7 +4391,7 @@ def run() -> None:
         "variants": variants_serving,
         "ckpt_of_bf16_fold_60s": ckpt_serving,
         "segmenter_scopes": {k: v for k, v in scopes.items()
-                             if k not in ("shapes", "by_pair")},
+                             if k not in ("shapes", "by_pair", "by_power")},
         "mp3": mp3,
         "build_s": build_s}}))
     print(json.dumps({"resynthesis": {
@@ -3960,15 +4471,17 @@ def run() -> None:
         "D 240, patch 68, 16 clips per class", "epochs": 1,
         "train_steps": TUNE_STEPS, "val_steps": 1,
         **{n: {k: v for k, v in tuning[n].items()
-               if k not in ("shapes", "by_pair")} for n, _, _ in TUNE_RUNS},
+               if k not in ("shapes", "by_pair", "by_power")}
+           for n, _, _ in TUNE_RUNS},
         "multi_step_card_vs_cpu": multi, "multi_step_times": multi_times,
         "featurize": {**{k: v for k, v in feat["card"].items()
-                         if k not in ("shapes", "by_pair")},
+                         if k not in ("shapes", "by_pair", "by_power")},
                       "cpu_total_s": feat["cpu_total_s"],
                       "max_abs_db_vs_cpu": feat["max_abs_db_vs_cpu"],
                       "launch_shapes": feat["launch_shapes"]},
         "tsne": {k: v for k, v in tsne_run.items()
-                 if k not in ("shapes", "by_pair")}}}, default=str))
+                 if k not in ("shapes", "by_pair", "by_power")}}},
+        default=str))
     print(json.dumps({"parallel": {
         "card": card, **parallel,
         "readings": {
@@ -3985,6 +4498,7 @@ def run() -> None:
             "single_patch_step_ms": dp_read["patch_step"]["single_step_ms"]}
     }}, default=str))
     print(json.dumps({"host": {"card": card, **host}}, default=str))
+    print(json.dumps({"modes": modes}, default=str))
     print(f"[13 total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -69,9 +69,11 @@ def build_parser(default_model: str = "Lemaire_et_al_MTL"):
     p.add_argument("--min-crop-s", type=float, default=0.0,
                    help="device pipeline: minimum crop seconds for "
                         "crop-local standardization context")
-    p.add_argument("--dft-precision", choices=["highest"], default="highest",
-                   help="fused-frontend DFT precision (the port serves "
-                        "'highest' only)")
+    p.add_argument("--dft-precision", choices=["bf16x3", "highest"],
+                   default="highest",
+                   help="fused-frontend DFT precision: 'highest' (the "
+                        "port's default, split TF32) or 'bf16x3' (the JAX "
+                        "package's default)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")

@@ -9,7 +9,7 @@
 // audio, the Hann-windowed rDFT magnitude S (center=False), an l_harm-frame
 // harmonic median across time and an l_perc-bin percussive median across
 // frequency (both with numpy mode='symmetric' edges), librosa's softmask
-// (power 2, split_zeros=False), then
+// (any power; split_zeros=False), then
 //   K1: the mel projections of S*mask_h and S*mask_p, two (B, n_mels, T) maps;
 //   K2: S*mask_h and S*mask_p themselves, two (B, F, T) maps.
 // One template, frontend_kernel<LH, LP, FULLRES>; FULLRES selects the
@@ -81,9 +81,35 @@
 //     consecutive lanes take consecutive frames of one bin, so each store of
 //     a warp is a contiguous run of a (B, F, T) row.
 //
+//
+// Modes:
+//   - HPSS_BF16X3 (ops/_nvcc.py builds one library per pair and DFT
+//     precision): the DFT in bf16x3, the JAX package's default
+//     dft_precision (frontend_pallas.py::_tile_masks): the folded e_n and
+//     o_n are rounded in registers to bf16 hi = bf16(x) and lo = bf16(x -
+//     hi) (cvt.rn.bf16x2.f32, round to nearest even), the basis comes in
+//     bf16 halves of the same float64 basis, and the product is lo*hi +
+//     hi*lo + hi*hi with f32 accumulators (lo*lo dropped), as the JAX
+//     kernel computes it, but on the folded frame.  mma.sync.m16n8k16 with
+//     bf16 operands covers 16 samples an instruction where TF32's m16n8k8
+//     covers 8, so the 26 k-steps of 8 at n_fft 400 become 13 of 16 and the
+//     tensor-core instructions halve (the k16 fragment of a row is two runs
+//     of 8 samples, and a run of 8 never crosses a row of audio, so n_fft
+//     and hop stay multiples of 8; a k-step past n_fft/2 meets zero basis
+//     rows).  m16n8k8 bf16 would keep TF32's instruction count and buy
+//     nothing.  As in split TF32, each k-step's products are summed from
+//     zero on the tensor core and added to the f32 sums on the CUDA cores.
+//     One DFT loop serves both precisions (Dft<BF16X3>: the k-step, the
+//     fragment's gather and split, the mma).
+//   - power, a kernel argument: the masks (h/z)^power and (p/z)^power;
+//     2 squares (the arithmetic above), any other power goes through powf
+//     (median.cuh's soft_masks_pow), a uniform branch in one instance: the
+//     masks are a small part of K1's and K2's work (hpss.cu's short
+//     kernels instead keep a powf twin of each instance).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -DHPSS_LH=51 -DHPSS_LP=11 -o libfrontend.so
-//        frontend.cu
+//        -Xcompiler -fPIC -DHPSS_LH=51 -DHPSS_LP=11 [-DHPSS_BF16X3=1]
+//        -o libfrontend.so frontend.cu
 // C interface, loaded with ctypes by sm_hpss_mtl_tpu_torch/ops/frontend.py.
 
 #include <cuda_runtime.h>
@@ -133,6 +159,37 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+#ifndef HPSS_BF16X3
+#define HPSS_BF16X3 0
+#endif
+constexpr bool kBf16x3 = HPSS_BF16X3 != 0;
+
+// {bf16(lo_elem) in the low half, bf16(hi_elem) in the high half}, each
+// rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi_elem), "f"(lo_elem));
+  return r;
+}
+
+// (x0, x1) as bf16x2 halves: hi = bf16(x), lo = bf16(x - hi), element 0 in
+// the low half of each register.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
+                                           uint32_t* lo) {
+  *hi = pack_bf16(x0, x1);
+  *lo = pack_bf16(x0 - __uint_as_float(*hi << 16),
+                  x1 - __uint_as_float(*hi & 0xffff0000u));
+}
+
+// d += a * b for one m16n8k16 tile, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
@@ -159,13 +216,84 @@ __host__ __device__ inline int smem_floats(int n_fft, int hop) {
   return audio_floats(n_fft, hop) + ROWS * (n_fft / 2 + 1);
 }
 
+// The two DFT precisions, one per library (HPSS_BF16X3): a k-step is RUNS
+// runs of 8 folded samples, and a lane's A fragment holds, per run and
+// row, the samples at columns col(tig) and col(tig) + GAP of the run.
+// fragment() gathers the fragment of one m16 tile from the staged audio
+// (f0: the frame's samples, a0 and b0: the mirrored samples N - n of the
+// two columns, per run; o: the tile's row offset), folds it and splits
+// each folded value into hi and lo halves; mma() is the tile's product.
+template <bool BF16X3>
+struct Dft;
+
+// Split TF32 on mma.sync.m16n8k8: one run of 8 per k-step; registers
+// (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4).
+template <>
+struct Dft<false> {
+  static constexpr int RUNS = 1;
+  static constexpr int GAP = 4;
+  __device__ static int col(int tig) { return tig; }
+  __device__ static void fragment(const float* const* f0,
+                                  const float* const* a0,
+                                  const float* const* b0, int o, int pitch,
+                                  uint32_t* eh, uint32_t* el, uint32_t* oh,
+                                  uint32_t* ol) {
+    const float x[4] = {f0[0][o], f0[0][o + 8 * pitch], f0[0][o + 4],
+                        f0[0][o + 8 * pitch + 4]};
+    const float z[4] = {a0[0][o], a0[0][o + 8 * pitch], b0[0][o],
+                        b0[0][o + 8 * pitch]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float ev = x[i] + z[i], od = x[i] - z[i];
+      eh[i] = to_tf32(ev);
+      el[i] = to_tf32(ev - __uint_as_float(eh[i]));
+      oh[i] = to_tf32(od);
+      ol[i] = to_tf32(od - __uint_as_float(oh[i]));
+    }
+  }
+  __device__ static void mma(float* d, const uint32_t* a, const uint32_t* b) {
+    mma_tf32(d, a, b);
+  }
+};
+
+// bf16x3 on mma.sync.m16n8k16: two runs of 8 per k-step; register 2h + r
+// packs samples 2*tig and 2*tig + 1 of run h at row g + 8r.  The mirrored
+// samples of a pair sit in two different rows of audio when N - n starts
+// a run, so each has its own pointer.
+template <>
+struct Dft<true> {
+  static constexpr int RUNS = 2;
+  static constexpr int GAP = 1;
+  __device__ static int col(int tig) { return 2 * tig; }
+  __device__ static void fragment(const float* const* f0,
+                                  const float* const* a0,
+                                  const float* const* b0, int o, int pitch,
+                                  uint32_t* eh, uint32_t* el, uint32_t* oh,
+                                  uint32_t* ol) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = o + 8 * r * pitch;
+        const float2 x = *reinterpret_cast<const float2*>(f0[h] + q);
+        const float z0 = a0[h][q], z1 = b0[h][q];
+        split_bf16(x.x + z0, x.y + z1, &eh[2 * h + r], &el[2 * h + r]);
+        split_bf16(x.x - z0, x.y - z1, &oh[2 * h + r], &ol[2 * h + r]);
+      }
+    }
+  }
+  __device__ static void mma(float* d, const uint32_t* a, const uint32_t* b) {
+    mma_bf16(d, a, b);
+  }
+};
+
 template <int LH, int LP, bool FULLRES>
 __global__ void __launch_bounds__(THREADS, 2)
 frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
                 const float* __restrict__ mel, const int2* __restrict__ bands,
                 float* __restrict__ out_h, float* __restrict__ out_p, int N,
                 int T, int n_fft, int win_length, int hop, int n_mels,
-                int halo, int mirror_l, int mirror_r) {
+                int halo, int mirror_l, int mirror_r, float power) {
   constexpr int HT = Geometry<LH>::HT;
   constexpr int HP = LP / 2;
   constexpr int TILE = Geometry<LH>::TILE;
@@ -223,11 +351,15 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
   // -sin columns, half the products of the plain sum.  Warp w takes the
   // groups of 8 bins w, w + 8, w + 16, ... in passes of GP groups, each
   // group a cos tile and a sin tile, each pass over all k-steps and the
-  // m16 tiles that hold real frames.
+  // m16 tiles that hold real frames.  A k-step is D::RUNS runs of 8
+  // samples (Dft above).
   {
+    using D = Dft<kBf16x3>;
+    constexpr int KS = 8 * D::RUNS;
     const int g = lane >> 2, tig = lane & 3;
-    const int s_lo = (n_fft - win_length) / 2 / 8;
-    const int s_hi = (n_fft / 2 + 8) / 8;
+    const int col = D::col(tig);
+    const int s_lo = (n_fft - win_length) / 2 / KS;
+    const int s_hi = ((n_fft / 2 + 8) / 8 + D::RUNS - 1) / D::RUNS;
     const int n_groups = (F + 7) / 8;
     const int n_mt = (n_real + 15) / 16;
     for (int q0 = warp; q0 < n_groups; q0 += WARPS * GP) {
@@ -238,10 +370,11 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
         for (int t = 0; t < 2 * GP; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
-      // Sample 8s + tig of the frame at row (srow, scol + tig); samples
-      // N - 8s - tig and N - 8s - 4 - tig at (arow, acol) and (brow, bcol).
-      int srow = 8 * s_lo / hop, scol = 8 * s_lo - srow * hop;
-      const int qa = n_fft - 8 * s_lo - tig, qb = qa - 4;
+      // Sample KS*s + col of the frame at row (srow, scol + col); samples
+      // N - KS*s - col and N - KS*s - col - GAP at (arow, acol) and (brow,
+      // bcol); each pointer advances a run of 8 at a time.
+      int srow = KS * s_lo / hop, scol = KS * s_lo - srow * hop;
+      const int qa = n_fft - KS * s_lo - col, qb = qa - D::GAP;
       int arow = qa / hop, acol = qa - arow * hop;
       int brow = qb / hop, bcol = qb - brow * hop;
       const float4* bs = basis + (size_t)q0 * 64 + lane;
@@ -258,27 +391,35 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
           bl[t][1] = __float_as_uint(v.w);
         }
         bs += (size_t)n_groups * 64;
-        const float* f0 = audio + (g + srow) * pitch + scol + tig;
-        const float* a0 = audio + (g + arow) * pitch + acol;
-        const float* b0 = audio + (g + brow) * pitch + bcol;
+        const float* f0[D::RUNS];
+        const float* a0[D::RUNS];
+        const float* b0[D::RUNS];
+#pragma unroll
+        for (int h = 0; h < D::RUNS; ++h) {
+          f0[h] = audio + (g + srow) * pitch + scol + col;
+          a0[h] = audio + (g + arow) * pitch + acol;
+          b0[h] = audio + (g + brow) * pitch + bcol;
+          scol += 8;
+          if (scol >= hop) {
+            scol -= hop;
+            ++srow;
+          }
+          acol -= 8;
+          if (acol < 0) {
+            acol += hop;
+            --arow;
+          }
+          bcol -= 8;
+          if (bcol < 0) {
+            bcol += hop;
+            --brow;
+          }
+        }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           if (mt < n_mt) {
-            const int o = mt * 16 * pitch;
-            // A fragment: (g, tig), (g + 8, tig), (g, tig + 4), (g + 8, tig + 4).
-            const float x[4] = {f0[o], f0[o + 8 * pitch], f0[o + 4],
-                                f0[o + 8 * pitch + 4]};
-            const float z[4] = {a0[o], a0[o + 8 * pitch], b0[o],
-                                b0[o + 8 * pitch]};
             uint32_t eh[4], el[4], oh[4], ol[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float ev = x[i] + z[i], od = x[i] - z[i];
-              eh[i] = to_tf32(ev);
-              el[i] = to_tf32(ev - __uint_as_float(eh[i]));
-              oh[i] = to_tf32(od);
-              ol[i] = to_tf32(od - __uint_as_float(oh[i]));
-            }
+            D::fragment(f0, a0, b0, mt * 16 * pitch, pitch, eh, el, oh, ol);
             // Each k-step's products are summed from zero on the tensor core
             // and added to the f32 sums on the CUDA cores (round to
             // nearest): the tensor core's own accumulation truncates, which
@@ -287,12 +428,12 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
             for (int t = 0; t < 2 * GP; t += 2) {
               if (q0 + (t >> 1) * WARPS < n_groups) {
                 float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
-                mma_tf32(c, el, bh[t]);
-                mma_tf32(c, eh, bl[t]);
-                mma_tf32(c, eh, bh[t]);
-                mma_tf32(d, ol, bh[t + 1]);
-                mma_tf32(d, oh, bl[t + 1]);
-                mma_tf32(d, oh, bh[t + 1]);
+                D::mma(c, el, bh[t]);
+                D::mma(c, eh, bl[t]);
+                D::mma(c, eh, bh[t]);
+                D::mma(d, ol, bh[t + 1]);
+                D::mma(d, oh, bl[t + 1]);
+                D::mma(d, oh, bh[t + 1]);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                   acc[mt][t][e] += c[e];
@@ -301,21 +442,6 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
               }
             }
           }
-        }
-        scol += 8;
-        if (scol >= hop) {
-          scol -= hop;
-          ++srow;
-        }
-        acol -= 8;
-        if (acol < 0) {
-          acol += hop;
-          --arow;
-        }
-        bcol -= 8;
-        if (bcol < 0) {
-          bcol += hop;
-          --brow;
         }
       }
       // Accumulator e of the cos tile is the real part, of the sin tile the
@@ -373,7 +499,10 @@ frontend_kernel(const float* __restrict__ y, const float4* __restrict__ basis,
     const float perc = Median<LP>::run(u);
     const float s = row[k];
     float mh, mp;
-    hpss_median::soft_masks(harm, perc, &mh, &mp);
+    if (power == 2.f)
+      hpss_median::soft_masks(harm, perc, &mh, &mp);
+    else
+      hpss_median::soft_masks_pow(harm, perc, power, &mh, &mp);
     *sh = s * mh;
     *sp = s * mp;
   };
@@ -465,7 +594,8 @@ template <int LH, int LP, bool FULLRES>
 cudaError_t launch(const float* y, const float4* basis, const float* mel,
                    const int2* bands, float* out_h, float* out_p, int B, int N,
                    int T, int n_fft, int win_length, int hop, int n_mels,
-                   int halo, int mirror_l, int mirror_r, cudaStream_t stream) {
+                   int halo, int mirror_l, int mirror_r, float power,
+                   cudaStream_t stream) {
   size_t bytes;
   cudaError_t e = prepare<LH, LP, FULLRES>(n_fft, hop, &bytes);
   if (e != cudaSuccess) return e;
@@ -473,7 +603,7 @@ cudaError_t launch(const float* y, const float4* basis, const float* mel,
   const dim3 grid((T + TILE - 1) / TILE, B);
   frontend_kernel<LH, LP, FULLRES><<<grid, THREADS, bytes, stream>>>(
       y, basis, mel, bands, out_h, out_p, N, T, n_fft, win_length, hop,
-      n_mels, halo, mirror_l, mirror_r);
+      n_mels, halo, mirror_l, mirror_r, power);
   return cudaGetLastError();
 }
 
@@ -492,7 +622,8 @@ template <bool FULLRES>
 int dispatch(const void* y, const void* basis, const void* mel,
              const void* bands, void* out_h, void* out_p, int B, int N, int T,
              int n_fft, int win_length, int hop, int l_harm, int l_perc,
-             int n_mels, int halo, int mirror_l, int mirror_r, void* stream) {
+             int n_mels, int halo, int mirror_l, int mirror_r, float power,
+             void* stream) {
   if (!geometry_ok(n_fft, win_length, hop) ||
       !halo_ok(N, T, n_fft, hop, l_harm, halo, mirror_l, mirror_r))
     return (int)cudaErrorInvalidValue;
@@ -507,7 +638,7 @@ int dispatch(const void* y, const void* basis, const void* mel,
   if (l_harm == LH && l_perc == LP)                                         \
     return launch<LH, LP, FULLRES>(yy, bb, mm, rr, oh, op, B, N, T, n_fft, \
                                    win_length, hop, n_mels, halo, mirror_l, \
-                                   mirror_r, st);
+                                   mirror_r, power, st);
   HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
 #undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -526,7 +657,9 @@ extern "C" {
 // the audio then carries l_harm/2 frames before frame 0 and after frame
 // T-1, real at a side whose flag (mirror_l, mirror_r) is 0, ignored and
 // replaced by the symmetric mirror at a side whose flag is 1.  Without halo
-// both flags must be 1.  n_fft and hop must be multiples of 8.
+// both flags must be 1.  n_fft and hop must be multiples of 8.  The basis
+// is in the layout of the library's DFT mode (HPSS_BF16X3 or split TF32);
+// the masks are raised to `power` (2 squares).
 // Returns a cudaError_t; cudaErrorInvalidValue for a (l_harm, l_perc) pair
 // this library was not built for (HPSS_FOR_EACH_PAIR), an unsupported
 // geometry or flags, or audio too short for T.  Does not synchronise.
@@ -534,10 +667,10 @@ int k1_stft_hpss_mel(const void* y, const void* basis, const void* mel,
                      const void* bands, void* out_h, void* out_p, int B, int N,
                      int T, int n_fft, int win_length, int hop, int l_harm,
                      int l_perc, int n_mels, int halo, int mirror_l,
-                     int mirror_r, void* stream) {
+                     int mirror_r, float power, void* stream) {
   return dispatch<false>(y, basis, mel, bands, out_h, out_p, B, N, T, n_fft,
                          win_length, hop, l_harm, l_perc, n_mels, halo,
-                         mirror_l, mirror_r, stream);
+                         mirror_l, mirror_r, power, stream);
 }
 
 // Launches K2 on `stream`.  y and basis as for k1_stft_hpss_mel; out_h,
@@ -545,10 +678,10 @@ int k1_stft_hpss_mel(const void* y, const void* basis, const void* mel,
 int k2_stft_hpss(const void* y, const void* basis, void* out_h, void* out_p,
                  int B, int N, int T, int n_fft, int win_length, int hop,
                  int l_harm, int l_perc, int halo, int mirror_l, int mirror_r,
-                 void* stream) {
+                 float power, void* stream) {
   return dispatch<true>(y, basis, nullptr, nullptr, out_h, out_p, B, N, T,
                         n_fft, win_length, hop, l_harm, l_perc, 0, halo,
-                        mirror_l, mirror_r, stream);
+                        mirror_l, mirror_r, power, stream);
 }
 
 // Blocks of K2 (fullres != 0) or K1 that one SM holds at once, from

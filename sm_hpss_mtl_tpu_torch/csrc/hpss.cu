@@ -7,9 +7,9 @@
 // the JAX package.  Same function: for every bin (f, t) of a (B, F, T)
 // float32 magnitude batch, an l_harm-frame harmonic median across time and
 // an l_perc-bin percussive median across frequency (numpy mode='symmetric'
-// edges on both axes), librosa's softmask (power 2, split_zeros=False), and
-// either S*mask_h and S*mask_p or the masks alone (mask_only), written as two
-// (B, F, T) maps.
+// edges on both axes), librosa's softmask (any power; split_zeros=False),
+// and either S*mask_h and S*mask_p or the masks alone (mask_only), written
+// as two (B, F, T) maps.
 //
 // K4 replaces ops/hpss_pallas.py::_hpss_mel_kernel, launched by
 // _hpss_mel_pallas behind hpss_mel: the same medians and masks, then
@@ -90,6 +90,18 @@
 // 167 per percussive one), percussive columns read one frame at a time
 // above l_perc 11 (unit_masks), and K3 tiles above 48 KB of shared memory.
 //
+// Any other odd pair of widths 3 to 61 (median.cuh's generated networks):
+// a harmonic median narrower than 7 frames has no shared core of QT = 4
+// windows and takes Median<l_harm> per frame (running_medians), and K4
+// takes its span in chunks of 32 or 16 bins where 64 would pass 48 KB of
+// static shared memory (k4_chunk; 32 at (61, 61)).
+//
+// The mask power is an argument of the entry points: 2 launches the
+// instances above (POW false, the squares), any other power their POW
+// twins, which raise through powf (median.cuh's soft_masks_rcp_pow).  The
+// masks are much of these short kernels' work, so powf stays out of the
+// squares' instances and their registers.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DHPSS_LH=51 -DHPSS_LP=11 -o libhpss.so hpss.cu
 // C interface, loaded with ctypes by sm_hpss_mtl_tpu_torch/ops/hpss.py.
@@ -128,6 +140,7 @@ static_assert((K4_CHUNK / QF) * (K4_TT / QT) <= THREADS,
 
 using hpss_median::running_medians;
 using hpss_median::soft_masks_rcp;
+using hpss_median::soft_masks_rcp_pow;
 using hpss_median::sym;
 using hpss_median::sym1;
 
@@ -188,9 +201,10 @@ __device__ __forceinline__ void load_window(float* tile, int W,
 // 4, starts its first harmonic window, so its frames sit at columns c+HT ..
 // c+HT+QT-1.  W is the tile's row stride.  Also returns the unit's
 // magnitudes.
-template <int LH, int LP>
+template <int LH, int LP, bool POW>
 __device__ __forceinline__ void unit_masks(const float* tile, int W, int r,
-                                           int c, float (&mh)[QF][QT],
+                                           int c, float power,
+                                           float (&mh)[QF][QT],
                                            float (&mp)[QF][QT],
                                            float (&s)[QF][QT]) {
   constexpr int HT = LH / 2;
@@ -245,8 +259,13 @@ __device__ __forceinline__ void unit_masks(const float* tile, int W, int r,
     }
     running_medians<LP, QF>(y[t], perc);
 #pragma unroll
-    for (int q = 0; q < QF; ++q)
+    for (int q = 0; q < QF; ++q) {
+      if constexpr (POW) {
+        soft_masks_rcp_pow(harm[q][t], perc[q], power, &mh[q][t], &mp[q][t]);
+        continue;
+      }
       soft_masks_rcp(harm[q][t], perc[q], &mh[q][t], &mp[q][t]);
+    }
   }
 }
 
@@ -264,10 +283,11 @@ size_t k3_smem_bytes(int pairs, int groups) {
          tile_stride<LH>(QT * groups);
 }
 
-template <int LH, int LP, bool MASK_ONLY>
+template <int LH, int LP, bool MASK_ONLY, bool POW>
 __global__ void __launch_bounds__(THREADS)
 hpss_kernel(const float* __restrict__ S, float* __restrict__ out_h,
-            float* __restrict__ out_p, int F, int T, int pairs, int groups) {
+            float* __restrict__ out_p, int F, int T, int pairs, int groups,
+            float power) {
   constexpr int HT = LH / 2;
   constexpr int HP = LP / 2;
   extern __shared__ float4 smem4[];
@@ -302,7 +322,7 @@ hpss_kernel(const float* __restrict__ S, float* __restrict__ out_h,
     const int f = f0 + QF * p, t = t0 + QT * g;
     if (f >= F || t >= T) continue;
     float mh[QF][QT], mp[QF][QT], s[QF][QT];
-    unit_masks<LH, LP>(tile, W, QF * p + HP, QT * g, mh, mp, s);
+    unit_masks<LH, LP, POW>(tile, W, QF * p + HP, QT * g, power, mh, mp, s);
 #pragma unroll
     for (int q = 0; q < QF; ++q) {
       if (f + q >= F) break;
@@ -369,10 +389,10 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-template <int LH, int LP, bool MASK_ONLY>
+template <int LH, int LP, bool MASK_ONLY, bool POW>
 cudaError_t k3_occupancy(Occupancy* out) {
   static Occupancy cache[MAX_DEVICES];
-  return occupancy(hpss_kernel<LH, LP, MASK_ONLY>, THREADS,
+  return occupancy(hpss_kernel<LH, LP, MASK_ONLY, POW>, THREADS,
                    k3_smem_bytes<LH, LP>(K3_PAIRS, K3_GROUPS), cache, out);
 }
 
@@ -410,38 +430,63 @@ K3Plan k3_plan(int B, int F, int T, const Occupancy& occ) {
   return p;
 }
 
-template <int LH, int LP>
-cudaError_t launch(const float* S, float* out_h, float* out_p, int B, int F,
-                   int T, bool mask_only, cudaStream_t stream) {
+template <int LH, int LP, bool MASK_ONLY, bool POW>
+cudaError_t launch_k3(const float* S, float* out_h, float* out_p, int B,
+                      int F, int T, float power, cudaStream_t stream) {
   Occupancy occ;
-  cudaError_t e = mask_only ? k3_occupancy<LH, LP, true>(&occ)
-                            : k3_occupancy<LH, LP, false>(&occ);
+  const cudaError_t e = k3_occupancy<LH, LP, MASK_ONLY, POW>(&occ);
   if (e != cudaSuccess) return e;
   const K3Plan p = k3_plan<LH, LP>(B, F, T, occ);
   const dim3 grid(p.cols, p.rows, B);
-  if (mask_only)
-    hpss_kernel<LH, LP, true><<<grid, THREADS, p.smem, stream>>>(
-        S, out_h, out_p, F, T, p.pairs, p.groups);
-  else
-    hpss_kernel<LH, LP, false><<<grid, THREADS, p.smem, stream>>>(
-        S, out_h, out_p, F, T, p.pairs, p.groups);
+  hpss_kernel<LH, LP, MASK_ONLY, POW><<<grid, THREADS, p.smem, stream>>>(
+      S, out_h, out_p, F, T, p.pairs, p.groups, power);
   return cudaGetLastError();
+}
+
+// K3 at `power`: the squares' instance at 2, the powf one otherwise.
+template <int LH, int LP>
+cudaError_t launch(const float* S, float* out_h, float* out_p, int B, int F,
+                   int T, bool mask_only, float power, cudaStream_t stream) {
+  if (power == 2.f)
+    return mask_only
+               ? launch_k3<LH, LP, true, false>(S, out_h, out_p, B, F, T,
+                                                power, stream)
+               : launch_k3<LH, LP, false, false>(S, out_h, out_p, B, F, T,
+                                                 power, stream);
+  return mask_only ? launch_k3<LH, LP, true, true>(S, out_h, out_p, B, F, T,
+                                                   power, stream)
+                   : launch_k3<LH, LP, false, true>(S, out_h, out_p, B, F,
+                                                    T, power, stream);
 }
 
 // ---- K4 -------------------------------------------------------------------
 
+// Bins of a K4 pass: K4_CHUNK, or half or a quarter of it where the tiles
+// would pass the 48 KB of static shared memory (wide pairs: (61, 61) takes
+// 32).  Every pair of KERNEL_MEDIANS takes K4_CHUNK.
 template <int LH, int LP>
+__host__ __device__ constexpr int k4_chunk() {
+  for (int c = K4_CHUNK; c > 16; c /= 2)
+    if (4 * ((c + 2 * (LP / 2)) * tile_stride<LH>(K4_TT) + 2 * c * K4_TT) <=
+        48 * 1024)
+      return c;
+  return 16;
+}
+
+template <int LH, int LP, bool POW>
 __global__ void __launch_bounds__(THREADS, K4_MIN_BLOCKS)
 hpss_mel_kernel(const float* __restrict__ S, const float* __restrict__ mel,
                 const int2* __restrict__ bands, float* __restrict__ out_h,
-                float* __restrict__ out_p, int F, int T, int n_mels) {
+                float* __restrict__ out_p, int F, int T, int n_mels,
+                float power) {
   constexpr int HT = LH / 2;
   constexpr int HP = LP / 2;
-  constexpr int R = K4_CHUNK + 2 * HP;     // tile rows
+  constexpr int CHUNK = k4_chunk<LH, LP>();
+  constexpr int R = CHUNK + 2 * HP;        // tile rows
   constexpr int W = tile_stride<LH>(K4_TT);
   __shared__ __align__(16) float tile[R * W];
-  __shared__ __align__(16) float hs[K4_CHUNK * K4_TT];  // [bin][frame]
-  __shared__ __align__(16) float ps[K4_CHUNK * K4_TT];
+  __shared__ __align__(16) float hs[CHUNK * K4_TT];  // [bin][frame]
+  __shared__ __align__(16) float ps[CHUNK * K4_TT];
 
   const int m0 = blockIdx.x * K4_BANDS;
   const int t0 = blockIdx.y * K4_TT;
@@ -469,8 +514,8 @@ hpss_mel_kernel(const float* __restrict__ S, const float* __restrict__ mel,
 
   const int ng = (min(K4_TT, T - t0) + QT - 1) / QT;  // real frame groups
   const int wd = QT * ng + 2 * HT;                     // columns read
-  for (int c0 = glo; c0 < ghi; c0 += K4_CHUNK) {
-    const int nb = min(K4_CHUNK, ghi - c0);  // bins of this pass
+  for (int c0 = glo; c0 < ghi; c0 += CHUNK) {
+    const int nb = min(CHUNK, ghi - c0);  // bins of this pass
     const int np = (nb + QF - 1) / QF;
     if (c0 > glo) __syncthreads();  // the last pass's epilogue read hs, ps
     load_window<(K4_TT + 2 * HT + 31) / 32, K4_ROWS>(
@@ -480,7 +525,8 @@ hpss_mel_kernel(const float* __restrict__ S, const float* __restrict__ mel,
       const int p = u / ng;
       const int g = u - p * ng;
       float mh[QF][QT], mp[QF][QT], s[QF][QT];
-      unit_masks<LH, LP>(tile, W, QF * p + HP, QT * g, mh, mp, s);
+      unit_masks<LH, LP, POW>(tile, W, QF * p + HP, QT * g, power, mh, mp,
+                              s);
 #pragma unroll
       for (int q = 0; q < QF; ++q) {
         const int o = (QF * p + q) * K4_TT + QT * g;
@@ -511,12 +557,16 @@ hpss_mel_kernel(const float* __restrict__ S, const float* __restrict__ mel,
 template <int LH, int LP>
 cudaError_t launch_mel(const float* S, const float* mel, const int2* bands,
                        float* out_h, float* out_p, int B, int F, int T,
-                       int n_mels, cudaStream_t stream) {
+                       int n_mels, float power, cudaStream_t stream) {
   const dim3 grid((n_mels + K4_BANDS - 1) / K4_BANDS, (T + K4_TT - 1) / K4_TT,
                   B);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  hpss_mel_kernel<LH, LP><<<grid, THREADS, 0, stream>>>(S, mel, bands, out_h,
-                                                        out_p, F, T, n_mels);
+  if (power == 2.f)
+    hpss_mel_kernel<LH, LP, false><<<grid, THREADS, 0, stream>>>(
+        S, mel, bands, out_h, out_p, F, T, n_mels, power);
+  else
+    hpss_mel_kernel<LH, LP, true><<<grid, THREADS, 0, stream>>>(
+        S, mel, bands, out_h, out_p, F, T, n_mels, power);
   return cudaGetLastError();
 }
 
@@ -525,14 +575,14 @@ int k4_blocks(void) {
   static Occupancy cache[MAX_DEVICES];
   Occupancy o;
   const cudaError_t e =
-      occupancy(hpss_mel_kernel<LH, LP>, THREADS, 0, cache, &o);
+      occupancy(hpss_mel_kernel<LH, LP, false>, THREADS, 0, cache, &o);
   return e == cudaSuccess ? o.blocks : -(int)e;
 }
 
 template <int LH, int LP>
 int k3_blocks(void) {
   Occupancy o;
-  const cudaError_t e = k3_occupancy<LH, LP, true>(&o);
+  const cudaError_t e = k3_occupancy<LH, LP, true, false>(&o);
   return e == cudaSuccess ? o.blocks : -(int)e;
 }
 
@@ -541,12 +591,14 @@ int k3_blocks(void) {
 extern "C" {
 
 // Launches K3 on `stream`.  S: (B, F, T) f32 magnitudes; out_h, out_p:
-// (B, F, T) f32, the masked components or (mask_only != 0) the masks.
+// (B, F, T) f32, the masked components or (mask_only != 0) the masks, the
+// masks raised to `power` (2 squares).
 // Returns a cudaError_t; cudaErrorInvalidValue for a (l_harm, l_perc) pair
 // this library was not built for (HPSS_FOR_EACH_PAIR) or a grid too large.
 // Does not synchronise.
 int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
-            int l_harm, int l_perc, int mask_only, void* stream) {
+            int l_harm, int l_perc, int mask_only, float power,
+            void* stream) {
   const float* s = static_cast<const float*>(S);
   float* oh = static_cast<float*>(out_h);
   float* op = static_cast<float*>(out_p);
@@ -554,7 +606,7 @@ int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
   if (B < 1 || B > 65535 || F < 1 || T < 1) return (int)cudaErrorInvalidValue;
 #define HPSS_LAUNCH(LH, LP)          \
   if (l_harm == LH && l_perc == LP) \
-    return launch<LH, LP>(s, oh, op, B, F, T, mask_only != 0, st);
+    return launch<LH, LP>(s, oh, op, B, F, T, mask_only != 0, power, st);
   HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
 #undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -563,12 +615,12 @@ int k3_hpss(const void* S, void* out_h, void* out_p, int B, int F, int T,
 // Launches K4 on `stream`.  S: (B, F, T) f32 magnitudes; mel: (n_mels, F)
 // f32; bands: (n_mels, 2) int32, each band's nonzero bins [lo, hi) ([0, 0)
 // for an empty band); out_h, out_p: (B, n_mels, T) f32, the mel projections
-// of the masked components.  Returns a cudaError_t; cudaErrorInvalidValue
-// for a (l_harm, l_perc) pair this library was not built for or a grid too
-// large.  Does not synchronise.
+// of the masked components (masks as for k3_hpss).  Returns a cudaError_t;
+// cudaErrorInvalidValue for a (l_harm, l_perc) pair this library was not
+// built for or a grid too large.  Does not synchronise.
 int k4_hpss_mel(const void* S, const void* mel, const void* bands,
                 void* out_h, void* out_p, int B, int F, int T, int l_harm,
-                int l_perc, int n_mels, void* stream) {
+                int l_perc, int n_mels, float power, void* stream) {
   const float* s = static_cast<const float*>(S);
   const float* m = static_cast<const float*>(mel);
   const int2* r = static_cast<const int2*>(bands);
@@ -579,7 +631,7 @@ int k4_hpss_mel(const void* S, const void* mel, const void* bands,
     return (int)cudaErrorInvalidValue;
 #define HPSS_LAUNCH(LH, LP)          \
   if (l_harm == LH && l_perc == LP) \
-    return launch_mel<LH, LP>(s, m, r, oh, op, B, F, T, n_mels, st);
+    return launch_mel<LH, LP>(s, m, r, oh, op, B, F, T, n_mels, power, st);
   HPSS_FOR_EACH_PAIR(HPSS_LAUNCH)
 #undef HPSS_LAUNCH
   return (int)cudaErrorInvalidValue;

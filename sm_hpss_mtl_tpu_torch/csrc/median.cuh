@@ -1,6 +1,6 @@
 // Median selection networks shared by the HPSS kernels (frontend.cu: K1 and
 // K2 take Median<L>; hpss.cu: K3 and K4 take the shared-core networks
-// below).
+// below), and the soft masks.
 //
 // Median<L>::run(v) leaves v[0..L) partly sorted and returns the median of
 // its L values.  Each network is the Batcher odd-even mergesort network for
@@ -8,9 +8,13 @@
 // ops/hpss_pallas.py::median_network in the JAX package (8 comparators for
 // 5 wires, 32 for 11, 91 for 21, 152 for 31, 257 for 41, 335 for 51);
 // tools/median_networks.py writes them and a CPU test pins each list to
-// that function.  With constant indices the whole array stays in registers
-// (or, for the widest, spills to local memory: see chip_smoke.py's ptxas
-// report).
+// that function.  This file holds the networks of the ten pairs of
+// ops/hpss.py::KERNEL_MEDIANS.  Any other odd pair of widths 3 to 61 gets
+// the specialisations it lacks from ops/median_networks.py::pair_networks
+// (the same generator), which ops/_nvcc.py writes beside the library and
+// names in -DHPSS_PAIR_NETWORKS; they are included below.  With constant
+// indices the whole array stays in registers (or, for the widest, spills
+// to local memory: see chip_smoke.py's ptxas report).
 
 #pragma once
 
@@ -577,28 +581,45 @@ struct MedianMerge<4> {
   }
 };
 
+// The networks of a pair this file does not hold (ops/_nvcc.py).
+#ifdef HPSS_PAIR_NETWORKS
+#include HPSS_PAIR_NETWORKS
+#endif
+
 #undef CS
 
 // out[j] = median of x[j .. j+W-1] for j < K, from x[0 .. W+K-2]: the core
 // network once, then one merge per output.  With constant indices all of
-// it stays in registers.
+// it stays in registers.  A window too narrow to share a core with K - 1
+// others (K > (W+1)/2: rank M-K+1 does not exist) takes Median<W> per
+// output instead.
 template <int W, int K>
 __device__ __forceinline__ void running_medians(const float* x, float* out) {
   constexpr int LO = (W - 1) / 2 - K + 1;
-  float core[W - K + 1];
+  if constexpr (LO < 0) {
 #pragma unroll
-  for (int i = 0; i < W - K + 1; ++i) core[i] = x[K - 1 + i];
-  MedianCore<W, K>::run(core);
+    for (int j = 0; j < K; ++j) {
+      float v[W];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    float u[2 * K - 1];
+      for (int i = 0; i < W; ++i) v[i] = x[j + i];
+      out[j] = Median<W>::run(v);
+    }
+  } else {
+    float core[W - K + 1];
 #pragma unroll
-    for (int i = 0; i < K; ++i) u[i] = core[LO + i];
+    for (int i = 0; i < W - K + 1; ++i) core[i] = x[K - 1 + i];
+    MedianCore<W, K>::run(core);
 #pragma unroll
-    for (int i = j; i < K - 1; ++i) u[K + i - j] = x[i];
+    for (int j = 0; j < K; ++j) {
+      float u[2 * K - 1];
 #pragma unroll
-    for (int i = 0; i < j; ++i) u[2 * K - 1 - j + i] = x[W + i];
-    out[j] = MedianMerge<K>::run(u);
+      for (int i = 0; i < K; ++i) u[i] = core[LO + i];
+#pragma unroll
+      for (int i = j; i < K - 1; ++i) u[K + i - j] = x[i];
+#pragma unroll
+      for (int i = 0; i < j; ++i) u[2 * K - 1 - j + i] = x[W + i];
+      out[j] = MedianMerge<K>::run(u);
+    }
   }
 }
 
@@ -644,6 +665,39 @@ __device__ __forceinline__ void soft_masks_rcp(float harm, float perc,
   const float rh = harm * r, rp = perc * r;
   const float hn = rh * rh;
   const float pn = rp * rp;
+  const float rd = __frcp_rn(bad ? 1.f : hn + pn);
+  *mask_h = bad ? 0.f : hn * rd;
+  *mask_p = bad ? 0.f : pn * rd;
+}
+
+// soft_masks at any power p, as the JAX kernels take it
+// (ops/hpss_pallas.py::_masks_from_tile): the normalised medians raised to
+// p through powf, with the same rule where z is below float32's smallest
+// normal.  p is a kernel argument; the kernels take soft_masks at p == 2
+// (a uniform branch), so the squares stay as they are.
+__device__ __forceinline__ void soft_masks_pow(float harm, float perc,
+                                               float power, float* mask_h,
+                                               float* mask_p) {
+  const float z = fmaxf(harm, perc);
+  const bool bad = z < FLT_MIN;
+  const float zn = bad ? 1.f : z;
+  const float hn = powf(harm / zn, power);
+  const float pn = powf(perc / zn, power);
+  const float den = bad ? 1.f : hn + pn;
+  *mask_h = bad ? 0.f : hn / den;
+  *mask_p = bad ? 0.f : pn / den;
+}
+
+// soft_masks_pow with soft_masks_rcp's reciprocals.
+__device__ __forceinline__ void soft_masks_rcp_pow(float harm, float perc,
+                                                   float power,
+                                                   float* mask_h,
+                                                   float* mask_p) {
+  const float z = fmaxf(harm, perc);
+  const bool bad = z < FLT_MIN;
+  const float r = __frcp_rn(bad ? 1.f : z);
+  const float hn = powf(harm * r, power);
+  const float pn = powf(perc * r, power);
   const float rd = __frcp_rn(bad ? 1.f : hn + pn);
   *mask_h = bad ? 0.f : hn * rd;
   *mask_p = bad ? 0.f : pn * rd;

@@ -36,10 +36,13 @@ class FeatureConfig:
     """Per-model feature settings (the reference's featName / n_fft / n_mels
     / l_harm / l_perc parameters).
 
-    ``dft_precision`` defaults to ``'highest'``, the only precision the
-    port's kernels implement (split TF32 on the card, held to the JAX
-    package's ``'highest'`` bars): the JAX package's default
-    ``'bf16x3'`` raises in ``ops.frontend._check_modes``."""
+    ``dft_precision`` defaults to ``'highest'`` (split TF32 on the card,
+    held to the JAX package's ``'highest'`` bars), where the JAX package's
+    default is ``'bf16x3'``; ``dft_precision='bf16x3'`` computes the JAX
+    default's bf16x3 DFT (``ops.frontend``).  The port keeps ``'highest'``
+    because every accepted card bar and CPU parity test is held there, and
+    the JAX default rests on a TPU throughput reading that does not carry
+    over to the card."""
     feat_name: str = "LogMelHarmPercSpec"
     sr: int = 16000
     n_fft: int = 400

@@ -69,8 +69,9 @@ def featuregram(y: torch.Tensor, *, feat_name: str, sr: int = 16000,
 
     ``valid_frames`` (int or tensor broadcastable to ``(..., 1, 1)``)
     limits the ``power_to_db`` clamp to real frames when the audio was
-    length-padded.  ``dft_precision`` reaches the fused front end of the
-    HPSS families, where only ``'highest'`` is implemented.
+    length-padded.  ``dft_precision`` ('highest' | 'bf16x3') reaches the
+    fused front end of the HPSS families (``ops.frontend``); the port's
+    default is ``'highest'``, the JAX package's ``'bf16x3'``.
     ``top_db=None`` skips the clamp, which makes the log map elementwise
     (``featuregram_slabbed`` clamps once at the end)."""
     log, mel, harm, perc = _parse(feat_name)
@@ -109,6 +110,7 @@ def featuregram_slabbed(y: torch.Tensor, *, feat_name: str,
                         n_fft: int = 400, win_length: int = 400,
                         hop_length: int = 160, n_mels: int = 120,
                         l_harm: int = 21, l_perc: int = 11,
+                        dft_precision: str = "highest",
                         top_db: float | None = 80.0) -> torch.Tensor:
     """Featuregram of one long recording ``(n_samples,)`` -> ``(D, T)``, on
     the recording's device, computed as ``slab_frames``-frame windows.
@@ -120,7 +122,8 @@ def featuregram_slabbed(y: torch.Tensor, *, feat_name: str,
     unclamped and the ``top_db`` clamp is applied once all frames exist:
     per component block for two-part [H; P] features, over the whole
     matrix otherwise.  Slabs bound the plain version's memory; on CUDA
-    each is one kernel launch."""
+    each is one kernel launch.  ``dft_precision`` as in
+    :func:`featuregram`."""
     if y.ndim != 1:
         raise ValueError("featuregram_slabbed takes one recording (1-D)")
     log, _, harm, perc = _parse(feat_name)
@@ -132,7 +135,7 @@ def featuregram_slabbed(y: torch.Tensor, *, feat_name: str,
                          f"median margin {margin}")
     kw = dict(feat_name=feat_name, sr=sr, n_fft=n_fft, win_length=win_length,
               hop_length=hop_length, n_mels=n_mels, l_harm=l_harm,
-              l_perc=l_perc)
+              l_perc=l_perc, dft_precision=dft_precision)
     if T <= S + margin:
         return featuregram(y, top_db=top_db, **kw)
 

@@ -6,7 +6,8 @@ and :func:`stft_hpss` launch the hand-written kernel of
 ``csrc/frontend.cu`` (windowed rDFT magnitude, harmonic and percussive
 medians and soft masks in one pass, then the mel projection for K1 or the
 full-resolution masked magnitudes for K2; the spectrogram never reaches
-device memory), at every median pair of ``hpss.KERNEL_MEDIANS``.  Clips
+device memory), at any odd median pair of widths 3 to 61
+(``median_networks.check_pair``).  Clips
 shorter than ``2*(l_harm//2)`` frames (under 50 at l_harm 51) take the
 JAX package's short-clip branch (``frontend_pallas._dispatch``) instead:
 the plain ``stft_mag``, then the spectral kernel K4 (``hpss.hpss_mel``)
@@ -27,13 +28,25 @@ that audio is ignored and the symmetric edge mirror applies (1, a global
 edge) or the medians read those frames as they are (0, a shard join).
 Without halo both flags are 1.
 
-The kernels compute the DFT on the tensor cores in split TF32 (each
-operand a sum of two TF32 halves, three products per k-step), from each
-frame folded into its even and odd parts (see ``csrc/frontend.cu``):
-:func:`dft_fragments` builds the folded windowed basis's halves once per
-geometry, in float64, in the order the kernel reads them,
-and ``mel.mel_band_ranges`` gives K1 each mel band's nonzero bins.  The
-kernel is built with ``nvcc`` at its first launch, not at import.
+Modes, as the JAX kernels take them:
+
+- ``dft_precision``, a library of its own per precision (``_nvcc.build``).
+  ``'highest'`` (the port's default): the DFT on the tensor cores in split
+  TF32 (each operand a sum of two TF32 halves, three products per k-step
+  of 8), close to float32, held to the JAX package's ``'highest'`` bars.
+  ``'bf16x3'`` (the JAX package's default): the same products with bf16
+  halves on the bf16 tensor cores, k-steps of 16.  Its plain version
+  computes the same function: the fold, the operands split by
+  ``Tensor.to(torch.bfloat16)``, the three products in float32.
+- ``power``, a kernel argument: the masks' exponent; 2 (every feature
+  family) squares, any other power goes through ``powf``.
+
+Both precisions fold each frame into its even and odd parts (see
+``csrc/frontend.cu``): :func:`dft_fragments` builds the folded windowed
+basis's halves once per geometry and precision, in float64, in the order
+the kernel reads them, and ``mel.mel_band_ranges`` gives K1 each mel
+band's nonzero bins.  The kernels are built with ``nvcc`` at their first
+launch, not at import.
 """
 
 from __future__ import annotations
@@ -49,23 +62,29 @@ from . import _nvcc
 from . import hpss as hpss_mod
 from . import reference as ref
 from .hpss import KERNEL_MEDIANS, hpss_plain
+from .median_networks import check_pair
 from .mel import _band_ranges_of
 from .stft import n_frames, stft_mag
 
 _SOURCE = "frontend.cu"
+#: The DFT precisions of the JAX kernels, and so of the port's.
+DFT_PRECISIONS = _nvcc.DFT_PRECISIONS
 #: Guards the launch counts: the host training pipeline launches K1 from
 #: several worker threads.
 _COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
-def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
-    """The kernels' library for one median pair, built at first use."""
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 12 + [p]
+def _library(l_harm: int, l_perc: int, dft_precision: str = "highest"
+             ) -> ctypes.CDLL:
+    """The kernels' library for one median pair and DFT precision, built at
+    first use."""
+    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc),
+                                      dft_precision)))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 12 + [f, p]
     lib.k1_stft_hpss_mel.restype = i
-    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 11 + [f, p]
     lib.k2_stft_hpss.restype = i
     lib.k1_blocks_per_sm.argtypes = [i] * 5
     lib.k1_blocks_per_sm.restype = i
@@ -83,10 +102,11 @@ def build() -> None:
 
 
 def blocks_per_sm(*, fullres: bool, n_fft: int, hop_length: int,
-                  l_harm: int, l_perc: int) -> int:
+                  l_harm: int, l_perc: int, dft_precision: str = "highest"
+                  ) -> int:
     """Blocks of K2 (``fullres``) or K1 one SM of the current card holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _library(l_harm, l_perc)
+    lib = _library(l_harm, l_perc, dft_precision)
     n = lib.k1_blocks_per_sm(int(fullres), n_fft, hop_length, l_harm, l_perc)
     if n < 0:
         raise RuntimeError("occupancy query failed: "
@@ -101,17 +121,54 @@ def tf32_round(x: np.ndarray) -> np.ndarray:
     return np.ldexp(np.round(m * 2048.0) / 2048.0, e)
 
 
-def dft_steps(n_fft: int, win_length: int) -> tuple[int, int]:
-    """The kernels' k-steps ``[s_lo, s_hi)`` of 8 samples over the folded
-    frame, ``n`` in ``[0, n_fft/2]``: from the window's start (``pad_center``'s
-    ``lpad``; the basis is exact zeros before it) to ``n_fft/2``."""
-    return (n_fft - win_length) // 2 // 8, (n_fft // 2 + 8) // 8
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """``x`` (float64) rounded to bfloat16's 8 significant bits (7 stored),
+    to nearest even; exactly representable in float32."""
+    m, e = np.frexp(np.asarray(x, dtype=np.float64))
+    return np.ldexp(np.round(m * 256.0) / 256.0, e)
+
+
+def dft_steps(n_fft: int, win_length: int,
+              dft_precision: str = "highest") -> tuple[int, int]:
+    """The kernels' k-steps ``[s_lo, s_hi)`` over the folded frame, ``n``
+    in ``[0, n_fft/2]``: from the window's start (``pad_center``'s
+    ``lpad``; the basis is exact zeros before it) to ``n_fft/2``.  A
+    k-step is 8 samples in split TF32 (``mma.m16n8k8``) and 16 in bf16x3
+    (``mma.m16n8k16``), whose steps past ``n_fft/2`` meet zero rows."""
+    s_lo, s_hi = (n_fft - win_length) // 2 // 8, (n_fft // 2 + 8) // 8
+    if dft_precision == "bf16x3":
+        return s_lo // 2, (s_hi + 1) // 2
+    return s_lo, s_hi
+
+
+def _folded_basis(n_fft: int, win_length: int, rows: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The folded windowed rDFT basis (see :func:`dft_fragments`) for
+    ``n`` in ``[0, rows)``, float64 ``(rows, 8*ceil(F/8))`` each: the cos
+    part ``C`` and the sin part ``S``, zero past ``n_fft/2`` and past bin
+    ``F - 1``."""
+    F = 1 + n_fft // 2
+    n_groups = -(-F // 8)
+    window = ref.pad_center(ref.hann_window(win_length), n_fft)
+    n = np.arange(rows)[:, None]
+    k = np.arange(F)[None, :]
+    ang = 2.0 * np.pi * ((n * k) % n_fft) / n_fft
+    w = np.where(n <= n_fft // 2, window[np.minimum(n, n_fft - 1)], 0.0)
+    half = n_fft // 2
+    cos = np.zeros((rows, 8 * n_groups))
+    sin = np.zeros_like(cos)
+    cos[:, :F] = np.cos(ang) * w * np.where(n == half, 0.5, 1.0)
+    sin[:, :F] = -np.sin(ang) * w * ((n > 0) & (n < half))
+    return cos, sin
 
 
 @functools.lru_cache(maxsize=8)
-def dft_fragments(n_fft: int, win_length: int) -> np.ndarray:
+def dft_fragments(n_fft: int, win_length: int,
+                  dft_precision: str = "highest") -> np.ndarray:
     """The kernels' folded windowed rDFT basis, split into TF32 halves and
-    laid out in the order the ``mma.m16n8k8`` B fragments read it.
+    laid out in the order the ``mma.m16n8k8`` B fragments read it
+    (``'highest'``), or into bf16 halves in the order of ``mma.m16n8k16``'s
+    (``'bf16x3'``).
 
     The window ``w`` is symmetric about ``n_fft/2`` and zero at ``n = 0``,
     so ``Re X_k = sum_n C[n, k] e_n`` and ``Im X_k = sum_n S[n, k] o_n``
@@ -126,25 +183,43 @@ def dft_fragments(n_fft: int, win_length: int) -> np.ndarray:
     holds ``(hi[8s+r, 8q+g], hi[8s+r+4, 8q+g], lo[8s+r, 8q+g], lo[8s+r+4,
     8q+g])`` of that matrix: the lane's fragment registers b0 and b1 of both
     halves, one 16-byte load.  Returns float32 ``(s_hi - s_lo, 2 *
-    n_groups, 32, 4)``."""
+    n_groups, 32, 4)``.
+
+    ``'bf16x3'``: ``hi = bf16(.)``, ``lo = bf16(. - hi)`` of the same
+    float64 basis, k-steps of 16 rows (:func:`dft_steps`); entry ``[s -
+    s_lo, 2*q + p, lane]`` holds four bf16x2 words ``(hi b0, hi b1, lo b0,
+    lo b1)``, b0 holding rows ``16s + 2r`` (low half) and ``16s + 2r + 1``
+    (high half) of bin ``8q + g``, b1 rows ``16s + 2r + 8`` and ``+ 9``.
+    Returns int32 ``(s_hi - s_lo, 2 * n_groups, 32, 4)`` of those bits."""
     if (n_fft - win_length) % 2:
         raise ValueError("the kernels fold the frame about n_fft/2 and take "
                          "a window centred symmetrically: n_fft - win_length "
                          "must be even")
+    _nvcc.check_precision(dft_precision)
     F = 1 + n_fft // 2
     n_groups = -(-F // 8)
-    s_lo, s_hi = dft_steps(n_fft, win_length)
-    window = ref.pad_center(ref.hann_window(win_length), n_fft)
-    n = np.arange(8 * s_hi)[:, None]
-    k = np.arange(F)[None, :]
-    ang = 2.0 * np.pi * ((n * k) % n_fft) / n_fft
-    w = np.where(n <= n_fft // 2, window[np.minimum(n, n_fft - 1)], 0.0)
-    half = n_fft // 2
-    cos = np.zeros((8 * s_hi, 8 * n_groups))
-    sin = np.zeros_like(cos)
-    cos[:, :F] = np.cos(ang) * w * np.where(n == half, 0.5, 1.0)
-    sin[:, :F] = -np.sin(ang) * w * ((n > 0) & (n < half))
+    s_lo, s_hi = dft_steps(n_fft, win_length, dft_precision)
     lane = np.arange(32)
+    if dft_precision == "bf16x3":
+        cos, sin = _folded_basis(n_fft, win_length, 16 * s_hi)
+        rows = (16 * np.arange(s_lo, s_hi)[:, None, None]
+                + 2 * (lane % 4)[None, None])
+        cols = 8 * np.arange(n_groups)[None, :, None] + (lane // 4)[None, None]
+        parts = []
+        for basis in (cos, sin):
+            hi = bf16_round(basis)
+            lo = bf16_round(basis - hi)
+            words = []
+            for half in (hi, lo):
+                bits = (half.astype(np.float32).view(np.uint32)
+                        >> np.uint32(16))
+                for r in (rows, rows + 8):
+                    words.append(bits[r, cols] | (bits[r + 1, cols]
+                                                  << np.uint32(16)))
+            parts.append(np.stack(words, axis=-1))
+        frag = np.stack(parts, axis=2)      # (steps, n_groups, 2, 32, 4)
+        return frag.reshape(s_hi - s_lo, 2 * n_groups, 32, 4).view(np.int32)
+    cos, sin = _folded_basis(n_fft, win_length, 8 * s_hi)
     rows = 8 * np.arange(s_lo, s_hi)[:, None, None] + (lane % 4)[None, None]
     cols = 8 * np.arange(n_groups)[None, :, None] + (lane // 4)[None, None]
     parts = []
@@ -158,9 +233,52 @@ def dft_fragments(n_fft: int, win_length: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _fragments_on(n_fft: int, win_length: int,
-                  device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(dft_fragments(n_fft, win_length), device=device)
+def _fragments_on(n_fft: int, win_length: int, device: torch.device,
+                  dft_precision: str = "highest") -> torch.Tensor:
+    return torch.as_tensor(dft_fragments(n_fft, win_length, dft_precision),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _bf16_halves(n_fft: int, win_length: int) -> tuple[np.ndarray, ...]:
+    """The bf16x3 kernels' basis halves as float32 matrices ``(n_fft/2 + 1,
+    F)``: ``C_hi, C_lo, S_hi, S_lo`` (:func:`dft_fragments`)."""
+    half, F = n_fft // 2, 1 + n_fft // 2
+    out = []
+    for basis in _folded_basis(n_fft, win_length, half + 1):
+        hi = bf16_round(basis[:, :F])
+        out += [hi.astype(np.float32),
+                bf16_round(basis[:, :F] - hi).astype(np.float32)]
+    return tuple(out)
+
+
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def stft_mag_bf16x3(y: torch.Tensor, *, n_fft: int, win_length: int,
+                    hop_length: int) -> torch.Tensor:
+    """The magnitudes the bf16x3 kernels compute, ``(..., n_samples)`` ->
+    ``(..., F, T)`` float32 (float32 arithmetic for any input): each frame
+    folded about ``n_fft/2`` into ``e_n = x_n + x_{N-n}`` and ``o_n = x_n -
+    x_{N-n}`` (``x_N``, which meets only zero basis rows, taken as 0),
+    each split into ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, and ``lo
+    hi + hi lo + hi hi`` against the basis halves in float32 (a product of
+    two bf16 values is exact there), ``lo lo`` dropped."""
+    frames = y.to(torch.float32).unfold(-1, n_fft, hop_length)
+    half = n_fft // 2
+    x = frames[..., :half + 1]
+    z = torch.cat([torch.zeros_like(frames[..., :1]),
+                   frames[..., half:].flip(-1)], dim=-1)
+    parts = []
+    halves = [torch.as_tensor(h, device=y.device)
+              for h in _bf16_halves(n_fft, win_length)]
+    for a, b_hi, b_lo in ((x + z, *halves[:2]), (x - z, *halves[2:])):
+        a_hi = _to_bf16(a)
+        a_lo = _to_bf16(a - a_hi)
+        parts.append(a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
+    re, im = parts
+    return torch.sqrt(re * re + im * im).transpose(-1, -2)
 
 
 def _edge_flags(halo_in_audio: bool, edge_flags) -> tuple[int, int]:
@@ -179,14 +297,18 @@ def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
                         n_fft: int = 400, win_length: int = 400,
                         hop_length: int = 160, l_harm: int = 21,
                         l_perc: int = 11, power: float = 2.0,
+                        dft_precision: str = "highest",
                         halo_in_audio: bool = False, edge_flags=(1, 1)
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """stft_mag -> hpss -> mel projection: ``(..., N)`` audio and an
     ``(n_mels, F)`` basis -> two ``(..., n_mels, T)`` maps, float32 (all of
-    it in float64 for float64 audio).  Halo mode as in the module doc."""
+    it in float64 for float64 audio at ``'highest'``).  ``'bf16x3'`` takes
+    :func:`stft_mag_bf16x3` in place of ``stft_mag``.  Halo mode as in the
+    module doc."""
     H, P = stft_hpss_plain(y, n_fft=n_fft, win_length=win_length,
                            hop_length=hop_length, l_harm=l_harm,
                            l_perc=l_perc, power=power,
+                           dft_precision=dft_precision,
                            halo_in_audio=halo_in_audio, edge_flags=edge_flags)
     M = mel_basis.to(device=H.device, dtype=H.dtype)
     return torch.matmul(M, H), torch.matmul(M, P)
@@ -195,13 +317,17 @@ def stft_hpss_mel_plain(y: torch.Tensor, mel_basis: torch.Tensor, *,
 def stft_hpss_plain(y: torch.Tensor, *, n_fft: int = 400,
                     win_length: int = 400, hop_length: int = 160,
                     l_harm: int = 21, l_perc: int = 11, power: float = 2.0,
+                    dft_precision: str = "highest",
                     halo_in_audio: bool = False, edge_flags=(1, 1)
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """stft_mag -> hpss: ``(..., N)`` audio -> two ``(..., F, T)`` maps.
-    In halo mode the harmonic median runs over the halo frames of each side
-    whose flag is 0 and mirrors at each side whose flag is 1."""
+    """stft_mag (or :func:`stft_mag_bf16x3`) -> hpss: ``(..., N)`` audio ->
+    two ``(..., F, T)`` maps.  In halo mode the harmonic median runs over
+    the halo frames of each side whose flag is 0 and mirrors at each side
+    whose flag is 1."""
     ml, mr = _edge_flags(halo_in_audio, edge_flags)
-    S = stft_mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
+    _nvcc.check_precision(dft_precision)
+    mag = stft_mag_bf16x3 if dft_precision == "bf16x3" else stft_mag
+    S = mag(y, n_fft=n_fft, win_length=win_length, hop_length=hop_length)
     if not halo_in_audio:
         return hpss_plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
     ht = l_harm // 2
@@ -222,14 +348,17 @@ def stft_hpss_plain(y: torch.Tensor, *, n_fft: int = 400,
 
 def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
            win_length: int, hop_length: int, l_harm: int, l_perc: int,
+           power: float = 2.0, dft_precision: str = "highest",
            halo_in_audio: bool = False, edge_flags=(1, 1)
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 with a mel basis ``M``; K2 (full resolution) with ``M=None``, on
     CUDA audio ``(..., N)`` of any length of at least one frame (in halo
-    mode, of more than ``2*(l_harm//2)`` frames).  The dispatchers send
-    clips under ``2*(l_harm//2)`` frames elsewhere; this launches the fused
-    kernel whatever the length."""
+    mode, of more than ``2*(l_harm//2)`` frames), at ``power`` and
+    ``dft_precision``.  The dispatchers send clips under ``2*(l_harm//2)``
+    frames elsewhere; this launches the fused kernel whatever the
+    length."""
     ml, mr = _edge_flags(halo_in_audio, edge_flags)
+    _nvcc.check_precision(dft_precision)
     F = 1 + n_fft // 2
     if y.dtype != torch.float32:
         raise TypeError("frontend kernel takes float32 audio")
@@ -241,9 +370,7 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
         if M.ndim != 2 or M.shape[1] != F:
             raise ValueError(f"mel_basis must be (n_mels, {F}), "
                              f"got {tuple(M.shape)}")
-    if (l_harm, l_perc) not in KERNEL_MEDIANS:
-        raise ValueError(f"kernel supports (l_harm, l_perc) in "
-                         f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
+    check_pair(l_harm, l_perc)
     if not win_length <= n_fft:
         raise ValueError("win_length must not exceed n_fft")
     if n_fft % 8 or hop_length % 8:
@@ -266,15 +393,15 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     shape = lead + (rows, T)
     if B == 0:
         return out_h.reshape(shape), out_p.reshape(shape)
-    lib = _library(l_harm, l_perc)
-    basis = _fragments_on(n_fft, win_length, y.device)
+    lib = _library(l_harm, l_perc, dft_precision)
+    basis = _fragments_on(n_fft, win_length, y.device, dft_precision)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         if M is None:
             err = lib.k2_stft_hpss(
                 y2.data_ptr(), basis.data_ptr(), out_h.data_ptr(),
                 out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
-                l_harm, l_perc, int(halo_in_audio), ml, mr, stream)
+                l_harm, l_perc, int(halo_in_audio), ml, mr, power, stream)
         else:
             M = M.contiguous()
             bands = _band_ranges_of(M)
@@ -282,43 +409,57 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
                 y2.data_ptr(), basis.data_ptr(), M.data_ptr(),
                 bands.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N,
                 T, n_fft, win_length, hop_length, l_harm, l_perc, rows,
-                int(halo_in_audio), ml, mr, stream)
+                int(halo_in_audio), ml, mr, power, stream)
     name = "stft_hpss" if M is None else "stft_hpss_mel"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.k1_error_string(err).decode())
+    counter = stft_hpss if M is None else stft_hpss_mel
     with _COUNT_LOCK:
-        (stft_hpss if M is None else stft_hpss_mel).launches += 1
+        counter.launches += 1
+        counter.launches_by_precision[dft_precision] += 1
     return out_h.reshape(shape), out_p.reshape(shape)
 
 
+def _short_clip(T: int, l_harm: int, halo_in_audio: bool) -> bool:
+    """Whether a clip of ``T`` frames takes the short-clip route: fewer than
+    ``2*(l_harm//2)`` frames, out of halo mode (``frontend_pallas.
+    _dispatch``'s rule, whatever the precision)."""
+    return not halo_in_audio and 1 <= T < 2 * (l_harm // 2)
+
+
 def _dispatch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft,
-              win_length, hop_length, l_harm, l_perc, halo_in_audio=False,
+              win_length, hop_length, l_harm, l_perc, power=2.0,
+              dft_precision="highest", halo_in_audio=False,
               edge_flags=(1, 1)):
     """The CUDA route of :func:`stft_hpss_mel` (``M`` given) and
     :func:`stft_hpss` (``M=None``): clips under ``2*(l_harm//2)`` frames go
-    through ``stft_mag`` and K4 or K3, as ``frontend_pallas._dispatch``
-    sends them to ``hpss_pallas``; longer ones, and every halo-mode call,
-    launch K1 or K2."""
+    through the float32 ``stft_mag`` and K4 or K3 whatever the
+    ``dft_precision``, as ``frontend_pallas._dispatch`` sends them to
+    ``hpss_pallas``; longer ones, and every halo-mode call, launch K1 or
+    K2."""
     T = n_frames(y.shape[-1], n_fft, hop_length)
-    if not halo_in_audio and 1 <= T < 2 * (l_harm // 2):
+    if _short_clip(T, l_harm, halo_in_audio):
         S = stft_mag(y.to(torch.float32), n_fft=n_fft,
                      win_length=win_length, hop_length=hop_length)
         if M is None:
-            return hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc)
-        return hpss_mod.hpss_mel(S, M, l_harm=l_harm, l_perc=l_perc)
+            return hpss_mod.hpss(S, l_harm=l_harm, l_perc=l_perc, power=power)
+        return hpss_mod.hpss_mel(S, M, l_harm=l_harm, l_perc=l_perc,
+                                 power=power)
     return launch(y, M, n_fft=n_fft, win_length=win_length,
                   hop_length=hop_length, l_harm=l_harm, l_perc=l_perc,
+                  power=power, dft_precision=dft_precision,
                   halo_in_audio=halo_in_audio, edge_flags=edge_flags)
 
 
-def _check_modes(power: float, dft_precision: str) -> None:
-    if dft_precision != "highest":
-        raise NotImplementedError(
-            f"dft_precision={dft_precision!r}: only 'highest' is "
-            "implemented")
-    if power != 2.0:
-        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
+def _cpu_precision(y: torch.Tensor, kw: dict) -> dict:
+    """The CPU route's arguments: the plain version of the CUDA route, so
+    a short clip takes ``'highest'`` (the float32 ``stft_mag``) as
+    :func:`_dispatch` does."""
+    T = n_frames(y.shape[-1], kw["n_fft"], kw["hop_length"])
+    if _short_clip(T, kw["l_harm"], kw["halo_in_audio"]):
+        return dict(kw, dft_precision="highest")
+    return kw
 
 
 def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
@@ -329,21 +470,21 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Audio ``(..., N)`` -> ``(mel(H), mel(P))``, each ``(..., n_mels, T)``.
 
-    ``mel_basis`` is ``(n_mels, F)``.  The kernel's DFT is split TF32,
-    close to float32, and serves the JAX package's
-    ``dft_precision='highest'`` within its bars; ``'bf16x3'`` has no
-    counterpart and raises.  The kernel's masks are squared (``power``
-    2, what every feature family uses); another power raises.  CPU tensors
-    take the plain version; CUDA tensors launch K1 (each launch adds one to
-    ``stft_hpss_mel.launches``), or for clips under ``2*(l_harm//2)``
-    frames the plain ``stft_mag`` and K4.  Halo mode as in the module doc
-    (always K1 on CUDA)."""
-    _check_modes(power, dft_precision)
+    ``mel_basis`` is ``(n_mels, F)``.  ``dft_precision`` and ``power`` as in
+    the module doc: ``'highest'`` (the port's default; split TF32, close to
+    float32) serves the JAX package's ``'highest'`` within its bars,
+    ``'bf16x3'`` its default.  CPU tensors take the plain version; CUDA
+    tensors launch K1 (each launch adds one to ``stft_hpss_mel.launches``
+    and to ``stft_hpss_mel.launches_by_precision[dft_precision]``), or for
+    clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K4.
+    Halo mode as in the module doc (always K1 on CUDA)."""
+    _nvcc.check_precision(dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc, halo_in_audio=halo_in_audio,
+              l_harm=l_harm, l_perc=l_perc, power=power,
+              dft_precision=dft_precision, halo_in_audio=halo_in_audio,
               edge_flags=edge_flags)
     if y.device.type == "cpu":
-        return stft_hpss_mel_plain(y, mel_basis, **kw)
+        return stft_hpss_mel_plain(y, mel_basis, **_cpu_precision(y, kw))
     if y.device.type == "cuda":
         return _dispatch(y, mel_basis, **kw)
     raise ValueError(f"stft_hpss_mel: unsupported device {y.device}")
@@ -358,21 +499,24 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
 
     Modes as in :func:`stft_hpss_mel`.  CPU tensors take the plain version;
-    CUDA tensors launch K2 (each launch adds one to
-    ``stft_hpss.launches``), or for clips under ``2*(l_harm//2)`` frames
-    the plain ``stft_mag`` and K3."""
-    _check_modes(power, dft_precision)
+    CUDA tensors launch K2 (each launch adds one to ``stft_hpss.launches``
+    and to ``stft_hpss.launches_by_precision[dft_precision]``), or for
+    clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K3."""
+    _nvcc.check_precision(dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc, halo_in_audio=halo_in_audio,
+              l_harm=l_harm, l_perc=l_perc, power=power,
+              dft_precision=dft_precision, halo_in_audio=halo_in_audio,
               edge_flags=edge_flags)
     if y.device.type == "cpu":
-        return stft_hpss_plain(y, **kw)
+        return stft_hpss_plain(y, **_cpu_precision(y, kw))
     if y.device.type == "cuda":
         return _dispatch(y, None, **kw)
     raise ValueError(f"stft_hpss: unsupported device {y.device}")
 
 
-#: Launches of the K1 and K2 kernels in this process (the plain versions
-#: do not count).
+#: Launches of the K1 and K2 kernels in this process, in all and per DFT
+#: precision (the plain versions do not count).
 stft_hpss_mel.launches = 0
 stft_hpss.launches = 0
+stft_hpss_mel.launches_by_precision = dict.fromkeys(DFT_PRECISIONS, 0)
+stft_hpss.launches_by_precision = dict.fromkeys(DFT_PRECISIONS, 0)

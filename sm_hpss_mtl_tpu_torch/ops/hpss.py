@@ -12,11 +12,12 @@ both components.
 :func:`hpss`, :func:`hpss_masks` and :func:`hpss_mel` take
 :func:`hpss_plain`, :func:`hpss_masks_plain` / :func:`hpss_mel_plain` for a
 CPU tensor and launch the hand-written kernels of ``csrc/hpss.cu`` for a
-CUDA tensor; a CUDA call never falls back.  Code that needs the plain
-version on any device (the plain versions of the fused front end, which
-``chip_smoke.py`` holds K1 and K2 to) calls the ``_plain`` functions by
-name.  The kernels are built with ``nvcc`` at their first launch, not at
-import.
+CUDA tensor, at any ``power`` (a kernel argument: 2 squares, any other
+goes through ``powf``) and any odd median pair of widths 3 to 61; a CUDA
+call never falls back.  Code that needs the plain version on any device
+(the plain versions of the fused front end, which ``chip_smoke.py`` holds
+K1 and K2 to) calls the ``_plain`` functions by name.  The kernels are
+built with ``nvcc`` at their first launch, not at import.
 """
 
 from __future__ import annotations
@@ -29,14 +30,18 @@ import numpy as np
 import torch
 
 from . import _nvcc
+from .median_networks import check_pair
 from .mel import _band_ranges_of
 from .stft import real_dtype
 
-#: (l_harm, l_perc) pairs the kernels K1 to K4 are instantiated for: the
-#: presets' (21, 11), a narrow (11, 5), and the tuner's grids
-#: (``cli/tune.py::GRID_RANGES``): l_harm 11 to 51 at l_perc 11, l_perc 21
-#: to 51 at l_harm 21.  Each pair is a library of its own
-#: (``_nvcc.build``), built at its first launch.  Any other pair raises.
+#: (l_harm, l_perc) pairs whose median networks ``csrc/median.cuh`` holds
+#: and ``chip_smoke.py`` times per pair: the presets' (21, 11), a narrow
+#: (11, 5), and the tuner's grids (``cli/tune.py::GRID_RANGES``): l_harm 11
+#: to 51 at l_perc 11, l_perc 21 to 51 at l_harm 21.  The kernels K1 to K4
+#: take any other odd pair of widths 3 to 61 too
+#: (``median_networks.check_pair``), its networks generated at its first
+#: build.  Each pair is a library of its own (``_nvcc.build``), built at its
+#: first launch.
 KERNEL_MEDIANS = ((21, 11), (11, 5), (11, 11), (31, 11), (41, 11),
                   (51, 11), (21, 21), (21, 31), (21, 41), (21, 51))
 
@@ -130,10 +135,10 @@ def hpss_mel_plain(S: torch.Tensor, mel_basis: torch.Tensor, *,
 def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
     """The kernels' library for one median pair, built at first use."""
     lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
     lib.k3_hpss.restype = i
-    lib.k4_hpss_mel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.k4_hpss_mel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.k4_hpss_mel.restype = i
     for name in ("k3_blocks_per_sm", "k4_blocks_per_sm"):
         getattr(lib, name).argtypes = [i, i]
@@ -202,15 +207,13 @@ def _as_3d(S: torch.Tensor) -> torch.Tensor:
 def _check_input(S: torch.Tensor, l_harm: int, l_perc: int) -> None:
     if S.dtype != torch.float32:
         raise TypeError("hpss kernel takes float32 magnitudes")
-    if (l_harm, l_perc) not in KERNEL_MEDIANS:
-        raise ValueError(f"kernel supports (l_harm, l_perc) in "
-                         f"{KERNEL_MEDIANS}, got {(l_harm, l_perc)}")
+    check_pair(l_harm, l_perc)
     if S.ndim < 2:
         raise ValueError(f"hpss takes (..., F, T), got {tuple(S.shape)}")
 
 
-def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
+            power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 on ``(..., F, T)`` magnitudes.  The host path is kept short (the
     kernel takes a few microseconds at the short-clip shapes): no reshape
     of a 3-D input or of its outputs, and two ``empty_like`` (cheaper than
@@ -224,7 +227,7 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
         with _device_context(S.device):
             err = lib.k3_hpss(S3.data_ptr(), out_h.data_ptr(),
                               out_p.data_ptr(), B, F, T, l_harm, l_perc,
-                              int(mask_only), _stream(S.device))
+                              int(mask_only), power, _stream(S.device))
         if err != 0:
             raise RuntimeError("hpss kernel launch failed: "
                                + lib.k3_error_string(err).decode())
@@ -235,7 +238,8 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool
 
 
 def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
-                l_perc: int) -> tuple[torch.Tensor, torch.Tensor]:
+                l_perc: int, power: float = 2.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 on ``(..., F, T)`` magnitudes and an ``(n_mels, F)`` basis; the
     basis's band ranges are kept per basis tensor (``mel._band_ranges_of``),
     so a reused basis costs no extra work per launch."""
@@ -260,7 +264,8 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
             err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(),
                                   bands.data_ptr(), out_h.data_ptr(),
                                   out_p.data_ptr(), S3.shape[0], F, T,
-                                  l_harm, l_perc, n_mels, _stream(S.device))
+                                  l_harm, l_perc, n_mels, power,
+                                  _stream(S.device))
         if err != 0:
             raise RuntimeError("hpss_mel kernel launch failed: "
                                + lib.k3_error_string(err).decode()
@@ -278,16 +283,15 @@ def _dispatch(S, *, l_harm, l_perc, power, mask_only):
         return plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
     if S.device.type != "cuda":
         raise ValueError(f"hpss: unsupported device {S.device}")
-    if power != 2.0:
-        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
-    return _launch(S, l_harm=l_harm, l_perc=l_perc, mask_only=mask_only)
+    return _launch(S, l_harm=l_harm, l_perc=l_perc, mask_only=mask_only,
+                   power=power)
 
 
 def hpss(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
          power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(H, P) = (S*mask_h, S*mask_p)`` for float32 magnitudes
     ``(..., F, T)``.  CPU tensors take :func:`hpss_plain`; CUDA tensors
-    launch the kernel (power 2 only; each launch adds one to
+    launch the kernel at ``power`` (each launch adds one to
     ``hpss.launches``)."""
     return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
                      mask_only=False)
@@ -308,16 +312,15 @@ def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(mel(H), mel(P))``, each ``(..., n_mels, T)``, for float32
     magnitudes ``(..., F, T)`` and an ``(n_mels, F)`` basis.  CPU tensors
-    take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 (power 2
-    only; each launch adds one to ``hpss_mel.launches``)."""
+    take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 at ``power``
+    (each launch adds one to ``hpss_mel.launches``)."""
     if S.device.type == "cpu":
         return hpss_mel_plain(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
                               power=power)
     if S.device.type != "cuda":
         raise ValueError(f"hpss_mel: unsupported device {S.device}")
-    if power != 2.0:
-        raise NotImplementedError(f"power={power!r}: only 2 is implemented")
-    return _launch_mel(S, mel_basis, l_harm=l_harm, l_perc=l_perc)
+    return _launch_mel(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
+                       power=power)
 
 
 #: Launches of the K3 kernel in this process, per mode, and of K4 (the plain

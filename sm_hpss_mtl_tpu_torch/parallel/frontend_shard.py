@@ -43,8 +43,8 @@ def stft_hpss_mel_time_sharded(
     P)``, ``(B, F, T)`` (the HarmSpec/PercSpec families, K2).  The frame
     count ``T = 1 + (n - n_fft) // hop`` must divide evenly by the
     ``axis`` size, and each local block must hold at least ``2 *
-    (l_harm // 2)`` frames.  Only ``dft_precision='highest'`` is
-    implemented (``ops.frontend``)."""
+    (l_harm // 2)`` frames.  ``power`` and ``dft_precision`` reach every
+    shard's kernel (``ops.frontend``)."""
     B, N = y.shape
     ht = l_harm // 2
     n = mesh.shape[axis]

@@ -8,7 +8,9 @@ then built with 120 bands, as the JAX CLI does.  :class:`ExperimentConfig`
 has the JAX fields and defaults, which are the reference's values (Tw 25
 ms, Ts 10 ms, W 68, batch 16 per class, 3 folds, 50 epochs, SMR levels
 -5..20 dB, the TR/V/TS step counts derived from the corpus duration), but
-for ``dft_precision``: the port serves only ``'highest'``.
+for ``dft_precision``: the port defaults to ``'highest'`` where the JAX
+package defaults to ``'bf16x3'``; ``dft_precision='bf16x3'`` (``cli.mtl
+--dft-precision bf16x3``) gives the JAX package's default computation.
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ class ExperimentConfig:
     min_crop_s: float = 0.0
     #: 'float32' (reference parity) or 'bfloat16' (mixed precision)
     compute_dtype: str = "float32"
-    #: fused-frontend DFT precision: only 'highest' is served
+    #: fused-frontend DFT precision: 'highest' (the port's default) or
+    #: 'bf16x3' (the JAX package's default)
     dft_precision: str = "highest"
     seed: int = 0
     # Derived step counts (0 = compute from durations).

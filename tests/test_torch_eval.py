@@ -254,9 +254,21 @@ def test_featurizer_matches_jax(corpus, bucket):
                                    err_msg=str(item))
     assert got_f.stats == {"mem_hits": 0, "disk_hits": 0, "computes": 6}
     assert tfeat.FeatureConfig().dim == jfeat.FeatureConfig().dim == 240
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        tfeat.Featurizer(tfeat.FeatureConfig(dft_precision="bf16x3"),
-                         device="cpu").featuregram(*_items(root)[0])
+    # The JAX default precision reaches the front end: the featurizer's
+    # features are the plain bf16x3 chain's (tests/test_torch_modes.py
+    # holds that chain to the JAX kernel).
+    cfg = tfeat.FeatureConfig(n_mels=40, dft_precision="bf16x3")
+    item = _items(root)[0]
+    got = tfeat.Featurizer(cfg, bucket=False, device="cpu").featuregram(
+        *item, save_feat=False)
+    audio = torch.as_tensor(tfeat.load_and_preprocess_signal(item[1])[0])
+    want = tfeat.fg.featuregram(audio, feat_name=cfg.feat_name, n_mels=40,
+                                dft_precision="bf16x3").numpy()
+    np.testing.assert_array_equal(got, want)
+    highest = tfeat.Featurizer(tfeat.FeatureConfig(n_mels=40), bucket=False,
+                               device="cpu").featuregram(*item,
+                                                         save_feat=False)
+    assert np.abs(got - highest).max() > 0
 
 
 def test_featurizer_cache_names_and_round_trip(corpus, tmp_path):

@@ -195,6 +195,10 @@ def test_cli_mtl_needs_device_cpu_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmtl.main(argv)
     with pytest.raises(SystemExit):                 # argparse refuses it
+        tmtl.main(argv + ["--device", "cpu", "--dft-precision", "bf16"])
+    # The JAX CLI's default precision is taken; the fold then fails on the
+    # empty corpus, as the --bf16 run below does.
+    with pytest.raises(FileNotFoundError):
         tmtl.main(argv + ["--device", "cpu", "--dft-precision", "bf16x3"])
     # bf16 compute is ported: the runner takes --bf16, the fold then fails
     # on the empty corpus; a compute dtype JAX does not have is refused.

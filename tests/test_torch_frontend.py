@@ -86,10 +86,18 @@ def test_wrapper_sends_cpu_tensors_to_plain_version():
     h0, p0 = tfe.stft_hpss_mel_plain(y, M)
     torch.testing.assert_close(h, h0, rtol=0, atol=0)
     torch.testing.assert_close(p, p0, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        tfe.stft_hpss_mel(y, M, dft_precision="bf16x3")
-    with pytest.raises(NotImplementedError, match="power"):
-        tfe.stft_hpss_mel(y, M, power=1.0)
+    # The JAX kernels' other modes take the same route: the plain version
+    # of that mode (tests/test_torch_modes.py holds it to JAX).
+    for kw in (dict(dft_precision="bf16x3"), dict(power=1.0),
+               dict(dft_precision="bf16x3", power=1.5)):
+        got = tfe.stft_hpss_mel(y, M, **kw)
+        assert tfe.stft_hpss_mel.launches == before
+        for g, w, w0 in zip(got, tfe.stft_hpss_mel_plain(y, M, **kw),
+                            (h0, p0)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+            assert not torch.equal(g, w0), kw
+    with pytest.raises(ValueError, match="dft_precision"):
+        tfe.stft_hpss_mel(y, M, dft_precision="high")
 
 
 def test_kernel_median_networks_match_jax():
@@ -104,9 +112,14 @@ def test_kernel_median_networks_match_jax():
         pairs = tuple((int(i), int(j))
                       for i, j in re.findall(r"CS\((\d+),(\d+)\)", body))
         assert pairs == hpss_pallas.median_network(n), n
+    # KERNEL_MEDIANS: the pairs whose networks the header holds (and that
+    # chip_smoke.py times per pair); any other pair's are generated.
     assert set(tfe.KERNEL_MEDIANS) == {
         (21, 11), (11, 5), (11, 11), (31, 11), (41, 11), (51, 11), (21, 21),
         (21, 31), (21, 41), (21, 51)}
+    for pair in tfe.KERNEL_MEDIANS:
+        assert tfe._nvcc.pair_networks(pair) == "", pair
+    assert "struct Median<3>" in tfe._nvcc.pair_networks((3, 3))
 
 
 def test_import_needs_no_nvcc(tmp_path):
@@ -152,10 +165,14 @@ def test_fullres_wrapper_sends_cpu_tensors_to_plain_version():
     h0, p0 = tfe.stft_hpss_plain(y, n_fft=512)
     torch.testing.assert_close(h, h0, rtol=0, atol=0)
     torch.testing.assert_close(p, p0, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        tfe.stft_hpss(y, dft_precision="bf16x3")
-    with pytest.raises(NotImplementedError, match="power"):
-        tfe.stft_hpss(y, power=1.0)
+    for kw in (dict(dft_precision="bf16x3"), dict(power=1.0)):
+        got = tfe.stft_hpss(y, n_fft=512, **kw)
+        assert (tfe.stft_hpss.launches,
+                tfe.stft_hpss_mel.launches) == before
+        for g, w, w0 in zip(got, tfe.stft_hpss_plain(y, n_fft=512, **kw),
+                            (h0, p0)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+            assert not torch.equal(g, w0), kw
     with pytest.raises(ValueError, match="unsupported device"):
         tfe.stft_hpss(y.to("meta"))
 

@@ -118,9 +118,14 @@ def test_kernels_share_the_median_header():
         assert '#include "median.cuh"' in src, source
         assert "struct Median<" not in src, source
         assert _nvcc.CSRC / "median.cuh" in _nvcc._sources(source)
+    # The pairs the header holds; every other pair's networks come from
+    # ops/median_networks.py at its build, into a header of its own.
     assert set(thpss.KERNEL_MEDIANS) == {
         (21, 11), (11, 5), (11, 11), (31, 11), (41, 11), (51, 11), (21, 21),
         (21, 31), (21, 41), (21, 51)}
+    assert all(_nvcc.pair_networks(p) == "" for p in thpss.KERNEL_MEDIANS)
+    src = (_nvcc.CSRC / "median.cuh").read_text()
+    assert "#include HPSS_PAIR_NETWORKS" in src
 
 
 def test_library_path_follows_the_header(tmp_path, monkeypatch):
@@ -204,9 +209,10 @@ def test_hpss_mel_plain_never_reaches_a_kernel(monkeypatch):
 
 def _c_params(src, fn):
     """Kinds of the parameters of C function ``fn`` in ``src``: 'p' for a
-    pointer, 'i' for an int."""
+    pointer, 'f' for a float, 'i' for an int."""
     sig = re.search(rf"\bint {fn}\((.*?)\)\s*\{{", src, re.S).group(1)
-    return ["p" if "*" in a else "i" for a in sig.split(",")]
+    return ["p" if "*" in a else "f" if a.split()[0] == "float" else "i"
+            for a in sig.split(",")]
 
 
 @pytest.mark.parametrize("module,source,functions", [
@@ -232,7 +238,8 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
         libs.append(lib)
         return lib
 
-    monkeypatch.setattr(_nvcc, "build", lambda source, pair: "unbuilt.so")
+    monkeypatch.setattr(_nvcc, "build", lambda source, pair, *a, **kw:
+                        "unbuilt.so")
     monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
     mod._library.cache_clear()
     try:
@@ -240,7 +247,7 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
     finally:
         mod._library.cache_clear()
     src = (_nvcc.CSRC / source).read_text()
-    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i"}
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
     for fn in functions:
         bound = getattr(libs[0], fn)
         assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn), fn

@@ -74,7 +74,8 @@ def test_new_tests_import_only_checked_modules():
     for name in ("test_torch_bf16.py", "test_torch_bf16_folds.py",
                  "test_torch_codecs.py", "test_torch_parallel.py",
                  "test_torch_distributed.py", "test_torch_native.py",
-                 "test_torch_utils.py", "test_torch_scale.py"):
+                 "test_torch_utils.py", "test_torch_scale.py",
+                 "test_torch_modes.py"):
         tree = ast.parse((REPO / "tests" / name).read_text())
         used = set()
         for node in ast.walk(tree):
@@ -151,7 +152,8 @@ def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
                                     "tools/bf16_step_bars.py",
                                     "tools/bf16_probe.py",
                                     "tools/multi_gpu_check.py",
-                                    "tools/scale_rehearsal_torch.py"])
+                                    "tools/scale_rehearsal_torch.py",
+                                    "tools/kernels_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_jax_package(script):
     # Both run on the GPU machine, which has no JAX: importing them (not
     # running them) must pull in neither jax nor the JAX package.

@@ -217,7 +217,8 @@ def test_halo_mode_counts_in_the_kernel_counters(monkeypatch):
                   l_harm=21, l_perc=11, halo_in_audio=True,
                   edge_flags=(0, 1))
     assert seen == [dict(n_fft=400, win_length=400, hop_length=160,
-                         l_harm=21, l_perc=11, halo_in_audio=True,
+                         l_harm=21, l_perc=11, power=2.0,
+                         dft_precision="highest", halo_in_audio=True,
                          edge_flags=(0, 1))]
 
 
