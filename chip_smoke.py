@@ -1192,11 +1192,13 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
 @contextlib.contextmanager
 def recorded():
     """Counts every kernel launch of the code run inside, and the shape of
-    each: the launch counts are set to 0 on entry and read on exit.  Also
-    the launches per median pair (``by_pair``, keyed ``"l_harm,l_perc"``)
-    and per mask power (``by_power``, keyed by the float power), and K1's
-    and K2's per DFT precision (``launches_by_precision``)."""
+    each: the launch counters (``utils.profiling.counters()``) on exit less
+    their values on entry.  Also the launches per median pair (``by_pair``,
+    keyed ``"l_harm,l_perc"``) and per mask power (``by_power``, keyed by
+    the float power), and K1's and K2's per DFT precision
+    (``launches_by_precision``)."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
     rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
            "launches": {}, "halo": Counter(),
            "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")},
@@ -1246,24 +1248,23 @@ def recorded():
         rec["by_power"]["K4"][float(kw.get("power", 2.0))] += 1
         return out
 
-    counters = (frontend.stft_hpss_mel, frontend.stft_hpss, hpss.hpss,
-                hpss.hpss_masks, hpss.hpss_mel)
     frontend.launch, hpss._launch, hpss._launch_mel = f_rec, h_rec, m_rec
     try:
-        for fn in counters:
-            fn.launches = 0
-        for fn in counters[:2]:
-            fn.launches_by_precision = dict.fromkeys(
-                fn.launches_by_precision, 0)
+        before = counters()
         yield rec
+        after = counters()
+
+        def launches(name):
+            return after.get(name, 0) - before.get(name, 0)
         rec["launches"] = {
-            "K1": frontend.stft_hpss_mel.launches,
-            "K2": frontend.stft_hpss.launches,
-            "K3": hpss.hpss.launches + hpss.hpss_masks.launches,
-            "K4": hpss.hpss_mel.launches}
+            "K1": launches("stft_hpss_mel.launches"),
+            "K2": launches("stft_hpss.launches"),
+            "K3": launches("hpss.launches") + launches("hpss_masks.launches"),
+            "K4": launches("hpss_mel.launches")}
         rec["launches_by_precision"] = {
-            "K1": dict(frontend.stft_hpss_mel.launches_by_precision),
-            "K2": dict(frontend.stft_hpss.launches_by_precision)}
+            k: {p: launches(f"{fn}.launches_by_precision.{p}")
+                for p in frontend.DFT_PRECISIONS}
+            for k, fn in (("K1", "stft_hpss_mel"), ("K2", "stft_hpss"))}
     finally:
         frontend.launch, hpss._launch, hpss._launch_mel = (
             f_launch, h_launch, m_launch)

@@ -45,6 +45,7 @@ from ..ops.stft import n_frames
 from ..parallel import Mesh, featuregram_time_sharded
 from ..train.checkpoint import model_npz
 from ..train.config import MODEL_PRESETS, preset_n_mels
+from ..utils.profiling import request, span
 
 #: Models this entry point serves: the MTL models with S and M heads that
 #: take one featuregram.
@@ -64,7 +65,9 @@ def _featurize_broadcast(x: np.ndarray, preset: dict, device: torch.device,
     ``devices`` (default: every visible GPU on CUDA, ``[device]`` on the
     CPU): with more than one, a Mel-HPSS featName and at least 20 frames a
     device, the time axis is sharded over them through the fused front
-    end's halo mode, as in the JAX CLI; a device may repeat."""
+    end's halo mode, as in the JAX CLI; a device may repeat.  The span
+    ``segment.featurize`` counts the frames; it ends when the last launch
+    is queued (no synchronise)."""
     kw = dict(feat_name=preset["feat_name"], n_fft=preset["n_fft"],
               n_mels=preset_n_mels(preset))
     if devices is None:
@@ -74,20 +77,22 @@ def _featurize_broadcast(x: np.ndarray, preset: dict, device: torch.device,
     _, is_mel, harm, perc = _parse(preset["feat_name"])
     n_dev = len(devices)
     true_t = n_frames(len(x), preset["n_fft"], 160)
-    if n_dev > 1 and is_mel and (harm or perc) and true_t // n_dev >= 20:
-        mesh = Mesh(devices, ("time",))
-        return featuregram_time_sharded(
-            torch.as_tensor(np.asarray(x, np.float32), device=device), mesh,
-            **kw)
-    if true_t > SLAB_THRESHOLD_FRAMES:
-        return featuregram_slabbed(
-            torch.as_tensor(np.asarray(x, np.float32), device=device), **kw)
-    # Short files: pad to the same length bucket as the JAX CLI, so
-    # both featurize the same signal; the clamp sees only real frames.
-    x = _reflect_pad_to(np.asarray(x, np.float32), bucket_length(len(x)))
-    fv = featuregram(torch.as_tensor(x, device=device),
-                     valid_frames=true_t, **kw)
-    return fv[:, :true_t]
+    with span("segment.featurize", n=true_t):
+        if n_dev > 1 and is_mel and (harm or perc) and true_t // n_dev >= 20:
+            mesh = Mesh(devices, ("time",))
+            return featuregram_time_sharded(
+                torch.as_tensor(np.asarray(x, np.float32), device=device),
+                mesh, **kw)
+        if true_t > SLAB_THRESHOLD_FRAMES:
+            return featuregram_slabbed(
+                torch.as_tensor(np.asarray(x, np.float32), device=device),
+                **kw)
+        # Short files: pad to the same length bucket as the JAX CLI, so
+        # both featurize the same signal; the clamp sees only real frames.
+        x = _reflect_pad_to(np.asarray(x, np.float32), bucket_length(len(x)))
+        fv = featuregram(torch.as_tensor(x, device=device),
+                         valid_frames=true_t, **kw)
+        return fv[:, :true_t]
 
 
 def check_model(name: str) -> None:
@@ -170,18 +175,20 @@ def main(argv=None, *, devices=None):
     device = resolve_device(args.device)
     weights = args.weights or checkpoint_weights(args.ckpt)
     preset = MODEL_PRESETS[args.model]
-    if args.spec:
-        fv = torch.as_tensor(np.load(args.audio, allow_pickle=False),
-                             dtype=torch.float32, device=device)
-    else:
-        x, _ = read_audio(args.audio)
-        fv = _featurize_broadcast(x, preset, device, devices)
+    # One request for the file: its read, featurization and segmentation.
+    with request():
+        if args.spec:
+            fv = torch.as_tensor(np.load(args.audio, allow_pickle=False),
+                                 dtype=torch.float32, device=device)
+        else:
+            x, _ = read_audio(args.audio)
+            fv = _featurize_broadcast(x, preset, device, devices)
 
-    model = load_model(weights, device, args.model, args.patch_size)
-    seg = segmenter(args.model, model, patch_size=args.patch_size,
-                    chunk_frames=args.chunk_frames)
-    prob, labels, tracks = seg.segment(fv, head=args.head,
-                                       smooth_win=args.smooth_win)
+        model = load_model(weights, device, args.model, args.patch_size)
+        seg = segmenter(args.model, model, patch_size=args.patch_size,
+                        chunk_frames=args.chunk_frames)
+        prob, labels, tracks = seg.segment(fv, head=args.head,
+                                           smooth_win=args.smooth_win)
     frac = labels.mean() if len(labels) else 0.0
     print(f"{args.audio}: {len(labels)} frames, "
           f"{args.head}-positive fraction {frac:.3f}")

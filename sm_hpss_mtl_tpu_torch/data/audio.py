@@ -24,6 +24,7 @@ from scipy.signal import lfilter, resample_poly
 from .. import native
 from ..ops import reference as ref
 from ..ops.mixing import normalize_signal_np
+from ..utils.profiling import span
 
 TARGET_SR = 16000
 
@@ -62,12 +63,16 @@ def _is_mp3(path: str) -> bool:
 def read_audio(path: str, target_sr: int = TARGET_SR
                ) -> tuple[np.ndarray, int]:
     """Load an audio file as float32 mono at ``target_sr``: wav natively,
-    mp3 through libmpg123 (``data/codecs.py``)."""
-    if _is_mp3(path):
-        from .codecs import read_mp3
-        x, sr = read_mp3(path)
-        return _to_mono_sr(x, sr, target_sr)
-    return read_wav(path, target_sr)
+    mp3 through libmpg123 (``data/codecs.py``).  The span ``audio.read``
+    counts the samples returned."""
+    with span("audio.read") as s:
+        if _is_mp3(path):
+            from .codecs import read_mp3
+            x, sr = _to_mono_sr(*read_mp3(path), target_sr)
+        else:
+            x, sr = read_wav(path, target_sr)
+        s.n = len(x)
+    return x, sr
 
 
 def write_wav(path: str, x: np.ndarray, sr: int = TARGET_SR) -> None:

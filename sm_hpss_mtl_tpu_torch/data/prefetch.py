@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 
 
 def to_device(tree, device: torch.device):
@@ -108,7 +109,8 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self.q.get()
+        with span("stream.wait"):
+            item = self.q.get()
         if item is self._SENTINEL:
             if self.error is not None:
                 raise self.error

@@ -27,6 +27,7 @@ import torch
 from scipy.signal import medfilt
 
 from ..ops.patches import standardize_rows
+from ..utils.profiling import request, span
 
 
 def interval_annotations_to_markers(rows, n_frames: int,
@@ -112,7 +113,11 @@ class StreamingSegmenter:
     outgrow the device at a whole chunk (Jang's first conv block holds
     ~2 MB per window); the standardization stays per chunk, so the tracks
     do not depend on it.  A model returning one tensor gives the track
-    ``'3C'``."""
+    ``'3C'``.  Each :meth:`segment` or :meth:`frame_probabilities` call is
+    one ``utils.profiling.request``; its spans, each counting windows:
+    ``segment.standardize``, ``segment.model_call`` (the call that queues
+    the model's work), ``segment.to_host`` (the tracks' copies, which wait
+    for it) and ``segment.smooth``."""
     predict_fn: Callable[[torch.Tensor], dict]
     patch_size: int = 68
     chunk_frames: int = 10000
@@ -142,37 +147,53 @@ class StreamingSegmenter:
         if n_windows <= 0:
             raise ValueError("featuregram shorter than one window")
         scope = self._scope()
-        if scope == "featuregram":
-            fv = self._standardize_parts(fv)
-        tracks: dict[str, list] = {}
-        start = 0
-        while start < n_windows:
-            count = min(self.chunk_frames, n_windows - start)
-            seg = fv[:, start:start + count + W - 1]
-            if scope == "chunk":
-                seg = self._standardize_parts(seg)
-            wins = seg.unfold(1, W, 1)                     # (D, count, W)
-            if self.input_kind == "time_mel":
-                batch = wins.permute(1, 2, 0)              # (count, W, D)
-            elif self.input_kind == "image":
-                batch = wins.permute(1, 0, 2)[..., None]   # (count, D, W, 1)
-            else:
-                raise ValueError(f"unknown input_kind {self.input_kind!r}")
-            step = self.batch_windows or count
-            for b0 in range(0, count, step):
-                with torch.inference_mode():
-                    out = self.predict_fn(batch[b0:b0 + step].contiguous())
-                if not isinstance(out, dict):
-                    out = {"3C": out}
+        with request():
+            if scope == "featuregram":
+                with span("segment.standardize", n=n_windows):
+                    fv = self._standardize_parts(fv)
+            tracks: dict[str, list] = {}
+            start = 0
+            while start < n_windows:
+                count = min(self.chunk_frames, n_windows - start)
+                seg = fv[:, start:start + count + W - 1]
+                if scope == "chunk":
+                    with span("segment.standardize", n=count):
+                        seg = self._standardize_parts(seg)
+                wins = seg.unfold(1, W, 1)                 # (D, count, W)
+                if self.input_kind == "time_mel":
+                    batch = wins.permute(1, 2, 0)          # (count, W, D)
+                elif self.input_kind == "image":       # (count, D, W, 1)
+                    batch = wins.permute(1, 0, 2)[..., None]
+                else:
+                    raise ValueError(
+                        f"unknown input_kind {self.input_kind!r}")
+                self._model_calls(batch, tracks)
+                start += count
+        return {k: np.concatenate(v, axis=0) for k, v in tracks.items()}
+
+    def _model_calls(self, batch: torch.Tensor, tracks: dict) -> None:
+        """A chunk's windows through the model in calls of at most
+        ``batch_windows``; each head's tracks go to ``tracks`` on the
+        host."""
+        step = self.batch_windows or len(batch)
+        for b0 in range(0, len(batch), step):
+            part = batch[b0:b0 + step]
+            with span("segment.model_call", n=len(part)), \
+                    torch.inference_mode():
+                out = self.predict_fn(part.contiguous())
+            if not isinstance(out, dict):
+                out = {"3C": out}
+            with span("segment.to_host", n=len(part)):
                 for k, v in out.items():
                     tracks.setdefault(k, []).append(v.float().cpu().numpy())
-            start += count
-        return {k: np.concatenate(v, axis=0) for k, v in tracks.items()}
 
     def segment(self, fv: torch.Tensor, *, head: str = "S",
                 smooth_win: int = 501):
         """Smoothed track, 0/1 labels and all raw tracks for one head."""
-        tracks = self.frame_probabilities(fv)
-        prob = tracks[head][:, 0] if tracks[head].ndim > 1 else tracks[head]
-        sm, labels = smooth_predictions(prob, smooth_win)
+        with request():
+            tracks = self.frame_probabilities(fv)
+            prob = (tracks[head][:, 0] if tracks[head].ndim > 1
+                    else tracks[head])
+            with span("segment.smooth", n=len(prob)):
+                sm, labels = smooth_predictions(prob, smooth_win)
         return sm, labels, tracks

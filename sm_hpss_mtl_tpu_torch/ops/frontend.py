@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -65,13 +64,11 @@ from .hpss import KERNEL_MEDIANS, hpss_plain
 from .median_networks import check_pair
 from .mel import _band_ranges_of
 from .stft import n_frames, stft_mag
+from ..utils.profiling import count
 
 _SOURCE = "frontend.cu"
 #: The DFT precisions of the JAX kernels, and so of the port's.
 DFT_PRECISIONS = _nvcc.DFT_PRECISIONS
-#: Guards the launch counts: the host training pipeline launches K1 from
-#: several worker threads.
-_COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,10 +411,8 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.k1_error_string(err).decode())
-    counter = stft_hpss if M is None else stft_hpss_mel
-    with _COUNT_LOCK:
-        counter.launches += 1
-        counter.launches_by_precision[dft_precision] += 1
+    count(f"{name}.launches")
+    count(f"{name}.launches_by_precision.{dft_precision}")
     return out_h.reshape(shape), out_p.reshape(shape)
 
 
@@ -474,8 +469,10 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     the module doc: ``'highest'`` (the port's default; split TF32, close to
     float32) serves the JAX package's ``'highest'`` within its bars,
     ``'bf16x3'`` its default.  CPU tensors take the plain version; CUDA
-    tensors launch K1 (each launch adds one to ``stft_hpss_mel.launches``
-    and to ``stft_hpss_mel.launches_by_precision[dft_precision]``), or for
+    tensors launch K1 (each launch adds one to the counters
+    ``stft_hpss_mel.launches`` and
+    ``stft_hpss_mel.launches_by_precision.<dft_precision>`` of
+    ``utils.profiling.counters()``), or for
     clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K4.
     Halo mode as in the module doc (always K1 on CUDA)."""
     _nvcc.check_precision(dft_precision)
@@ -499,8 +496,9 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
 
     Modes as in :func:`stft_hpss_mel`.  CPU tensors take the plain version;
-    CUDA tensors launch K2 (each launch adds one to ``stft_hpss.launches``
-    and to ``stft_hpss.launches_by_precision[dft_precision]``), or for
+    CUDA tensors launch K2 (each launch adds one to the counters
+    ``stft_hpss.launches`` and
+    ``stft_hpss.launches_by_precision.<dft_precision>``), or for
     clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K3."""
     _nvcc.check_precision(dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
@@ -513,10 +511,3 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
         return _dispatch(y, None, **kw)
     raise ValueError(f"stft_hpss: unsupported device {y.device}")
 
-
-#: Launches of the K1 and K2 kernels in this process, in all and per DFT
-#: precision (the plain versions do not count).
-stft_hpss_mel.launches = 0
-stft_hpss.launches = 0
-stft_hpss_mel.launches_by_precision = dict.fromkeys(DFT_PRECISIONS, 0)
-stft_hpss.launches_by_precision = dict.fromkeys(DFT_PRECISIONS, 0)

@@ -33,6 +33,7 @@ from . import _nvcc
 from .median_networks import check_pair
 from .mel import _band_ranges_of
 from .stft import real_dtype
+from ..utils.profiling import count
 
 #: (l_harm, l_perc) pairs whose median networks ``csrc/median.cuh`` holds
 #: and ``chip_smoke.py`` times per pair: the presets' (21, 11), a narrow
@@ -231,7 +232,7 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
         if err != 0:
             raise RuntimeError("hpss kernel launch failed: "
                                + lib.k3_error_string(err).decode())
-        (hpss_masks if mask_only else hpss).launches += 1
+        count("hpss_masks.launches" if mask_only else "hpss.launches")
     if S3 is S:
         return out_h, out_p
     return out_h.reshape(S.shape), out_p.reshape(S.shape)
@@ -270,7 +271,7 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
             raise RuntimeError("hpss_mel kernel launch failed: "
                                + lib.k3_error_string(err).decode()
                                + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
-        hpss_mel.launches += 1
+        count("hpss_mel.launches")
     if S3 is S:
         return out_h, out_p
     shape = S.shape[:-2] + (n_mels, T)
@@ -291,8 +292,8 @@ def hpss(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
          power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(H, P) = (S*mask_h, S*mask_p)`` for float32 magnitudes
     ``(..., F, T)``.  CPU tensors take :func:`hpss_plain`; CUDA tensors
-    launch the kernel at ``power`` (each launch adds one to
-    ``hpss.launches``)."""
+    launch the kernel at ``power`` (each launch adds one to the counter
+    ``hpss.launches`` of ``utils.profiling.counters()``)."""
     return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
                      mask_only=False)
 
@@ -302,7 +303,7 @@ def hpss_masks(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     """Harmonic and percussive soft masks for float32 magnitudes
     ``(..., F, T)``.  CPU tensors take :func:`hpss_masks_plain`; CUDA
     tensors launch the kernel in its mask-only mode (each launch adds one
-    to ``hpss_masks.launches``)."""
+    to the counter ``hpss_masks.launches``)."""
     return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
                      mask_only=True)
 
@@ -313,7 +314,7 @@ def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
     """``(mel(H), mel(P))``, each ``(..., n_mels, T)``, for float32
     magnitudes ``(..., F, T)`` and an ``(n_mels, F)`` basis.  CPU tensors
     take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 at ``power``
-    (each launch adds one to ``hpss_mel.launches``)."""
+    (each launch adds one to the counter ``hpss_mel.launches``)."""
     if S.device.type == "cpu":
         return hpss_mel_plain(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
                               power=power)
@@ -322,9 +323,3 @@ def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
     return _launch_mel(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
                        power=power)
 
-
-#: Launches of the K3 kernel in this process, per mode, and of K4 (the plain
-#: versions do not count).
-hpss.launches = 0
-hpss_masks.launches = 0
-hpss_mel.launches = 0

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..models.layers import use_generator
+from ..utils.profiling import request, span
 from .losses import categorical_crossentropy, mtl_loss
 
 
@@ -40,13 +41,18 @@ def _scales_on(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(NOISE_SCALES, device=device, dtype=dtype)
 
 
+def _first(batch) -> torch.Tensor:
+    """A batch's tensor, or the first input of a dict batch."""
+    return next(iter(batch.values())) if isinstance(batch, dict) else batch
+
+
 def augment(batch, generator: torch.Generator):
     """The reference's noise augmentation on the device: one scale drawn
     from :data:`NOISE_SCALES` per step, then Gaussian noise over the whole
     batch, both from ``generator`` (no host round trip).  A dict batch (the
     intermediate-fusion model's two inputs) takes the one scale and its
     own noise per input, in sorted key order, as the JAX ``_augment``."""
-    first = next(iter(batch.values())) if isinstance(batch, dict) else batch
+    first = _first(batch)
     scales = _scales_on(first.device, first.dtype)
     i = torch.randint(len(NOISE_SCALES), (), generator=generator,
                       device=first.device)
@@ -105,27 +111,37 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     input and per-row labels first, outside autograd (the device pipeline,
     ``train.endtoend``).  ``before_update()`` runs between the backward
     pass and the optimizer's update (``parallel.dp`` averages the
-    gradients over its process group there)."""
+    gradients over its process group there).  Each call is one
+    ``utils.profiling.request`` of four spans: ``train.featurize`` (the
+    featurizer and the augmentation; ``n`` clips), ``train.forward`` (the
+    forward pass, the losses and the L2 term; ``n`` rows),
+    ``train.backward`` and ``train.optimizer``."""
     use_generator(model, generator)
     kernels = l2_kernels(model) if l2_reg else []
 
     def train_step(state: TrainState, batch, labels) -> dict:
-        if featurize is not None:
-            with torch.no_grad():
-                batch, labels = featurize(batch, labels)
-        if augment_noise:
-            batch = augment(batch, generator)
-        model.train()
-        outputs = model(batch)
-        total, per_head = _losses(outputs, labels, mtl, loss_weights)
-        if kernels:
-            total = total + l2_reg * sum(k.square().sum() for k in kernels)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if before_update is not None:
-            before_update()
-        optimizer.step()
-        state.step += 1
+        with request():
+            with span("train.featurize", n=len(_first(batch))):
+                if featurize is not None:
+                    with torch.no_grad():
+                        batch, labels = featurize(batch, labels)
+                if augment_noise:
+                    batch = augment(batch, generator)
+            with span("train.forward", n=len(_first(batch))):
+                model.train()
+                outputs = model(batch)
+                total, per_head = _losses(outputs, labels, mtl, loss_weights)
+                if kernels:
+                    total = total + l2_reg * sum(k.square().sum()
+                                                 for k in kernels)
+            with span("train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            if before_update is not None:
+                before_update()
+            with span("train.optimizer"):
+                optimizer.step()
+            state.step += 1
         metrics = {"loss": total.detach(),
                    **{f"{k}_loss": v.detach() for k, v in per_head.items()}}
         out3 = outputs["3C"] if mtl else outputs

@@ -130,6 +130,7 @@ def run_pipeline(root: str, pipeline: str, epochs: int, model: str = LEMAIRE,
                                                       run_experiment)
     from sm_hpss_mtl_tpu_torch.ops import frontend
     from sm_hpss_mtl_tpu_torch.utils import stage_timer
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
 
     cfg = experiment_config(root, pipeline, epochs, model, bf16)
     stages = {}
@@ -152,7 +153,7 @@ def run_pipeline(root: str, pipeline: str, epochs: int, model: str = LEMAIRE,
         return launch(y, M, **kw)
 
     frontend.launch = recording
-    frontend.stft_hpss_mel.launches = 0
+    k1_before = counters().get("stft_hpss_mel.launches", 0)
     t0 = time.time()
     try:
         out = run_experiment(cfg, folds=[0], verbose=True, resume=False,
@@ -160,7 +161,7 @@ def run_pipeline(root: str, pipeline: str, epochs: int, model: str = LEMAIRE,
     finally:
         frontend.launch = launch
     wall_total = time.time() - t0
-    k1_launches = frontend.stft_hpss_mel.launches
+    k1_launches = counters().get("stft_hpss_mel.launches", 0) - k1_before
 
     epochs_rows = read_epochs(fold_log_path(cfg))
     epoch_s = [r["epoch_train_s"] for r in epochs_rows]
