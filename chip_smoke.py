@@ -1192,17 +1192,16 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
 @contextlib.contextmanager
 def recorded():
     """Counts every kernel launch of the code run inside, and the shape of
-    each: the launch counters (``utils.profiling.counters()``) on exit less
-    their values on entry.  Also the launches per median pair (``by_pair``,
-    keyed ``"l_harm,l_perc"``) and per mask power (``by_power``, keyed by
-    the float power), and K1's and K2's per DFT precision
-    (``launches_by_precision``)."""
+    each.  Every tally is taken from the launch counters
+    (``utils.profiling.counters()``) on exit less their values on entry, so
+    it also counts the launches a CUDA graph of the train step replays:
+    the launches per kernel, per median pair (``by_pair``, keyed
+    ``"l_harm,l_perc"``), per mask power (``by_power``, keyed by the float
+    power), in halo mode (``halo``), and K1's and K2's per DFT precision
+    (``launches_by_precision``).  The shapes are the calls'."""
     from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
     from sm_hpss_mtl_tpu_torch.utils.profiling import counters
-    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()},
-           "launches": {}, "halo": Counter(),
-           "by_pair": {k: Counter() for k in ("K1", "K2", "K3", "K4")},
-           "by_power": {k: Counter() for k in ("K1", "K2", "K3", "K4")}}
+    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()}}
     f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
                                     hpss._launch_mel)
 
@@ -1223,31 +1222,22 @@ def recorded():
         if kw.get("power", 2.0) != 2.0:
             key += (f"power{kw['power']}",)
         rec["shapes"][k].add(key)
-        out = f_launch(y, M, **kw)
-        if kw.get("halo_in_audio"):
-            rec["halo"][k] += 1
-        rec["by_pair"][k][f"{kw['l_harm']},{kw['l_perc']}"] += 1
-        rec["by_power"][k][float(kw.get("power", 2.0))] += 1
-        return out
+        return f_launch(y, M, **kw)
 
     def h_rec(S, **kw):
         F, T = S.shape[-2:]
         rec["shapes"]["K3"].add((kw["mask_only"], kw["l_harm"],
                                  kw["l_perc"], S.numel() // (F * T), F, T))
-        out = h_launch(S, **kw)
-        rec["by_pair"]["K3"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
-        rec["by_power"]["K3"][float(kw.get("power", 2.0))] += 1
-        return out
+        return h_launch(S, **kw)
 
     def m_rec(S, M, **kw):
         F, T = S.shape[-2:]
         rec["shapes"]["K4"].add((kw["l_harm"], kw["l_perc"],
                                  S.numel() // (F * T), F, T))
-        out = m_launch(S, M, **kw)
-        rec["by_pair"]["K4"][f"{kw['l_harm']},{kw['l_perc']}"] += 1
-        rec["by_power"]["K4"][float(kw.get("power", 2.0))] += 1
-        return out
+        return m_launch(S, M, **kw)
 
+    counted_as = {"K1": ("stft_hpss_mel",), "K2": ("stft_hpss",),
+                  "K3": ("hpss", "hpss_masks"), "K4": ("hpss_mel",)}
     frontend.launch, hpss._launch, hpss._launch_mel = f_rec, h_rec, m_rec
     try:
         before = counters()
@@ -1256,15 +1246,25 @@ def recorded():
 
         def launches(name):
             return after.get(name, 0) - before.get(name, 0)
-        rec["launches"] = {
-            "K1": launches("stft_hpss_mel.launches"),
-            "K2": launches("stft_hpss.launches"),
-            "K3": launches("hpss.launches") + launches("hpss_masks.launches"),
-            "K4": launches("hpss_mel.launches")}
+
+        def tally(k, by, key=str):
+            out = Counter()
+            for fn in counted_as[k]:
+                head = f"{fn}.launches_by_{by}."
+                for name in after:
+                    if name.startswith(head) and launches(name):
+                        out[key(name[len(head):])] += launches(name)
+            return out
+        rec["launches"] = {k: sum(launches(f"{fn}.launches") for fn in fns)
+                           for k, fns in counted_as.items()}
+        rec["by_pair"] = {k: tally(k, "pair") for k in counted_as}
+        rec["by_power"] = {k: tally(k, "power", float) for k in counted_as}
+        rec["halo"] = Counter({k: launches(f"{fn}.launches_halo")
+                               for k, fn in (("K1", "stft_hpss_mel"),
+                                             ("K2", "stft_hpss"))})
         rec["launches_by_precision"] = {
-            k: {p: launches(f"{fn}.launches_by_precision.{p}")
-                for p in frontend.DFT_PRECISIONS}
-            for k, fn in (("K1", "stft_hpss_mel"), ("K2", "stft_hpss"))}
+            k: {p: tally(k, "precision")[p] for p in frontend.DFT_PRECISIONS}
+            for k in ("K1", "K2")}
     finally:
         frontend.launch, hpss._launch, hpss._launch_mel = (
             f_launch, h_launch, m_launch)

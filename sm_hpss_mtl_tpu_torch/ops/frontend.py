@@ -413,6 +413,10 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
                            + lib.k1_error_string(err).decode())
     count(f"{name}.launches")
     count(f"{name}.launches_by_precision.{dft_precision}")
+    count(f"{name}.launches_by_pair.{l_harm},{l_perc}")
+    count(f"{name}.launches_by_power.{float(power)}")
+    if halo_in_audio:
+        count(f"{name}.launches_halo")
     return out_h.reshape(shape), out_p.reshape(shape)
 
 
@@ -470,10 +474,12 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     float32) serves the JAX package's ``'highest'`` within its bars,
     ``'bf16x3'`` its default.  CPU tensors take the plain version; CUDA
     tensors launch K1 (each launch adds one to the counters
-    ``stft_hpss_mel.launches`` and
-    ``stft_hpss_mel.launches_by_precision.<dft_precision>`` of
-    ``utils.profiling.counters()``), or for
-    clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K4.
+    ``stft_hpss_mel.launches``,
+    ``stft_hpss_mel.launches_by_precision.<dft_precision>``,
+    ``stft_hpss_mel.launches_by_pair.<l_harm>,<l_perc>``,
+    ``stft_hpss_mel.launches_by_power.<float power>`` and in halo mode
+    ``stft_hpss_mel.launches_halo`` of ``utils.profiling.counters()``), or
+    for clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K4.
     Halo mode as in the module doc (always K1 on CUDA)."""
     _nvcc.check_precision(dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
@@ -496,9 +502,8 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     each ``(..., F, T)``: the HarmSpec/PercSpec feature families.
 
     Modes as in :func:`stft_hpss_mel`.  CPU tensors take the plain version;
-    CUDA tensors launch K2 (each launch adds one to the counters
-    ``stft_hpss.launches`` and
-    ``stft_hpss.launches_by_precision.<dft_precision>``), or for
+    CUDA tensors launch K2 (each launch adds one to K1's counters, named
+    ``stft_hpss.*``), or for
     clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K3."""
     _nvcc.check_precision(dft_precision)
     kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,

@@ -213,6 +213,15 @@ def _check_input(S: torch.Tensor, l_harm: int, l_perc: int) -> None:
         raise ValueError(f"hpss takes (..., F, T), got {tuple(S.shape)}")
 
 
+def _count(name: str, l_harm: int, l_perc: int, power: float) -> None:
+    """One launch in the counters ``<name>.launches``,
+    ``<name>.launches_by_pair.<l_harm>,<l_perc>`` and
+    ``<name>.launches_by_power.<float power>``."""
+    count(f"{name}.launches")
+    count(f"{name}.launches_by_pair.{l_harm},{l_perc}")
+    count(f"{name}.launches_by_power.{float(power)}")
+
+
 def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
             power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 on ``(..., F, T)`` magnitudes.  The host path is kept short (the
@@ -232,7 +241,7 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
         if err != 0:
             raise RuntimeError("hpss kernel launch failed: "
                                + lib.k3_error_string(err).decode())
-        count("hpss_masks.launches" if mask_only else "hpss.launches")
+        _count("hpss_masks" if mask_only else "hpss", l_harm, l_perc, power)
     if S3 is S:
         return out_h, out_p
     return out_h.reshape(S.shape), out_p.reshape(S.shape)
@@ -271,7 +280,7 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
             raise RuntimeError("hpss_mel kernel launch failed: "
                                + lib.k3_error_string(err).decode()
                                + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
-        count("hpss_mel.launches")
+        _count("hpss_mel", l_harm, l_perc, power)
     if S3 is S:
         return out_h, out_p
     shape = S.shape[:-2] + (n_mels, T)
@@ -292,8 +301,9 @@ def hpss(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
          power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(H, P) = (S*mask_h, S*mask_p)`` for float32 magnitudes
     ``(..., F, T)``.  CPU tensors take :func:`hpss_plain`; CUDA tensors
-    launch the kernel at ``power`` (each launch adds one to the counter
-    ``hpss.launches`` of ``utils.profiling.counters()``)."""
+    launch the kernel at ``power`` (each launch adds one to the counters
+    ``hpss.launches`` and ``hpss.launches_by_*`` of
+    ``utils.profiling.counters()``, as :func:`_count` names them)."""
     return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
                      mask_only=False)
 
@@ -303,7 +313,8 @@ def hpss_masks(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     """Harmonic and percussive soft masks for float32 magnitudes
     ``(..., F, T)``.  CPU tensors take :func:`hpss_masks_plain`; CUDA
     tensors launch the kernel in its mask-only mode (each launch adds one
-    to the counter ``hpss_masks.launches``)."""
+    to the counters ``hpss_masks.launches`` and
+    ``hpss_masks.launches_by_*``)."""
     return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
                      mask_only=True)
 
@@ -314,7 +325,8 @@ def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
     """``(mel(H), mel(P))``, each ``(..., n_mels, T)``, for float32
     magnitudes ``(..., F, T)`` and an ``(n_mels, F)`` basis.  CPU tensors
     take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 at ``power``
-    (each launch adds one to the counter ``hpss_mel.launches``)."""
+    (each launch adds one to the counters ``hpss_mel.launches`` and
+    ``hpss_mel.launches_by_*``)."""
     if S.device.type == "cpu":
         return hpss_mel_plain(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
                               power=power)

@@ -48,9 +48,10 @@ def clip_by_per_tensor_norm(grads: list[torch.Tensor], max_norm: float,
 
 
 def exponential_decay(init_value: float, decay_steps: int,
-                      decay_rate: float = 0.1) -> Callable[[int], float]:
+                      decay_rate: float = 0.1) -> Callable:
     """Keras ``ExponentialDecay(staircase=False)``:
-    ``lr(t) = init * rate ** (t / decay_steps)``."""
+    ``lr(t) = init * rate ** (t / decay_steps)``, of an int ``t`` or of a
+    float64 tensor (:class:`KerasSGD`'s device-side count)."""
     return lambda t: init_value * decay_rate ** (t / decay_steps)
 
 
@@ -60,14 +61,45 @@ class KerasSGD(torch.optim.Optimizer):
     ``v <- m*v + lr_t*g; p <- p - v``, with ``t`` the updates taken before
     this one.  State per parameter: ``momentum_buffer`` and ``step``.
     ``trial_axis``: the parameters stack one trial each along their first
-    axis, and clipnorm takes each trial's norm."""
+    axis, and clipnorm takes each trial's norm.
 
-    def __init__(self, params: Iterable, schedule: Callable[[int], float],
+    The step count and the schedule stay on the parameters' device, so an
+    update reads nothing from the host and a CUDA graph of it replays
+    right (``train.state.make_train_step``): every parameter's ``step`` is
+    one float64 0-d tensor of its group, and ``schedule`` maps it to the
+    learning rate in float64 with tensor arithmetic (as
+    :func:`exponential_decay`'s does), cast once to the parameters' type.
+    A ``step`` loaded as an int or a host tensor (older checkpoints) moves
+    there at the next update."""
+
+    #: The whole schedule lives on the device (``train.state`` graphs the
+    #: steps of such optimizers only).
+    schedule_on_device = True
+
+    def __init__(self, params: Iterable, schedule: Callable,
                  momentum: float = 0.9, clipnorm: float | None = None,
                  trial_axis: bool = False):
         super().__init__(params, dict(momentum=momentum, clipnorm=clipnorm))
         self.schedule = schedule
         self.trial_axis = trial_axis
+
+    def _step_of(self, params: list) -> torch.Tensor:
+        """The group's step count, one float64 0-d tensor on the group's
+        device that every parameter's state holds; a parameter new to the
+        optimizer gets a zero momentum buffer."""
+        first = params[0]
+        t = self.state[first].get("step", 0)
+        if not (torch.is_tensor(t) and t.dtype == torch.float64
+                and t.device == first.device):
+            t = torch.as_tensor(t, dtype=torch.float64,
+                                device=first.device).reshape(())
+        for p in params:
+            state = self.state[p]
+            if "momentum_buffer" not in state:
+                state["momentum_buffer"] = torch.zeros_like(p)
+            if state.get("step") is not t:
+                state["step"] = t
+        return t
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -83,19 +115,15 @@ class KerasSGD(torch.optim.Optimizer):
             if group["clipnorm"] is not None:
                 clip_by_per_tensor_norm(grads, group["clipnorm"],
                                         self.trial_axis)
-            bufs = []
-            for p in params:
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["momentum_buffer"] = torch.zeros_like(p)
-                bufs.append(state["momentum_buffer"])
-            t = int(self.state[params[0]]["step"])
+            t = self._step_of(params)
+            bufs = [self.state[p]["momentum_buffer"] for p in params]
+            lr = torch.as_tensor(self.schedule(t), dtype=torch.float64,
+                                 device=t.device).to(params[0].dtype)
             torch._foreach_mul_(bufs, group["momentum"])
-            torch._foreach_add_(bufs, grads, alpha=self.schedule(t))
+            # v + lr*g rounded once, as add_(g, alpha=lr) rounds it.
+            torch._foreach_addcmul_(bufs, grads, [lr] * len(bufs))
             torch._foreach_sub_(params, bufs)
-            for p in params:
-                self.state[p]["step"] = t + 1
+            t.add_(1)
         return loss
 
 

@@ -22,7 +22,9 @@ The program's own spans and counters:
 - :func:`request` groups the spans of one unit of work (a train step, a
   segmented broadcast) under one id; it annotates nothing.
 - :func:`count` and :func:`counters` keep named counts (the K1–K4 kernel
-  launches) under one lock, at all times.
+  launches) under one lock, at all times; :func:`counted` also hands the
+  counts one thread adds inside it to that thread (what a CUDA graph's
+  capture launched, which its replays count again).
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ class _Thread(threading.local):
         self.id = threading.get_native_id()
         self.open: list[str] = []
         self.request: int | None = None
+        self.counted: dict | None = None
 
 
 class _Store:
@@ -238,6 +241,21 @@ def count(name: str, n: int = 1) -> None:
     training pipeline counts from several worker threads)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
+    mine = _thread.counted
+    if mine is not None:
+        mine[name] = mine.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def counted():
+    """Yield a dict that receives, besides the counters, what this thread
+    counts inside (other threads' counts stay out of it)."""
+    t = _thread
+    t.counted = {}
+    try:
+        yield t.counted
+    finally:
+        t.counted = None
 
 
 def counters() -> dict[str, int]:

@@ -15,6 +15,7 @@ stack, dilations (1, 2), 16 mel bands, 16-frame patches, 2 per class.
 """
 
 import contextlib
+import copy
 import os
 
 import flax.linen as fnn
@@ -973,3 +974,149 @@ def test_checkpoint_round_trip(tmp_path):
     # The model file is a serving weights file.
     tree = weights.load_npz(os.path.join(ck, "state", "model.npz"))
     assert tree["params"]["heads"]["S_out"]["kernel"].shape == (16, 1)
+
+
+# --- the graphed step: when it graphs, the device-side schedule --------------
+
+def _host_float_keras_sgd(params, grads, sched, trial_axis):
+    """The Keras SGD update with its step count and learning rate on the
+    host, as the port computed it before the schedule moved to the device:
+    ``v <- 0.9 v + lr(t) g`` (``add_(g, alpha=lr)``), ``p <- p - v``."""
+    ps = [_t(p).clone() for p in params]
+    bufs = [torch.zeros_like(p) for p in ps]
+    for t, gs in enumerate(grads):
+        gs = [_t(g).clone() for g in gs]
+        toptim.clip_by_per_tensor_norm(gs, 1.0, trial_axis)
+        torch._foreach_mul_(bufs, 0.9)
+        torch._foreach_add_(bufs, gs, alpha=sched(t))
+        torch._foreach_sub_(ps, bufs)
+    return ps
+
+
+@pytest.mark.parametrize("trial_axis", [False, True])
+def test_keras_sgd_device_schedule_matches_the_host_float_one(trial_axis):
+    params = _param_set(4)
+    if trial_axis:       # three trials stacked along a leading axis
+        params = [np.stack([p, 2 * p, -p]) for p in params]
+    rng = np.random.default_rng(5)
+    grads = [[(rng.standard_normal(p.shape) * rng.choice([0.05, 5.0])
+               ).astype(np.float32) for p in params] for _ in range(10)]
+    # tr_steps 2: the lr decays 0.1x every 6 steps, across the 10.
+    got, sched = _run_torch(
+        lambda ps: toptim.lemaire_optimizer(ps, 2, trial_axis=trial_axis),
+        params, grads)
+    want = _host_float_keras_sgd(params, grads, sched, trial_axis)
+    for a, b in zip(got[-1], want):
+        b = b.numpy()
+        ulp = np.spacing(np.abs(b))
+        assert np.all(np.abs(a - b) <= ulp), np.max(np.abs(a - b) / ulp)
+    opt, _ = toptim.lemaire_optimizer(
+        [torch.nn.Parameter(_t(p)) for p in params], 2,
+        trial_axis=trial_axis)
+    for p in opt.param_groups[0]["params"]:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    steps = [opt.state[p]["step"] for p in opt.param_groups[0]["params"]]
+    assert all(s is steps[0] for s in steps)
+    assert steps[0].dtype == torch.float64 and steps[0].ndim == 0
+    assert int(steps[0]) == 1
+
+
+def _rule_optimizer(case, params):
+    if case == "adam":
+        return toptim.adam_optimizer(params, 1e-3)[0]
+    if case == "lambdalr_sgd":
+        return toptim.papakostas_optimizer(params)[0]
+    return toptim.lemaire_optimizer(params, 10)[0]
+
+
+#: (case, the calls' input shapes, the modes StepGraphs gives them); a
+#: ``load`` between two calls replaces the optimizer state's tensors.
+RULE_CASES = [
+    ("graphs", "aaaa", ["warm", "warm", "capture", "replay"]),
+    ("cpu", "aaaa", ["eager"] * 4),
+    ("before_update", "aaaa", ["eager"] * 4),
+    ("adam", "aaaa", ["eager"] * 4),
+    ("lambdalr_sgd", "aaaa", ["eager"] * 4),
+    ("new_shape", "aaabab", ["warm", "warm", "capture", "eager", "replay",
+                             "eager"]),
+    ("replaced_state", "aaaa|aaaa", ["warm", "warm", "capture", "replay",
+                                     "warm", "warm", "capture", "replay"]),
+]
+
+
+@pytest.mark.parametrize("case,calls,modes", RULE_CASES,
+                         ids=[c[0] for c in RULE_CASES])
+def test_when_the_train_step_graphs(case, calls, modes):
+    """The rule is decided from what a step observes: its device, what
+    runs before the update, the optimizer, the inputs' shapes and the
+    tensors captured.  Decided here for a CUDA device without one (the
+    graphs themselves run in ``test_torch_train_graphs``)."""
+    net = get_model("Lemaire_et_al_MTL", n_mels=N_MELS, patch_size=W,
+                    **NARROW)
+    opt = _rule_optimizer(case, net.parameters())
+    graphs = tstate.StepGraphs(
+        net, opt, (lambda: None) if case == "before_update" else None)
+    device = torch.device("cpu" if case == "cpu" else "cuda")
+    _, labels = _batch(0, 3 * BS)
+    sigs = {s: tstate.signature(
+        torch.zeros(n, W, 2 * N_MELS), {k: _t(a) for k, a in labels.items()})
+        for s, n in (("a", 3 * BS), ("b", 3 * BS + 3))}
+    got = []
+    for c in calls:
+        if c == "|":
+            opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+            continue
+        got.append(graphs.mode(device, sigs[c]))
+        for p in net.parameters():     # the state a step leaves
+            p.grad = torch.zeros_like(p)
+        opt.step()
+    assert got == modes
+    assert tstate.graphable(device, opt, graphs.before_update) == (
+        case in ("graphs", "new_shape", "replaced_state"))
+
+
+def test_checkpoint_with_an_int_step_loads_and_trains_on(tmp_path):
+    """A checkpoint from before the step count moved to the device holds
+    each parameter's ``step`` as an int; it loads, and the next step
+    continues the schedule from it as the run that wrote it does."""
+    def make():
+        net = get_model("Lemaire_et_al_MTL", n_mels=N_MELS, patch_size=W,
+                        **NARROW)
+        opt, _ = toptim.for_model("Lemaire_et_al_MTL", net.parameters(), 1)
+        return net, opt
+
+    def step_fn(net, opt):
+        return tstate.make_train_step(
+            net, opt, mtl=True, generator=torch.Generator().manual_seed(2))
+
+    net, opt = make()
+    st = tstate.TrainState(net, opt)
+    rng, labels = _batch(3, 3 * BS)
+    tl = {k: _t(a) for k, a in labels.items()}
+    xs = [_t(rng.standard_normal((3 * BS, W, 2 * N_MELS)).astype(
+        np.float32)) for _ in range(3)]
+    step = step_fn(net, opt)
+    for x in xs[:2]:
+        step(st, x, tl)
+    ck = str(tmp_path / "ck")
+    tckpt.save_checkpoint(ck, st)
+    path = os.path.join(ck, "state", "optimizer.npz")
+    with np.load(path) as z:
+        saved = {k: (np.asarray(int(z[k])) if k.endswith("/step")
+                     else z[k]) for k in z.files}
+    assert any(k.endswith("/step") for k in saved)
+    np.savez(path, **saved)
+
+    net2, opt2 = make()
+    st2, _ = tckpt.restore_checkpoint(ck, tstate.TrainState(net2, opt2))
+    assert all(int(opt2.state[q]["step"]) == 2 for q in net2.parameters())
+    for s, n, o in ((st, net, opt), (st2, net2, opt2)):
+        step_fn(n, o)(s, xs[2], tl)      # each from a fresh generator
+    for (k, a), b in zip(net.state_dict().items(),
+                         net2.state_dict().values()):
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(a, b), k
+    for q in net2.parameters():
+        assert int(opt2.state[q]["step"]) == 3
+        assert opt2.state[q]["step"].dtype == torch.float64
