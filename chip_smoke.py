@@ -14,7 +14,8 @@ Phases, each of which must pass:
    paths below and at edge geometries; then at every median pair of
    ``ops/hpss.py::KERNEL_MEDIANS`` (the tuner's l_harm 11-51 and l_perc
    21-51) at the edge lengths of each pair's half width and of K1's tile,
-   the training and tuning launches, 20 and 60 mel bands, short and long
+   the training and tuning launches, 20 and 60 mel bands, K1 at 128 bands
+   in Whisper-MTL's slabs of a 20-minute broadcast, short and long
    clips, with times, bounds, registers, spills and blocks per SM per
    pair (``phase_pairs``); K1 and K2 in halo mode (the time-sharded front
    end's shards) at the first, an interior and the last shard's edge
@@ -38,7 +39,9 @@ Phases, each of which must pass:
 5. Lemaire-MTL slabbed serving: a 10-minute broadcast (~60k frames,
    featurized in 16384-frame slabs, 10000-window chunks);
 6. Lemaire-MTL features of the 10-minute broadcast through K1 against the
-   plain version on the card (max |delta| <= 0.02 dB);
+   plain version on the card (max |delta| <= 0.02 dB); Whisper-MTL's
+   features (128 bands) of a 20-minute broadcast the same way, in
+   ``featuregram_slabbed``'s 8 slabs, one K1 launch each;
 7. Jang-MTL serving (``--model Jang_et_al_MTL``, features through K2): the
    60 s and 10-minute broadcasts on the card, a 10 s broadcast on the card
    and on the CPU (tracks within 1e-3), and the 10-minute features through
@@ -231,6 +234,13 @@ SEGMENT_SHARDS, TRIAL_SHARDS = 4, 2
 #: The tail splice of ``featuregram_time_sharded``: 3 * (l_harm // 2)
 #: frames through the dispatcher (K1 or K2).
 SPLICE_FRAMES = 3 * (21 // 2)
+#: Whisper-MTL's features: K1 at 128 bands (its preset) over a 20-minute
+#: broadcast (119 998 frames), which ``featuregram_slabbed`` cuts into 8
+#: slabs of 16384 frames plus l_harm // 2 = 10 frames of margin at each
+#: interior seam: launches of 16394 frames (the two edge slabs) and 16404
+#: (the six interior ones).
+WHISPER, WHISPER_SECONDS, WHISPER_MELS = "Whisper_MTL", 1200.0, 128
+WHISPER_SLAB_FRAMES = (16394, 16404)
 #: Lemaire's variants: Cascaded-MTL, the 5-class model, intermediate fusion.
 CASCADED, FIVE, IF = ("Lemaire_et_al_Cascaded_MTL",
                       "Lemaire_et_al_MTL_5class", "Lemaire_et_al_MTL_IF")
@@ -981,7 +991,8 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
     training launches and K1 at every bucketed length of the tuning
     corpus (the tuner's test files), K3 and K4 at short and long clips and
     at F = 257, K1 and K4 also at 20 and 60 mel bands (the n_mels grid
-    leaves part groups of K4's 8 bands); ``frontend.launch`` runs K1 and
+    leaves part groups of K4's 8 bands), K1 at 128 bands at Whisper-MTL's
+    slab lengths (``WHISPER_SLAB_FRAMES``); ``frontend.launch`` runs K1 and
     K2 at any length.  At (21, 11) also ``cli.featurize``'s bucket batches.
     Then per pair: times, device times, bounds (the medians priced at the
     pair's shared-core comparators, counted in the built ``median.cuh``),
@@ -996,6 +1007,8 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     banks = {(n_fft, m): mel_filterbank(22050, n_fft, m, device="cuda")
              for n_fft in (400, 512) for m in (120, 60, 20)}
+    banks[(400, WHISPER_MELS)] = mel_filterbank(22050, 400, WHISPER_MELS,
+                                                device="cuda")
     single, shared = median_comparators()
     err = Counter()
     n_cases = Counter()
@@ -1079,6 +1092,8 @@ def phase_pairs(card: str, checked: dict, corpus: dict) -> dict:
             k4(lh, lp, 2, 201, T)
     for B, T in sorted(corpus["featurize_shapes"]):
         k1(400, 21, 11, B, T)
+    for T in WHISPER_SLAB_FRAMES:
+        k1(400, 21, 11, 1, T, WHISPER_MELS)
     print("kernels at every median pair: " + "; ".join(
         f"{k} {n_cases[k]} shapes ok, max |delta| "
         f"{max(v for key, v in err.items() if key[0] == k):.3e}"
@@ -3894,6 +3909,30 @@ def run() -> None:
         print(f"[6 features] kernel vs plain max |delta| {db:.5f} dB",
               flush=True)
 
+        # Whisper-MTL's front end: K1 at 128 bands in the slabs of a
+        # 20-minute broadcast, its launches tallied from the counters.
+        x1200 = synth_broadcast(WHISPER_SECONDS, SEED + 3)
+        with recorded() as wrec:
+            wdb = phase_features(WHISPER, x1200)
+        runs["whisper_1200"] = wrec
+        T1200 = n_frames(len(x1200), 400, 160)
+        slabs = -(-T1200 // 16384)
+        check(wdb <= FEATURE_DB_TOL,
+              f"Whisper-MTL features differ by {wdb:.4f} dB")
+        check(wrec["launches"] == {"K1": slabs, "K2": 0, "K3": 0, "K4": 0},
+              f"Whisper-MTL features: launches {wrec['launches']}, want "
+              f"{slabs} of K1")
+        check({key[-1] for key in wrec["shapes"]["K1"]}
+              == set(WHISPER_SLAB_FRAMES),
+              f"Whisper-MTL slabs {sorted(wrec['shapes']['K1'])}")
+        check(wrec["by_pair"]["K1"] == {"21,11": slabs}
+              and wrec["by_power"]["K1"] == {2.0: slabs},
+              "Whisper-MTL's K1 launches per pair or power")
+        print(f"[6 whisper features] {T1200} frames at {WHISPER_MELS} "
+              f"bands, {slabs} K1 launches at "
+              f"{sorted(wrec['shapes']['K1'])}, kernel vs plain max "
+              f"|delta| {wdb:.5f} dB", flush=True)
+
         jang = "Jang_et_al_MTL"
         jw = wpath[jang]
         runs["jang_60"] = j60 = serve(jang, wav60, jw, out("j60.npz"), "cuda",
@@ -4318,7 +4357,8 @@ def run() -> None:
               f"{max(t['update_rel_max'] for t in parallel['trial_sharding']['trials']):.2e}"
               f"; {time.perf_counter() - t_par:.1f} s", flush=True)
 
-    paths = {"K1": ("lemaire_60", "lemaire_600", "eval_lemaire",
+    paths = {"K1": ("lemaire_60", "lemaire_600", "whisper_1200",
+                    "eval_lemaire",
                     "classify_60", "train_device", "train_host",
                     "train_lemaire_fls", "train_doukhan", "cascaded_60",
                     "five_60", "eval_five", "eval_if", "fuse_late",

@@ -51,7 +51,7 @@ from ..device import resolve_device
 from ..eval.metrics import accuracy
 from ..eval.tester import FileWiseTester
 from ..models.lemaire import init_weights
-from ..models.zoo import MTL, ModelSpec, get_spec
+from ..models.zoo import INPUT_KIND, MTL, ModelSpec, get_spec
 from ..parallel.distributed import (initialize_from_env, per_process_seed,
                                     process_file_shard)
 from ..train.checkpoint import (checkpoint_exists, restore_checkpoint,
@@ -148,6 +148,11 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 def _check_ported(config: ExperimentConfig) -> None:
     if config.model not in MTL:
         raise ValueError(f"unknown model {config.model!r}")
+    if INPUT_KIND[config.model] == "sequence":
+        raise ValueError(
+            f"{config.model} is served (cli.segment), not trained: a fold "
+            "cuts 68-frame patches with one label each, and its 30-s "
+            "contexts need a label per frame over each crop")
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {config.compute_dtype!r}")
 

@@ -4,8 +4,9 @@ Counterpart of ``python -m sm_hpss_mtl_tpu.cli.segment``: featurize a
 broadcast on the GPU (kernel K1 for the Mel-HPSS features of the Lemaire
 MTL models and Doukhan-MTL, kernel K2 for the full-resolution ones of
 Jang-MTL and Papakostas-MTL), run shift-1 windows of the model over it in
-chunks, median-smooth the S or M track, optionally score against an
-interval CSV, and write per-frame labels.
+chunks (Whisper-MTL: consecutive 30-s contexts, labelled per frame),
+median-smooth the S or M track, optionally score against an interval CSV,
+and write per-frame labels.
 
     python -m sm_hpss_mtl_tpu_torch.cli.segment broadcast.wav \\
         --ckpt results/.../fold0_ckpt [--model Jang_et_al_MTL] [--head S] \\
@@ -14,7 +15,9 @@ interval CSV, and write per-frame labels.
 The model comes from exactly one of ``--ckpt``, a fold checkpoint directory
 that ``cli.mtl`` (``train/checkpoint.py``) writes, as the JAX CLI's
 ``--ckpt``, and ``--weights``, an ``.npz`` of the flax variable tree with
-``/``-joined keys (``sm_hpss_mtl_tpu_torch.weights``).  The JAX package's
+``/``-joined keys (``sm_hpss_mtl_tpu_torch.weights``); Whisper-MTL's, which
+has no flax counterpart, holds its ``state_dict`` keys
+(``weights.save_state_npz``).  The JAX package's
 orbax checkpoints are refused: the port reads its own.  The input is a wav
 or an mp3 (``data/audio.py::read_audio``).  The model serves in float32
 whatever precision it was trained in, as the JAX CLI's.  Runs on CUDA
@@ -39,7 +42,8 @@ from ..eval.metrics import get_performance
 from ..eval.segment import (StreamingSegmenter,
                             interval_annotations_to_markers,
                             read_interval_csv)
-from ..models.zoo import IMAGE_BATCH_WINDOWS, INPUT_KIND, MTL, load_model
+from ..models.zoo import (IMAGE_BATCH_WINDOWS, INPUT_KIND, MTL,
+                          SEQUENCE_BATCH_CONTEXTS, load_model)
 from ..ops.featuregram import _parse, featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
 from ..parallel import Mesh, featuregram_time_sharded
@@ -51,7 +55,7 @@ from ..utils.profiling import request, span
 #: take one featuregram.
 MODELS = ("Lemaire_et_al_MTL", "Lemaire_et_al_Cascaded_MTL",
           "Lemaire_et_al_MTL_5class", "Jang_et_al_MTL",
-          "Papakostas_et_al_MTL", "Doukhan_et_al_MTL")
+          "Papakostas_et_al_MTL", "Doukhan_et_al_MTL", "Whisper_MTL")
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -134,8 +138,16 @@ def segmenter(model: str, predict_fn, *, patch_size: int = 68,
               chunk_frames: int = 10000) -> StreamingSegmenter:
     """The streaming segmenter that serves ``model``: its input kind, its
     preset's feature name, and model calls of at most
-    ``IMAGE_BATCH_WINDOWS`` windows for 'image' models."""
+    ``IMAGE_BATCH_WINDOWS`` windows for 'image' models; for a 'sequence'
+    model, contexts of the model's ``context_frames`` in calls of at most
+    ``SEQUENCE_BATCH_CONTEXTS``."""
     kind = INPUT_KIND[model]
+    if kind == "sequence":
+        return StreamingSegmenter(
+            predict_fn=predict_fn, input_kind=kind,
+            feat_name=MODEL_PRESETS[model]["feat_name"],
+            batch_windows=SEQUENCE_BATCH_CONTEXTS,
+            context_frames=predict_fn.context_frames)
     return StreamingSegmenter(
         predict_fn=predict_fn, patch_size=patch_size,
         chunk_frames=chunk_frames, input_kind=kind,
@@ -172,6 +184,13 @@ def main(argv=None, *, devices=None):
     args = p.parse_args(argv)
 
     check_model(args.model)
+    if INPUT_KIND[args.model] == "sequence":
+        for flag, value in (("--patch-size", args.patch_size),
+                            ("--chunk-frames", args.chunk_frames)):
+            if value != p.get_default(flag[2:].replace("-", "_")):
+                raise ValueError(
+                    f"{flag} does not apply to --model {args.model}, which "
+                    "labels every frame of whole 30-s contexts")
     device = resolve_device(args.device)
     weights = args.weights or checkpoint_weights(args.ckpt)
     preset = MODEL_PRESETS[args.model]

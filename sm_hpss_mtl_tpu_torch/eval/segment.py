@@ -8,7 +8,8 @@ its plain Python loop over chunks:
   total annotated duration as the reference does.
 - :class:`StreamingSegmenter`: dense inference over a featuregram of any
   length, in fixed chunks of shift-1 windows, giving per-window S and M
-  probability tracks from the MTL heads.
+  probability tracks from the MTL heads; or, for a sequence model
+  (Whisper-MTL), in consecutive contexts labelled per frame.
 - :func:`smooth_predictions`: median smoothing of a probability track;
   :func:`mode_filtering`: sliding-mode smoothing of a label track.
 
@@ -27,6 +28,7 @@ import torch
 from scipy.signal import medfilt
 
 from ..ops.patches import standardize_rows
+from ..utils import profiling
 from ..utils.profiling import request, span
 
 
@@ -117,7 +119,20 @@ class StreamingSegmenter:
     one ``utils.profiling.request``; its spans, each counting windows:
     ``segment.standardize``, ``segment.model_call`` (the call that queues
     the model's work), ``segment.to_host`` (the tracks' copies, which wait
-    for it) and ``segment.smooth``."""
+    for it) and ``segment.smooth``.
+
+    ``input_kind='sequence'`` (Whisper-MTL) labels every frame instead:
+    the featuregram is cut into consecutive contexts of ``context_frames``
+    frames, each standardized over its real frames (the 'chunk' scope with
+    the context as the chunk), the last zero-padded to the full length
+    (zero is the row mean), and up to ``batch_windows`` contexts go through
+    the model per call as ``(count, D, context_frames)``.  The model gives
+    each head per position, ``(count, P, units)``; position ``p`` labels
+    frames ``f p`` to ``f p + f - 1``, ``f = context_frames / P``, and the
+    tracks are cut to the featuregram's ``T`` frames.  There the spans
+    count contexts, ``segment.assemble`` covers cutting, padding and
+    stacking them, and the counters ``segment.contexts`` and
+    ``segment.padded_frames`` count the contexts and their padding."""
     predict_fn: Callable[[torch.Tensor], dict]
     patch_size: int = 68
     chunk_frames: int = 10000
@@ -125,6 +140,7 @@ class StreamingSegmenter:
     feat_name: str = "LogMelHarmPercSpec"
     batch_windows: int | None = None
     standardize: bool | str = True
+    context_frames: int = 3000
 
     def _scope(self) -> str:
         scope = {True: "chunk", False: "none"}.get(self.standardize,
@@ -135,13 +151,19 @@ class StreamingSegmenter:
         return scope
 
     def _standardize_parts(self, seg: torch.Tensor) -> torch.Tensor:
+        """Rows (axis -2) standardized over the last axis, per HPSS half
+        for two-part features."""
         if "HarmPerc" in self.feat_name:
-            return torch.cat([standardize_rows(h) for h in seg.chunk(2, 0)])
+            return torch.cat([standardize_rows(h) for h in seg.chunk(2, -2)],
+                             dim=-2)
         return standardize_rows(seg)
 
     def frame_probabilities(self, fv: torch.Tensor) -> dict[str, np.ndarray]:
         """``fv``: ``(D, T)`` featuregram -> dict of per-window tracks
-        (``T - patch_size + 1`` rows) as host arrays."""
+        (``T - patch_size + 1`` rows; ``T`` for 'sequence') as host
+        arrays."""
+        if self.input_kind == "sequence":
+            return self._sequence_probabilities(fv)
         W = self.patch_size
         n_windows = fv.shape[1] - W + 1
         if n_windows <= 0:
@@ -170,6 +192,49 @@ class StreamingSegmenter:
                 self._model_calls(batch, tracks)
                 start += count
         return {k: np.concatenate(v, axis=0) for k, v in tracks.items()}
+
+    def _sequence_probabilities(self, fv: torch.Tensor
+                                ) -> dict[str, np.ndarray]:
+        L = self.context_frames
+        D, T = fv.shape
+        if T <= 0:
+            raise ValueError("empty featuregram")
+        scope = self._scope()
+        n_ctx = -(-T // L)
+        step = self.batch_windows or n_ctx
+        tracks: dict[str, list] = {}
+        with request():
+            if scope == "featuregram":
+                with span("segment.standardize", n=n_ctx):
+                    fv = self._standardize_parts(fv)
+            for c0 in range(0, n_ctx, step):
+                n = min(step, n_ctx - c0)
+                s, e = c0 * L, min(T, (c0 + n) * L)
+                full, tail = divmod(e - s, L)
+                with span("segment.assemble", n=n):
+                    batch = fv.new_zeros((n, D, L))
+                    if full:
+                        batch[:full] = fv[:, s:s + full * L].reshape(
+                            D, full, L).transpose(0, 1)
+                    if tail:
+                        batch[full, :, :tail] = fv[:, s + full * L:e]
+                profiling.count("segment.contexts", n)
+                profiling.count("segment.padded_frames", n * L - (e - s))
+                if scope == "chunk":
+                    with span("segment.standardize", n=n):
+                        if full:
+                            batch[:full] = self._standardize_parts(
+                                batch[:full])
+                        if tail:
+                            batch[full, :, :tail] = self._standardize_parts(
+                                batch[full, :, :tail])
+                self._model_calls(batch, tracks)
+        out = {}
+        for k, v in tracks.items():
+            v = np.concatenate(v, axis=0)              # (n_ctx, P, units)
+            out[k] = np.repeat(v.reshape(-1, *v.shape[2:]),
+                               L // v.shape[1], axis=0)[:T]
+        return out
 
     def _model_calls(self, batch: torch.Tensor, tracks: dict) -> None:
         """A chunk's windows through the model in calls of at most

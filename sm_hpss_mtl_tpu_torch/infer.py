@@ -43,6 +43,9 @@ class Classifier:
         if INPUT_KIND[model] == "dual":
             raise ValueError(f"model {model!r} takes two inputs; the "
                              "Classifier feeds one featuregram's patches")
+        if INPUT_KIND[model] == "sequence":
+            raise ValueError(f"model {model!r} labels 30-s contexts; the "
+                             "Classifier feeds one featuregram's patches")
         device = resolve_device(device)
         preset = MODEL_PRESETS[model]
         feat_cfg = FeatureConfig(feat_name=preset["feat_name"],

@@ -2,7 +2,10 @@
 model of the JAX zoo.  Lemaire's TCN models (single-task, MTL, Cascaded-MTL,
 the 5-class MTL with the noise head, and the intermediate-fusion twin
 towers), and the image family: Doukhan's and Papakostas's CNNs and Jang's
-mel-scale CNN, each single-task and MTL."""
+mel-scale CNN, each single-task and MTL.  Beside them the port's own
+``Whisper_MTL`` (``models/whisper.py``): Whisper large-v3's encoder with
+the MTL heads at every position, a 'sequence' model that labels 30-s
+contexts; it is served (``cli.segment``), not trained."""
 
 from __future__ import annotations
 
@@ -13,10 +16,11 @@ from torch import nn
 
 from ..ops.featuregram import feature_dim
 from ..train.config import MODEL_PRESETS, input_kind_of, preset_n_mels
-from ..weights import from_flax, load_npz
+from ..weights import load_state_npz
 from .cnn import DoukhanCNN, PapakostasCNN
 from .jang import JangCNN
 from .lemaire import LemaireMTL, LemaireMTLIntermediateFusion, LemaireTCN
+from .whisper import WhisperMTL
 
 #: ``mtl`` of each model: MTL heads, or one softmax output.
 MTL = {"Lemaire_et_al": False, "Lemaire_et_al_MTL": True,
@@ -24,11 +28,13 @@ MTL = {"Lemaire_et_al": False, "Lemaire_et_al_MTL": True,
        "Lemaire_et_al_MTL_IF": True,
        "Doukhan_et_al": False, "Doukhan_et_al_MTL": True,
        "Papakostas_et_al": False, "Papakostas_et_al_MTL": True,
-       "Jang_et_al": False, "Jang_et_al_MTL": True}
+       "Jang_et_al": False, "Jang_et_al_MTL": True,
+       "Whisper_MTL": True}
 
 #: ``input_kind`` of each model, as the JAX ``ModelSpec`` has it: the
-#: patch layout of ``train.config.input_kind_of``, but 'dual' (a dict of
-#: two 'time_mel' inputs) for the intermediate-fusion model.
+#: layout of ``train.config.input_kind_of`` ('sequence' for Whisper-MTL),
+#: but 'dual' (a dict of two 'time_mel' inputs) for the intermediate-fusion
+#: model.
 INPUT_KIND = {name: input_kind_of(name) for name in MTL}
 INPUT_KIND["Lemaire_et_al_MTL_IF"] = "dual"
 
@@ -40,6 +46,10 @@ IF_DROPPED = ("head_width", "head_layers", "kernel_size", "Nd",
 #: Windows per model call for 'image' models: a whole 10000-window chunk
 #: of Jang-MTL holds ~21 GB in its first conv block alone (~2 MB a window).
 IMAGE_BATCH_WINDOWS = 1024
+
+#: 30-s contexts per model call for 'sequence' models: 8 are 4 minutes of
+#: audio; Whisper-large's widest activation (its MLP) is then 245 MB.
+SEQUENCE_BATCH_CONTEXTS = 8
 
 
 @dataclass(frozen=True)
@@ -68,12 +78,18 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     the JAX zoo): ``n_filters``, ``nb_stacks``, ``kernel_size``, ``Nd``,
     ``use_skip_connections``, ``head_width``, ``head_layers`` (MTL); the
     intermediate-fusion model drops all but ``n_filters`` and
-    ``nb_stacks``.  ``dtype=torch.bfloat16``: mixed-precision compute with
-    float32 parameters and outputs, layer by layer as flax's ``dtype=``
+    ``nb_stacks``.  ``Whisper_MTL`` takes its own, large-v3's by default
+    (``d_model``, ``encoder_layers``, ``encoder_attention_heads``,
+    ``encoder_ffn_dim``, ``max_source_positions``, ``head_width``),
+    ignores ``patch_size`` and ``dropout_rate`` (it takes whole contexts;
+    its heads keep their 0.4) and computes in float32 only.
+    ``dtype=torch.bfloat16``: mixed-precision compute with float32
+    parameters and outputs, layer by layer as flax's ``dtype=``
     (``models.layers``); None (default) computes in float32."""
     if name not in MTL:
         raise ValueError(f"unknown model {name!r}")
-    if arch_kwargs and not name.startswith("Lemaire"):
+    sequence = INPUT_KIND[name] == "sequence"
+    if arch_kwargs and not (name.startswith("Lemaire") or sequence):
         raise ValueError(f"arch_kwargs not supported for {name!r}")
     # The float32 layers compute in float32 in either mode (a bfloat16 model
     # keeps its BatchNorms, output layers and Jang's mel-scale layers in
@@ -95,6 +111,10 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     if in_dim is None:
         in_dim = feature_dim(preset["feat_name"], n_fft=preset["n_fft"],
                              n_mels=n_mels)
+    if sequence:
+        if dtype not in (None, torch.float32):
+            raise ValueError(f"{name} computes in float32 only, got {dtype}")
+        return WhisperMTL(in_dim, n_classes=n_classes, **arch_kwargs)
     cnn = {"Doukhan": DoukhanCNN, "Papakostas": PapakostasCNN}.get(
         name.split("_")[0])
     if cnn is not None:
@@ -126,7 +146,9 @@ def get_spec(name: str, **kwargs) -> ModelSpec:
 def load_model(weights: str, device: torch.device, model: str,
                patch_size: int = 68) -> nn.Module:
     """The named model, sized by its preset, in eval mode on ``device``
-    with weights from an npz (flax keys).  Serving computes in float32."""
+    with weights from an npz of either layout (``weights.load_state_npz``):
+    flax keys, or a ``state_dict``'s own, as a model with no flax
+    counterpart (Whisper-MTL) is stored.  Serving computes in float32."""
     net = get_model(model, patch_size=patch_size)
-    net.load_state_dict(from_flax(load_npz(weights)))
+    net.load_state_dict(load_state_npz(weights))
     return net.to(device).eval()

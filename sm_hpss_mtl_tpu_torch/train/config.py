@@ -1,10 +1,12 @@
 """Model presets and the experiment configuration (counterpart of
 ``sm_hpss_mtl_tpu/train/config.py``).
 
-``MODEL_PRESETS`` holds the feature settings each model of the JAX zoo is
-trained and served with (the JAX table).  ``n_mels = -1`` marks a
-full-resolution feature family; the mel-scale layer of Jang's models is
-then built with 120 bands, as the JAX CLI does.  :class:`ExperimentConfig`
+``MODEL_PRESETS`` holds the feature settings each model of the zoo is
+trained and served with: the JAX table, and ``Whisper_MTL`` (the port's
+own, served only: Whisper large-v3's STFT geometry at 128 bands).
+``n_mels = -1`` marks a full-resolution feature family; the mel-scale
+layer of Jang's models is then built with 120 bands, as the JAX CLI
+does.  :class:`ExperimentConfig`
 has the JAX fields and defaults, which are the reference's values (Tw 25
 ms, Ts 10 ms, W 68, batch 16 per class, 3 folds, 50 epochs, SMR levels
 -5..20 dB, the TR/V/TS step counts derived from the corpus duration), but
@@ -38,15 +40,22 @@ MODEL_PRESETS = {
                                  n_mels=-1),
     "Jang_et_al": dict(feat_name="LogSpec", n_fft=512, n_mels=-1),
     "Jang_et_al_MTL": dict(feat_name="LogHarmPercSpec", n_fft=512, n_mels=-1),
+    "Whisper_MTL": dict(feat_name="LogMelHarmPercSpec", n_fft=400, n_mels=128),
 }
 
 #: Models (name prefixes) that take time-major ``(B, T, D)`` patches,
 #: 'time_mel'; the others take ``(B, D, T, 1)`` images, 'image'.
 TIME_MAJOR_MODELS = ("Lemaire_et_al",)
+#: Models (name prefixes) that label every position of a whole context,
+#: ``(B, D, L)``, 'sequence'.
+SEQUENCE_MODELS = ("Whisper",)
 
 
 def input_kind_of(model: str) -> str:
-    """A model's patch layout, as the JAX ``ModelSpec`` names it."""
+    """A model's input layout, as the JAX ``ModelSpec`` names the patch
+    layouts ('time_mel', 'image'), or 'sequence'."""
+    if model.startswith(SEQUENCE_MODELS):
+        return "sequence"
     return "time_mel" if model.startswith(TIME_MAJOR_MODELS) else "image"
 
 

@@ -29,6 +29,14 @@ with running statistics, whatever its name (``bn``, Jang's ``fc1_bn``).
 The image models (``models/jang.py``, ``models/cnn.py``) flatten their
 activations in flax's NHWC order before the first dense layer, so that
 layer's kernel maps like any other dense kernel.
+
+A model with no flax counterpart (Whisper-MTL) is stored by the port
+alone, as an ``.npz`` of its ``state_dict``: the
+torch keys (``conv1.weight``, ``layers.0.self_attn.q_proj.weight``,
+``heads.S_block.bn.running_mean``, ...) with the torch layouts
+(``Conv1d`` ``(out, in, k)``, ``Linear`` ``(out, in)``), float32, and the
+BatchNorms' ``num_batches_tracked`` as int64 (:func:`save_state_npz`).
+:func:`load_state_npz` reads either layout, told apart by the keys.
 """
 
 from __future__ import annotations
@@ -116,12 +124,32 @@ def save_npz(path: str, variables: dict) -> None:
 
 def load_npz(path: str) -> dict:
     """Read an ``.npz`` written by :func:`save_npz` back into a tree."""
-    tree: dict = {}
     with np.load(path, allow_pickle=False) as z:
-        for key in z.files:
-            *mods, leaf = key.split("/")
-            node = tree
-            for m in mods:
-                node = node.setdefault(m, {})
-            node[leaf] = z[key]
+        return _unflatten(z)
+
+
+def _unflatten(z) -> dict:
+    tree: dict = {}
+    for key in z.files:
+        *mods, leaf = key.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = z[key]
     return tree
+
+
+def save_state_npz(path: str, state_dict: dict[str, torch.Tensor]) -> None:
+    """Write a ``state_dict`` as an ``.npz`` under its own keys."""
+    np.savez(path, **{k: v.detach().cpu().numpy()
+                      for k, v in state_dict.items()})
+
+
+def load_state_npz(path: str) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` from an ``.npz`` of either layout: flax's
+    ``/``-joined keys (:func:`save_npz`) through :func:`from_flax`, or a
+    ``state_dict``'s own (:func:`save_state_npz`), which hold no ``/``."""
+    with np.load(path, allow_pickle=False) as z:
+        if any("/" in k for k in z.files):
+            return from_flax(_unflatten(z))
+        return {k: torch.from_numpy(z[k]) for k in z.files}

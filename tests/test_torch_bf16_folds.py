@@ -21,7 +21,7 @@ from sm_hpss_mtl_tpu_torch.cli import mtl as tmtl
 from sm_hpss_mtl_tpu_torch.cli import segment as tcli
 from sm_hpss_mtl_tpu_torch.data import audio as taudio
 from sm_hpss_mtl_tpu_torch.models.layers import Conv1d, Conv2d, Linear
-from sm_hpss_mtl_tpu_torch.models.zoo import MTL
+from sm_hpss_mtl_tpu_torch.models.zoo import INPUT_KIND, MTL
 from sm_hpss_mtl_tpu_torch.train import config as tconfig
 from sm_hpss_mtl_tpu_torch.weights import load_npz
 
@@ -60,7 +60,9 @@ def toy_root(tmp_path_factory):
 
 
 def test_every_zoo_model_has_a_setting():
-    assert set(SETTINGS) == set(MTL)
+    # Every model that trains; a sequence model refuses a fold
+    # (tests/test_torch_whisper.py).
+    assert set(SETTINGS) == {m for m in MTL if INPUT_KIND[m] != "sequence"}
 
 
 @pytest.mark.parametrize("model", sorted(SETTINGS))

@@ -129,7 +129,9 @@ def test_lemaire_single_task_matches_flax():
 
 def test_zoo_holds_the_jax_specs():
     from sm_hpss_mtl_tpu.models.zoo import MODEL_NAMES
-    assert set(MTL) == set(MODEL_NAMES)      # every model of the JAX zoo
+    # Every model of the JAX zoo, and the port's own sequence models.
+    sequence = {n for n, kind in INPUT_KIND.items() if kind == "sequence"}
+    assert set(MTL) == set(MODEL_NAMES) | sequence
     for name in MODEL_NAMES:
         kw = {"n_mels": 20} if name == "Doukhan_et_al_MTL" else {}
         want = jget_model(name, **kw)
