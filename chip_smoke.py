@@ -32,7 +32,13 @@ Phases, each of which must pass:
    generated at the build) with times, registers and spills; ``cli.mtl
    --dft-precision bf16x3 --pipeline device`` for Lemaire-MTL and Jang-MTL
    (the bf16x3 counters move, the 'highest' ones do not) and one bf16x3
-   audio step card vs CPU;
+   audio step card vs CPU; the TCN block's kernels (``ops/tcn_block.py``,
+   ``phase_tcn_block``) against their plain versions at the training
+   step's 36 x 32 x 68 and the segmenter's 10000 x 32 x 68, in float32 and
+   bf16 (the forwards bit for bit, the backward within a float32
+   tolerance), with times beside their bytes bounds, then in Lemaire-MTL:
+   an eval call and a train step against the chain, the patch step graphed
+   against eager, 24 launches of each kernel a step or call;
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -694,7 +700,8 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
     from sm_hpss_mtl_tpu_torch.ops.stft import n_frames
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    checked = {"K1": set(), "K2": set(), "K3": set(), "K4": set()}
+    checked = {"K1": set(), "K2": set(), "K3": set(), "K4": set(),
+               "tcn": set()}
 
     def audio(n_fft, B, T):
         return torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
@@ -1213,12 +1220,17 @@ def recorded():
     the launches per kernel, per median pair (``by_pair``, keyed
     ``"l_harm,l_perc"``), per mask power (``by_power``, keyed by the float
     power), in halo mode (``halo``), and K1's and K2's per DFT precision
-    (``launches_by_precision``).  The shapes are the calls'."""
-    from sm_hpss_mtl_tpu_torch.ops import frontend, hpss
+    (``launches_by_precision``); the TCN block's kernels' launches per
+    kernel (``tcn``).  The shapes are the calls' (a TCN kernel's: kernel,
+    dtype, B, C, T, bias rows, and whether a dropout mask was given, None
+    for forward_b, which takes none)."""
+    from sm_hpss_mtl_tpu_torch.ops import frontend, hpss, tcn_block
     from sm_hpss_mtl_tpu_torch.utils.profiling import counters
-    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set()}}
+    rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set(),
+                      "tcn": set()}}
     f_launch, h_launch, m_launch = (frontend.launch, hpss._launch,
                                     hpss._launch_mel)
+    t_run = tcn_block._run
 
     def f_rec(y, M, **kw):
         k = "K2" if M is None else "K1"
@@ -1251,9 +1263,18 @@ def recorded():
                                  S.numel() // (F * T), F, T))
         return m_launch(S, M, **kw)
 
+    def t_rec(kernel, conv, bias, tensors, numbers, sink=None):
+        mask = {"forward_a": 2, "backward_a": 3}.get(kernel)
+        rec["shapes"]["tcn"].add((
+            kernel, str(conv.dtype).split(".")[1], *conv.shape,
+            bias.numel() // conv.shape[1],
+            None if mask is None else tensors[mask] is not None))
+        return t_run(kernel, conv, bias, tensors, numbers, sink)
+
     counted_as = {"K1": ("stft_hpss_mel",), "K2": ("stft_hpss",),
                   "K3": ("hpss", "hpss_masks"), "K4": ("hpss_mel",)}
     frontend.launch, hpss._launch, hpss._launch_mel = f_rec, h_rec, m_rec
+    tcn_block._run = t_rec
     try:
         before = counters()
         yield rec
@@ -1280,9 +1301,12 @@ def recorded():
         rec["launches_by_precision"] = {
             k: {p: tally(k, "precision")[p] for p in frontend.DFT_PRECISIONS}
             for k in ("K1", "K2")}
+        rec["tcn"] = {k: launches(f"tcn_block.launches_by_kernel.{k}")
+                      for k in TCN_KERNELS}
     finally:
         frontend.launch, hpss._launch, hpss._launch_mel = (
             f_launch, h_launch, m_launch)
+        tcn_block._run = t_run
 
 
 def serve(model: str, wav: str, weights: str, out: str, device: str,
@@ -1317,7 +1341,7 @@ def serve(model: str, wav: str, weights: str, out: str, device: str,
         check(bool(np.isfinite(tracks[k]).all()), f"{k} not finite")
 
     return {"tracks": tracks, "launches": rec["launches"], "frames": T,
-            "total_s": total_s, "shapes": rec["shapes"],
+            "tcn": rec["tcn"], "total_s": total_s, "shapes": rec["shapes"],
             "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "halo": rec["halo"]}
 
@@ -1411,7 +1435,7 @@ def resynth(wav: str, out_dir: str, device: str) -> dict:
     for k in ("yh", "yp"):
         check(bool(np.isfinite(kept[k]).all()), f"resynthesis {k} not finite")
     return {**kept, "launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s}
 
@@ -1559,6 +1583,7 @@ def evaluate(model: str, corpus: dict, weights: str, device: str,
           f"{model}: featurized frames {sorted(seen['frames'])}, planned "
           f"{sorted(want)}")
     return {"result": res, "sweep": swept, "launches": rec["launches"],
+            "tcn": rec["tcn"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "test_model_s": t1 - t0,
@@ -1583,7 +1608,7 @@ def fuse_late(corpus: dict, ckpts: tuple, out: str, device: str) -> dict:
                                       "Lemaire_et_al_MTL",
                                       "Performance.csv")),
           "fuse_late wrote no Performance.csv")
-    return {"result": res, "launches": rec["launches"],
+    return {"result": res, "launches": rec["launches"], "tcn": rec["tcn"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s,
@@ -1623,7 +1648,7 @@ def classify(wav: str, weights: str, device: str) -> dict:
           and bool(np.isfinite(out["probabilities"]).all()),
           "classifier probabilities")
     return {"out": out, "launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s}
 
@@ -1751,7 +1776,7 @@ def train_cli(corpus: dict, out: str, pipeline: str,
     check(rec["launches"] == want, f"{tag}: launches {rec['launches']}, "
           f"want {want} ({computes} featurized files)")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "launches_by_precision": rec["launches_by_precision"],
             "total_s": total_s, "featurized_files": computes,
@@ -2269,7 +2294,7 @@ def bf16_step_checks(corpus: dict) -> dict:
     check(not bad, "bf16 steps (features card vs CPU max |delta| " + ", ".join(
         f"{m} {r['features_max_abs_delta']:.3e}" for m, r in out.items())
         + "): " + "; ".join(bad))
-    return {"models": out, "launches": rec["launches"],
+    return {"models": out, "launches": rec["launches"], "tcn": rec["tcn"],
             "shapes": rec["shapes"]}
 
 
@@ -2322,7 +2347,7 @@ def scope_checks(wav: str, weights: str) -> dict:
                 seg.standardize = scope
                 tracks[dev, scope] = seg.frame_probabilities(fv)
     out = {"launches": rec["launches"], "shapes": rec["shapes"],
-           "by_pair": rec["by_pair"],
+           "tcn": rec["tcn"], "by_pair": rec["by_pair"],
            "by_power": rec["by_power"]}
     for scope in ("featuregram", "none"):
         d = max(float(np.abs(tracks["cuda", scope][k]
@@ -2501,6 +2526,9 @@ def tune_cli(corpus: dict, out: str, name: str, argv: tuple,
     check(rec["launches"]["K1"] > 0 and not any(
         rec["launches"][k] for k in ("K2", "K3", "K4")),
           f"{name}: launches {rec['launches']}")
+    # Every trial's Lemaire model runs its blocks in the TCN kernels, the
+    # vmapped trials (--vmap) through the Functions' vmap rules.
+    check(all(rec["tcn"].values()), f"{name}: TCN launches {rec['tcn']}")
     from sm_hpss_mtl_tpu_torch.cli.tune import GRID_RANGES
     widths = {}
     if "l_harm" in argv or "l_perc" in argv:
@@ -2511,7 +2539,7 @@ def tune_cli(corpus: dict, out: str, name: str, argv: tuple,
                   for lh, lp in pairs}
         check(all(widths.values()), f"{name}: K1 launches per pair {widths}")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "total_s": total_s, "rows": rows,
             "k1_launches_per_pair": widths}
 
@@ -2652,7 +2680,7 @@ def featurize_checks(corpus: dict, out: str) -> dict:
                                    os.path.join(out, dev), "--device", dev])
             total_s = time.perf_counter() - t0
         runs[dev] = {"launches": rec["launches"], "shapes": rec["shapes"],
-                     "by_pair": rec["by_pair"],
+                     "tcn": rec["tcn"], "by_pair": rec["by_pair"],
                      "by_power": rec["by_power"], "total_s": total_s,
                      "computed": done,
                      "features": _cached_features(os.path.join(out, dev))}
@@ -2730,7 +2758,7 @@ def tsne_checks(corpus: dict) -> dict:
     # A bar under the skewness's range, 2 (n - 2) / sqrt(n - 1), holds.
     holds = bar < 2 * 66 / np.sqrt(67)
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "total_s": total_s,
             "features_shape": list(gx.shape),
             "featuregram_max_abs_db_vs_cpu": db,
@@ -3260,11 +3288,402 @@ def phase_modes(card: str, checked: dict, corpus: dict, x600: np.ndarray,
     return records, powers, pairs, readings
 
 
+#: phase_tcn_block: the TCN block's shapes on the main paths, (items, C, T):
+#: a training step's 36 patches and the segmenter's 10000-window chunk.
+TCN_SHAPES = {"train": (36, 32, 68), "eval": (10000, 32, 68)}
+#: The TCN block's kernels (``ops/tcn_block.py``), as their counters name
+#: them.
+TCN_KERNELS = ("forward_a", "forward_b", "backward_a")
+#: The spatial dropout's keep probability in the Lemaire models.
+TCN_KEEP = 1.0 - 0.275
+#: backward_a against the closed form on the card, per element, relative to
+#: the largest |gradient|: the same float32 formula, its channel sum taken
+#: in another order (1.6e-7 at most on the host build, 8 shapes); in bf16
+#: both round once, at the output (one bf16 step).
+TCN_BACKWARD_RTOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+#: The same against autograd of the plain chain on the card: float32
+#: round-off, and in bf16 the chain's rounding of every step of its backward.
+TCN_AUTOGRAD_RTOL = {"float32": 5e-6, "bfloat16": 2.0 ** -5}
+#: The vmapped multi-trial step's losses on the fused blocks against the
+#: chain on the card: the forward's bits are the chain's, but vmap batches
+#: each trial's convolutions and their bias adds another way on each route.
+TCN_MULTI_LOSS_RTOL = 1e-6
+#: A fused train step's parameter gradients against the chain's on the card
+#: (float32; the backward's sums in another order), relative to each
+#: parameter's largest.
+TCN_STEP_GRAD_RTOL = 1e-4
+
+
+def _tcn_inputs(B: int, C: int, T: int, dtype, gen, train: bool,
+                rows: int = 1) -> dict:
+    """A dilated conv's product and bias (``rows`` rows, as a vmapped
+    block's trials folded into the items have, else ``(C,)``), a block
+    input, an output gradient and (train) a dropout mask on the card, with
+    an all-zero column after the ReLU and a tie at the channel max."""
+    import torch
+    dev = gen.device
+    conv = torch.randn((B, C, T), generator=gen, device=dev) * 3
+    conv[0, :, 0] = -1.0
+    conv[0, :2, min(1, T - 1)] = 50.0
+    bias = torch.randn((rows, C) if rows > 1 else (C,), generator=gen,
+                       device=dev) * 0.1
+    bias[..., 1] = bias[..., 0]
+    mask = (torch.empty((B, C, 1), device=dev).bernoulli_(TCN_KEEP,
+                                                          generator=gen)
+            if train else None)
+    x = torch.randn((B, C, T), generator=gen, device=dev)
+    grad = torch.randn((B, C, T), generator=gen, device=dev)
+    return {"conv": conv.to(dtype), "bias": bias.to(dtype),
+            "mask": None if mask is None else mask.to(dtype),
+            "x": x.to(dtype), "grad": grad.to(dtype)}
+
+
+def _same_bits(tag: str, got, want) -> None:
+    import torch
+    torch.cuda.synchronize()
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and torch.equal(got.view(view), want.view(view)),
+          f"{tag}: not bit-identical to the plain version "
+          f"({int((got.float() != want.float()).sum())} values differ)")
+
+
+def _rel_err(got, want) -> float:
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def _tcn_registers() -> dict:
+    """Per kernel of ``csrc/tcn_block.cu``, the most registers and spill
+    bytes over its instances (the ptxas report)."""
+    import re
+    from sm_hpss_mtl_tpu_torch.ops import _nvcc
+    log = Path(str(_nvcc.library_path("tcn_block.cu")) + ".log").read_text()
+    out = {}
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        kernel = next(k for k in TCN_KERNELS if k in name)
+        regs = int(re.search(r"Used (\d+) registers", part).group(1))
+        spill = sum(map(int, re.search(r"(\d+) bytes spill stores, (\d+) "
+                                       r"bytes spill loads", part).groups()))
+        rec = out.setdefault(kernel, {"registers": 0, "spill_bytes": 0,
+                                      "instances": 0})
+        rec["registers"] = max(rec["registers"], regs)
+        rec["spill_bytes"] = max(rec["spill_bytes"], spill)
+        rec["instances"] += 1
+    return out
+
+
+def _tcn_counts(before: dict) -> dict:
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
+    now = counters()
+    return {k: now.get(f"tcn_block.launches_by_kernel.{k}", 0)
+            - before.get(f"tcn_block.launches_by_kernel.{k}", 0)
+            for k in TCN_KERNELS}
+
+
+@contextlib.contextmanager
+def _chain():
+    """The model's blocks on the chain (the plain version) inside."""
+    from sm_hpss_mtl_tpu_torch.ops import tcn_block
+    fusable = tcn_block.fusable
+    tcn_block.fusable = lambda x: False
+    try:
+        yield
+    finally:
+        tcn_block.fusable = fusable
+
+
+def _tcn_keys(B: int, C: int, T: int, dtype: str, rows: int,
+              masked: bool) -> set:
+    """The launch shapes (``recorded``'s ``shapes["tcn"]`` keys) that one
+    ``_tcn_hold`` covers."""
+    return {("forward_a", dtype, B, C, T, rows, masked),
+            ("forward_b", dtype, B, C, T, rows, None),
+            ("backward_a", dtype, B, C, T, rows, masked)}
+
+
+def _tcn_hold(B: int, C: int, T: int, dtype, gen, masked: bool,
+              rows: int = 1) -> dict:
+    """Each kernel against its plain version at one shape: the forwards bit
+    for bit (forward_b with and without the skip branch), the backward
+    within ``TCN_BACKWARD_RTOL`` of the closed form and
+    ``TCN_AUTOGRAD_RTOL`` of autograd of the chain.  Returns the readings
+    and the inputs."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import tcn_block as tb
+    name = str(dtype).split(".")[1]
+    v = _tcn_inputs(B, C, T, dtype, gen, train=masked, rows=rows)
+    conv, bias, mask, x, grad = (v[k] for k in ("conv", "bias", "mask", "x",
+                                                 "grad"))
+    key = f"{name} {B}x{C}x{T}" + (f" bias rows {rows}" if rows > 1 else "")
+    _same_bits(f"forward_a {key}", tb._launch_a(conv, bias, mask, TCN_KEEP),
+               tb.forward_a_plain(conv, bias, mask, TCN_KEEP))
+    want_out, want_t = tb.forward_b_plain(x, conv, bias)
+    for skip in (False, True):
+        got_out, got_t = tb._launch_b(x, conv, bias, skip)
+        _same_bits(f"forward_b {key}", got_out, want_out)
+        check((got_t is None) != skip, "forward_b: t where not asked")
+        if skip:
+            _same_bits(f"forward_b t {key}", got_t, want_t)
+    got = tb._launch_backward_a(grad, conv, bias, mask, TCN_KEEP, None)
+    closed = tb.backward_a_plain(grad, conv, bias, mask, TCN_KEEP)
+    c = conv.clone().requires_grad_()
+    tb.forward_a_plain(c, bias, mask, TCN_KEEP).backward(grad)
+    rec = {"closed_form_rel_err": _rel_err(got, closed),
+           "autograd_rel_err": _rel_err(got, c.grad),
+           "relu_zeros_equal": bool(torch.equal(got == 0, c.grad == 0))}
+    check(rec["closed_form_rel_err"] <= TCN_BACKWARD_RTOL[name],
+          f"backward_a {key}: {rec['closed_form_rel_err']:.3e} of the "
+          "closed form's largest")
+    check(rec["autograd_rel_err"] <= TCN_AUTOGRAD_RTOL[name],
+          f"backward_a {key}: {rec['autograd_rel_err']:.3e} of autograd's "
+          "largest")
+    return rec, v
+
+
+def _hold_tcn_shapes(keys: set, checked: dict) -> list:
+    """``_tcn_hold`` at each launch shape of ``keys`` (``recorded``'s
+    ``shapes["tcn"]``) that ``checked["tcn"]`` lacks, each then added to
+    it; the shapes held here, as [dtype, B, C, T, bias rows, masked]."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    groups = {}
+    for _, dtype, B, C, T, rows, masked in keys - checked["tcn"]:
+        groups.setdefault((dtype, B, C, T, rows), set()).add(masked)
+    held = []
+    for (dtype, B, C, T, rows), seen in sorted(groups.items(), key=str):
+        # forward_b's keys carry no mask (None): the unmasked hold covers
+        # them where no forward_a of that shape says otherwise.
+        for masked in sorted({m for m in seen if m is not None} or {False}):
+            _tcn_hold(B, C, T, getattr(torch, dtype), gen, masked, rows)
+            checked["tcn"] |= _tcn_keys(B, C, T, dtype, rows, masked)
+            held.append([dtype, B, C, T, rows, masked])
+    return held
+
+
+def _tcn_kernel_checks(checked: dict) -> dict:
+    """Each kernel against its plain version at the main paths' shapes
+    (``TCN_SHAPES``; the training step's with its dropout mask) in float32
+    and bf16 (``_tcn_hold``), each shape added to ``checked["tcn"]``; in
+    float32 the times of kernel and chain (CUDA events, and the profiler's
+    device time) beside the bytes bound."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import tcn_block as tb
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for tag, (B, C, T) in TCN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            rec, v = _tcn_hold(B, C, T, dtype, gen, masked=tag == "train")
+            checked["tcn"] |= _tcn_keys(B, C, T, name, 1, tag == "train")
+            conv, bias, mask, x, grad = (v[k] for k in (
+                "conv", "bias", "mask", "x", "grad"))
+            key = f"{tag} {name} {B}x{C}x{T}"
+            if dtype == torch.float32:
+                n = B * C * T * 4
+                a = (tb._launch_a, (conv, bias, mask, TCN_KEEP),
+                     tb.forward_a_plain, 2 * n)
+                b = (lambda *a: tb._launch_b(*a, False), (x, conv, bias),
+                     tb.forward_b_plain, 3 * n)
+                bw = (lambda *a: tb._launch_backward_a(*a, None),
+                      (grad, conv, bias, mask, TCN_KEEP),
+                      None, 3 * n)
+                # The chain's backward alone: autograd over one recorded
+                # forward.
+                cc = conv.clone().requires_grad_()
+                recorded = tb.forward_a_plain(cc, bias, mask, TCN_KEEP)
+                for kern, (fn, args, plain, nbytes) in (
+                        ("forward_a", a), ("forward_b", b),
+                        ("backward_a", bw)):
+                    if plain is None:
+                        def plain_fn(g=grad):
+                            torch.autograd.grad(recorded, cc, g,
+                                                retain_graph=True)
+                    else:
+                        def plain_fn(p=plain, a=args):
+                            p(*a)
+                    ms, lo, hi = cuda_ms(lambda f=fn, a=args: f(*a))
+                    plain_ms = cuda_ms(plain_fn)[0]
+                    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+                    rec[kern] = {
+                        "ms": ms, "ms_spread": [lo, hi],
+                        "device_ms": device_ms(lambda f=fn, a=args: f(*a),
+                                               kern),
+                        "bound_ms": bound, "roofline": bound / ms,
+                        "plain_ms": plain_ms}
+            out[key] = rec
+    return out
+
+
+def _tcn_model_checks() -> dict:
+    """Lemaire-MTL at full width on the card, the fused blocks against the
+    chain: a 10000-window eval call bit for bit (and its time either way),
+    24 launches of each forward kernel a call; a train step's loss bit for
+    bit and its gradients within ``TCN_STEP_GRAD_RTOL``, 24 launches of
+    each kernel; the patch step graphed against eager for 5 steps under
+    cuDNN's deterministic algorithms, bit for bit, every replay counting
+    24 of each."""
+    import copy
+    import torch
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
+    from sm_hpss_mtl_tpu_torch.train.optimizers import for_model
+    from sm_hpss_mtl_tpu_torch.train.state import TrainState, make_train_step
+    lem = "Lemaire_et_al_MTL"
+    net = _seeded(lem).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, C, T = TCN_SHAPES["eval"]
+    windows = torch.randn((B, T, 240), generator=gen, device="cuda")
+    net.eval()
+    with torch.inference_mode():
+        before = counters()
+        fused = net(windows)
+        counts = _tcn_counts(before)
+        with _chain():
+            chain = net(windows)
+        for k in chain:
+            _same_bits(f"Lemaire-MTL eval call, head {k}", fused[k], chain[k])
+        check(counts == {"forward_a": 24, "forward_b": 24, "backward_a": 0},
+              f"eval call launches {counts}")
+        call_ms = cuda_ms(lambda: net(windows), reps=5, batches=5)[0]
+        with _chain():
+            chain_ms = cuda_ms(lambda: net(windows), reps=5, batches=5)[0]
+    res = {"eval_call": {"launches": counts, "fused_ms": call_ms,
+                         "chain_ms": chain_ms}}
+
+    # One eager train step on 36 patches, fused against the chain.
+    Bt = TCN_SHAPES["train"][0]
+    patches = torch.randn((Bt, T, 240), generator=gen, device="cuda")
+    cls = torch.arange(Bt, device="cuda") % 3
+    labels = {"S": (cls == 1).float(), "M": (cls == 0).float(),
+              "R": torch.stack([(cls != 1).float(), (cls != 0).float()], -1),
+              "3C": torch.nn.functional.one_hot(cls, 3).float()}
+
+    def run(graphed: bool, steps: int, chain: bool = False):
+        model_ = copy.deepcopy(net).train()
+        opt, _ = for_model(lem, model_.parameters(), tr_steps=100000)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        step = make_train_step(model_, opt, mtl=True, generator=g,
+                               l2_reg=0.01, before_update=None if graphed
+                               else (lambda: None))
+        state = TrainState(model_, opt)
+        losses, per_step = [], []
+        with _chain() if chain else contextlib.nullcontext():
+            for _ in range(steps):
+                before = counters()
+                losses.append(float(step(state, patches, labels)["loss"]))
+                per_step.append(_tcn_counts(before))
+        grads = [p.grad.detach().clone() for p in model_.parameters()]
+        params = [p.detach().clone() for p in model_.parameters()]
+        return losses, per_step, grads, params, g.get_state()
+
+    # cuDNN's deterministic algorithms throughout: its default weight
+    # gradients sum in no fixed order.  The biases that feed a BatchNorm
+    # have round-off for gradients and are left out of the comparison.
+    noise = _bn_fed_biases(net)
+    names = [k for k, _ in net.named_parameters()]
+    before_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        l_f, c_f, g_f, _, s_f = run(False, 1)
+        l_c, _, g_c, _, s_c = run(False, 1, chain=True)
+        lg, cg, _, pg, sg = run(True, 5)
+        le, ce, _, pe, se = run(False, 5)
+    finally:
+        torch.backends.cudnn.deterministic = before_det
+    check(l_f == l_c, f"train step loss {l_f} against the chain's {l_c}")
+    check(torch.equal(s_f, s_c), "train step: the generator's state differs")
+    grad_err = {k: _rel_err(a, b) for k, a, b in zip(names, g_f, g_c)
+                if k not in noise and b.abs().max() > 0}
+    worst = max(grad_err, key=grad_err.get)
+    check(grad_err[worst] <= TCN_STEP_GRAD_RTOL,
+          f"train step gradient of {worst} {grad_err[worst]:.3e} from the "
+          "chain's")
+    check(c_f == [{"forward_a": 24, "forward_b": 24, "backward_a": 24}],
+          f"train step launches {c_f}")
+    check(lg == le and all(torch.equal(a, b) for a, b in zip(pg, pe))
+          and torch.equal(sg, se),
+          "graphed patch steps differ from the eager ones")
+    each = {"forward_a": 24, "forward_b": 24, "backward_a": 24}
+    check(cg == [each] * 5 and ce == [each] * 5,
+          f"graphed steps' launches {cg}, eager {ce}")
+    res["train_step"] = {"loss": l_f[0],
+                         "grad_rel_err_vs_chain": [worst, grad_err[worst]],
+                         "launches": c_f[0],
+                         "graphed_vs_eager_bitwise": True,
+                         "graphed_launches_per_step": cg}
+    res["multi_trial_step"] = _tcn_multi_checks(net, patches, labels, noise)
+    return res
+
+
+def _tcn_multi_checks(net, patches, labels, noise: set) -> dict:
+    """The vmapped multi-trial step (``_multi_setup``'s four trials, dropout
+    on, fed per trial) on the fused blocks against the chain, from the same
+    stacked weights and generators: each kernel launched once a block, over
+    the four trials' items folded together with a bias row each; the
+    losses within ``TCN_MULTI_LOSS_RTOL`` of the chain's and each trial's
+    step held to the chain's at the patch step's bars (``_hold_step``,
+    ``STEP_UPDATE_RTOL``: the closed-form backward sums in another order,
+    and the per-trial clipnorm and loss weights carry that on)."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.train.multitrial import (stack_hyperparams,
+                                                        unstack_trial)
+    trials = _multi_trials()
+    hyper = stack_hyperparams(trials, ("3C", "M", "R", "S"), "cuda")
+    before = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    got = {}
+    for chain in (False, True):
+        state, step = _multi_setup(net, len(trials), "cuda")
+        with _chain() if chain else contextlib.nullcontext():
+            with recorded() as rec:
+                loss = step(state, patches, labels, hyper)["loss"]
+        got[chain] = (loss, rec["tcn"], rec["shapes"]["tcn"],
+                      [{k: v.cpu() for k, v in unstack_trial(state, i).items()}
+                       for i in range(len(trials))])
+    (loss_f, tcn_f, shapes_f, after_f), (loss_c, tcn_c, _, after_c) = (
+        got[False], got[True])
+    B, C, T = TCN_SHAPES["train"]
+    n = len(trials)
+    check(tcn_f == {"forward_a": 24, "forward_b": 24, "backward_a": 24}
+          and not any(tcn_c.values()),
+          f"multi-trial step launches {tcn_f}, on the chain {tcn_c}")
+    check({k[2:6] for k in shapes_f} == {(n * B, C, T, n)},
+          f"multi-trial step launch shapes {sorted(shapes_f, key=str)}")
+    loss_err = _rel_err(loss_f, loss_c)
+    check(loss_err <= TCN_MULTI_LOSS_RTOL,
+          f"multi-trial losses {loss_f.tolist()} against the chain's "
+          f"{loss_c.tolist()}")
+    held = [_hold_step(f"multi-trial step, trial {i}, fused vs the chain",
+                       before, after_c[i], after_f[i], float(loss_c[i]),
+                       float(loss_f[i]), noise, 0.002 * t["lr_scale"],
+                       STEP_UPDATE_RTOL)
+            for i, t in enumerate(trials)]
+    return {"launches": tcn_f, "shapes": sorted(shapes_f, key=str),
+            "losses": loss_f.tolist(), "loss_rel_err_vs_chain": loss_err,
+            "losses_bitwise": bool(torch.equal(loss_f, loss_c)),
+            "update_rel_max_vs_chain": [
+                (h["update_rel_max_at"], h["update_rel_max"]) for h in held]}
+
+
+def phase_tcn_block(card: str, checked: dict) -> dict:
+    """The TCN block's kernels (``ops/tcn_block.py``): each against its
+    plain version at the main paths' shapes (which go into
+    ``checked["tcn"]``), then in Lemaire-MTL (``_tcn_kernel_checks``,
+    ``_tcn_model_checks``); registers and spills from the ptxas report."""
+    from sm_hpss_mtl_tpu_torch.ops import tcn_block
+    t0 = time.perf_counter()
+    tcn_block.build()
+    return {"card": card, "registers": _tcn_registers(),
+            "kernels": _tcn_kernel_checks(checked),
+            "model": _tcn_model_checks(),
+            "s": time.perf_counter() - t0}
+
+
 def _run_of(rec: dict) -> dict:
     """A ``recorded`` block's launches, shapes, per-pair, per-power and halo
     counts, as the phase-12 checks read a path's run."""
     return {k: rec[k] for k in ("launches", "shapes", "by_pair", "by_power",
-                                "halo")}
+                                "halo", "tcn")}
 
 
 def _period_ms(fn, steps: int = 20) -> tuple[float, list]:
@@ -3760,10 +4179,11 @@ def build_all() -> tuple[float, list[str]]:
     process each (``ops/_nvcc.py``: one library per source, pair and DFT
     precision), with phase_modes' libraries; load the libraries.  Returns
     the wall time and the ptxas reports."""
-    from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend, hpss
+    from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend, hpss, tcn_block
     from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
-    jobs = [(p.name, pair) for p in sorted(_nvcc.CSRC.glob("*.cu"))
+    jobs = [(src, pair) for src in ("frontend.cu", "hpss.cu")
             for pair in KERNEL_MEDIANS]
+    jobs += [("tcn_block.cu",)]
     # phase_modes' libraries: K1/K2 in bf16x3 and the pairs outside
     # KERNEL_MEDIANS, built with the rest (the powers are arguments).
     jobs += [("frontend.cu", (21, 11), "bf16x3")]
@@ -3774,6 +4194,7 @@ def build_all() -> tuple[float, list[str]]:
         libs = list(ex.map(lambda job: _nvcc.build(*job), jobs))
     frontend.build()
     hpss.build()
+    tcn_block.build()
     logs = [f"{lib.name}:\n" + lib.with_suffix(".so.log").read_text().strip()
             for lib in libs if lib.with_suffix(".so.log").exists()]
     return time.perf_counter() - t0, logs
@@ -3781,7 +4202,10 @@ def build_all() -> tuple[float, list[str]]:
 
 def _shapes_checked(tag: str, shapes: dict, checked: dict) -> None:
     """Fail unless every kernel launch shape in ``shapes`` was checked
-    against its plain version in phase 3."""
+    against its plain version in phase 3; a TCN block kernel's shape that
+    phase 3 did not check is held to its plain version here
+    (``_hold_tcn_shapes``)."""
+    _hold_tcn_shapes(shapes.get("tcn", set()), checked)
     unchecked = {k: sorted(v - checked[k]) for k, v in shapes.items()
                  if v - checked[k]}
     check(not unchecked, f"{tag}: launch shapes phase 3 did not check: "
@@ -3875,6 +4299,14 @@ def run() -> None:
               f" of its norm; 10-minute features at bf16x3 vs plain "
               f"'highest' {modes['features_600s_max_abs_db']['highest']:.4f}"
               " dB", flush=True)
+
+        tcn = phase_tcn_block(card, checked)
+        print("[3 tcn_block] ok, {:.1f} s; ".format(tcn["s"]) + "; ".join(
+            f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, chain "
+            f"{v['plain_ms']:.4f})" for k, v in
+            tcn["kernels"]["eval float32 10000x32x68"].items()
+            if isinstance(v, dict)), flush=True)
+        print(json.dumps({"tcn_block": tcn}, default=str), flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
@@ -4410,6 +4842,55 @@ def run() -> None:
     for rec in mode_records:
         check(rec["launches"] > 0, f"{rec['name']} never launched")
         entries.append(rec)
+    # The TCN block's kernels on the Lemaire models' paths (every model
+    # built on the TCN, on the card): each launched there and nowhere else,
+    # every launch shape held to the plain version (phase 3's main shapes,
+    # the rest here), the readings phase 3 took at the segmenter's eval
+    # shape.  The scale tool's process (phase 10b) is not counted.
+    tcn_paths = ("lemaire_60", "lemaire_600", "eval_lemaire", "classify_60",
+                 "train_device", "train_host", "train_lemaire_fls",
+                 "cascaded_60", "five_60", "eval_five", "eval_if",
+                 "fuse_late", "train_cascaded", "train_five",
+                 "train_if_device", "train_if_host",
+                 *(n for n, _, _ in TUNE_RUNS), "train_bf16",
+                 "lemaire_60_ckpt", "scopes_60",
+                 *(["mp3_10"] if "mp3_10" in runs else []),
+                 "segment_sharded", "dp_audio")
+    tcn_shapes = set().union(*(runs[n]["shapes"]["tcn"] for n in tcn_paths))
+    tcn_held = _hold_tcn_shapes(tcn_shapes, checked)
+    eval_reading = tcn["kernels"]["eval float32 {}x{}x{}".format(
+        *TCN_SHAPES["eval"])]
+    for kernel in TCN_KERNELS:
+        by_path = {n: runs[n]["tcn"][kernel] for n in tcn_paths}
+        # The backward runs on the training paths alone.
+        wrong = [n for n, v in by_path.items() if bool(v) != (
+            kernel != "backward_a" or n.startswith(("train", "tune", "dp")))]
+        check(not wrong, f"tcn_block {kernel}: launches on {wrong}: "
+              f"{by_path}")
+        others = [n for n in runs if n not in tcn_paths
+                  and runs[n]["tcn"][kernel]]
+        check(not others, f"tcn_block {kernel} launched on another path: "
+              f"{others}")
+        shapes = sorted(k[1:] for k in tcn_shapes if k[0] == kernel)
+        entries.append({
+            "name": f"tcn_block.{kernel}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": {n: v for n, v in by_path.items() if v},
+            "shapes": shapes,
+            "shapes_held_in_phase_12": [h for h in tcn_held
+                                        if tuple(h[:5]) in {
+                                            s[:5] for s in shapes}],
+            **{k: eval_reading[kernel][k] for k in (
+                "ms", "ms_spread", "device_ms", "bound_ms", "roofline",
+                "plain_ms")},
+            "timed_shape": list(TCN_SHAPES["eval"]),
+            **tcn["registers"][kernel]})
+    check(tcn_shapes <= checked["tcn"], "TCN launch shapes left unheld: "
+          f"{sorted(tcn_shapes - checked['tcn'], key=str)}")
+    print(f"[12 tcn_block] {len(tcn_shapes)} launch shapes on "
+          f"{len(tcn_paths)} paths, {len(tcn_held)} held here; launches "
+          + ", ".join(f"{e['name']} {e['launches']}" for e in entries
+                      if e["name"].startswith("tcn_block.")), flush=True)
     # The scale tool's path (phase 10b) ran in its own process, which
     # counted its K1 launches (all at (21, 11)).
     entries[0]["launches"] += host["scale_tool"]["k1_launches"]

@@ -52,11 +52,24 @@ class _Compute:
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def dtype_for(self, x: torch.Tensor) -> torch.dtype:
+        """The dtype the layer computes ``x`` in."""
+        return self.compute_dtype or torch.promote_types(x.dtype,
+                                                         self.weight.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype or torch.promote_types(x.dtype,
-                                                          self.weight.dtype)
-        if x.dtype == dtype == self.weight.dtype:
+        if x.dtype == self.dtype_for(x) == self.weight.dtype:
             return super().forward(x)
+        y, b = self.parts(x)
+        return y + b.view(-1, *(1,) * (y.ndim - 2))
+
+    def parts(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The product without its bias, and the bias, both in the compute
+        dtype: ``forward`` adds them (a caller may add them in a kernel of
+        its own, ``ops.tcn_block``)."""
+        dtype = self.dtype_for(x)
+        if x.dtype == dtype == self.weight.dtype:
+            return self._product(x, self.weight), self.bias
         x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
         if x.is_cpu and dtype.itemsize < 4:
             # On the CPU the product runs in float32 on the rounded operands
@@ -64,10 +77,8 @@ class _Compute:
             # same bf16 compute with float32 accumulation.  (oneDNN's bf16
             # convolution returns NaN at some geometries, such as a
             # stride-2 3x3 kernel over 4 columns, in torch 2.13.)
-            y = self._product(x.float(), w.float()).to(dtype)
-        else:
-            y = self._product(x, w)
-        return y + b.view(-1, *(1,) * (y.ndim - 2))
+            return self._product(x.float(), w.float()).to(dtype), b
+        return self._product(x, w), b
 
 
 class Linear(_Compute, nn.Linear):
@@ -182,24 +193,32 @@ class Dropout(nn.Module):
         #: ``pop()`` returns this call's mask, or None for a mask of ones.
         self.feed = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def keep(self) -> float:
+        return 1.0 - self.rate
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor | None:
+        """This call's mask for ``x`` (over ``(B, C, 1)`` where spatial),
+        drawn or fed, in x's dtype; None where the layer is the identity.
+        ``forward`` multiplies by it and divides by :attr:`keep` (the TCN
+        block's kernel does both itself)."""
         if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
+            return None
         shape = x.shape[:-1] + (1,) if self.spatial else x.shape
         if self.feed is not None:
             mask = self.feed.pop()
-            if mask is None:
-                mask = x.new_ones(shape)
-            return x * mask / keep
+            return x.new_ones(shape) if mask is None else mask
         if self.generator is None:
             raise RuntimeError(
                 "dropout in train mode draws from an explicit generator: "
                 "set one with models.layers.use_generator (the train steps "
                 "take it as generator=)")
-        mask = torch.empty(shape, device=x.device, dtype=x.dtype).bernoulli_(
-            keep, generator=self.generator)
-        return x * mask / keep
+        return torch.empty(shape, device=x.device, dtype=x.dtype).bernoulli_(
+            self.keep, generator=self.generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mask = self.mask(x)
+        return x if mask is None else x * mask / self.keep
 
 
 def use_generator(model: nn.Module, generator: torch.Generator) -> None:

@@ -14,6 +14,12 @@ maps parameters by path.
 ``dtype`` (flax's): the TCN casts its input to it, and every convolution,
 the channel normalisation, the residual sums and the final ReLU run in it
 (the trunk has no BatchNorm).  The parameters stay float32.
+
+On CUDA a block's pointwise chain runs in two hand-written kernels between
+and after its two cuDNN convolutions (``ops/tcn_block.py``), with the
+chain's bits, under ``torch.func``'s transforms too; they take float32 and
+bfloat16 and raise on another dtype.  On the CPU the block runs the chain
+as written here.
 """
 
 from __future__ import annotations
@@ -21,13 +27,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import tcn_block
+from ..ops.tcn_block import channel_normalization
 from .layers import Conv1d, Dropout
-
-
-def channel_normalization(x: torch.Tensor) -> torch.Tensor:
-    """Per-timestep max-abs channel normalisation of ``(B, C, T)``
-    (keras-tcn 'norm_relu'): ``x / (max_c |x| + 1e-5)``, in x's dtype."""
-    return x / (x.abs().amax(dim=1, keepdim=True) + 1e-5)
 
 
 class SpatialDropout1D(Dropout):
@@ -48,8 +50,17 @@ class TCNResidualBlock(nn.Module):
         self.dropout = SpatialDropout1D(dropout_rate)
         self.conv_1x1 = Conv1d(n_filters, n_filters, 1, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The block's output and its skip branch (the 1x1 conv's)."""
+    def forward(self, x: torch.Tensor, skip: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The block's output and its skip branch (the 1x1 conv's).  The
+        kernels leave the branch out, as None, unless ``skip``; the chain
+        returns it always, as the JAX package's block does."""
+        if tcn_block.fusable(x):
+            conv, b = self.dilated_conv.parts(x)
+            y = tcn_block.forward_a(conv, b, self.dropout.mask(conv),
+                                    self.dropout.keep)
+            conv, b = self.conv_1x1.parts(y)
+            return tcn_block.forward_b(x, conv, b, skip)
         y = channel_normalization(torch.relu(self.dilated_conv(x)))
         y = self.conv_1x1(self.dropout(y))
         return x + y, y
@@ -86,7 +97,7 @@ class TCN(nn.Module):
         x = self.initial_conv(x.transpose(1, 2))
         skips = []
         for name in self.block_names:
-            x, skip = getattr(self, name)(x)
+            x, skip = getattr(self, name)(x, self.use_skip_connections)
             skips.append(skip)
         if self.use_skip_connections:
             x = sum(skips)

@@ -7,8 +7,9 @@ source, of the ``csrc/`` headers it includes and of what it is built for,
 so an edited source or header is rebuilt and a stale library is never
 loaded.
 
-The median kernels are built once per (l_harm, l_perc) pair and DFT
-precision:
+The median kernels (``frontend.cu``, ``hpss.cu``) are built once per
+(l_harm, l_perc) pair and DFT precision; a source with no median
+(``tcn_block.cu``) is built once, with ``pair=None``:
 
 - ``pair`` passes ``-DHPSS_LH=... -DHPSS_LP=...`` (``csrc/median.cuh``'s
   ``HPSS_FOR_EACH_PAIR``), so a library holds that pair's instances alone,
@@ -103,36 +104,40 @@ def pair_networks(pair: tuple[int, int]) -> str:
         *pair, (CSRC / "median.cuh").read_text())
 
 
-def library_path(source: str, pair: tuple[int, int],
+def library_path(source: str, pair: tuple[int, int] | None = None,
                  dft_precision: str = "highest") -> Path:
     """Where the library built from ``csrc/<source>`` for the median pair
-    ``pair`` and ``dft_precision`` lives: named by the pair, the precision
-    and a hash of the source, the headers it includes and the pair's
-    generated networks."""
+    ``pair`` (None for a source with no median) and ``dft_precision``
+    lives: named by the pair, the precision and a hash of the source, the
+    headers it includes and the pair's generated networks."""
     precision_defines(source, dft_precision)
     digest = hashlib.sha256()
     for path in _sources(source):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(pair_networks(pair).encode())
+    name = f"lib{Path(source).stem}"
+    if pair is not None:
+        digest.update(pair_networks(pair).encode())
+        name += f"_{pair[0]}_{pair[1]}"
     tag = "_bf16x3" if dft_precision == "bf16x3" else ""
-    return BUILD_DIR / (f"lib{Path(source).stem}_{pair[0]}_{pair[1]}{tag}_"
-                        f"{digest.hexdigest()[:12]}.so")
+    return BUILD_DIR / f"{name}{tag}_{digest.hexdigest()[:12]}.so"
 
 
-def build(source: str, pair: tuple[int, int],
+def build(source: str, pair: tuple[int, int] | None = None,
           dft_precision: str = "highest") -> Path:
-    """Compile ``csrc/<source>`` for the median pair ``pair`` and
-    ``dft_precision`` (see the module doc) unless its library exists;
-    return the library's path.  The ptxas report (registers, shared memory,
-    spills) is kept beside it as ``<library>.log``."""
-    median_networks.check_pair(*pair)
+    """Compile ``csrc/<source>`` for the median pair ``pair`` (None for a
+    source with no median) and ``dft_precision`` (see the module doc)
+    unless its library exists; return the library's path.  The ptxas
+    report (registers, shared memory, spills) is kept beside it as
+    ``<library>.log``."""
+    if pair is not None:
+        median_networks.check_pair(*pair)
     out = library_path(source, pair, dft_precision)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    defines = pair_defines(pair)
+    defines = pair_defines(pair) if pair is not None else []
     defines += precision_defines(source, dft_precision)
-    networks = pair_networks(pair)
+    networks = pair_networks(pair) if pair is not None else ""
     if networks:
         header = out.with_suffix(".cuh")
         fd, tmp = tempfile.mkstemp(suffix=".cuh", dir=BUILD_DIR)

@@ -33,6 +33,7 @@ axis.
 from __future__ import annotations
 
 import copy
+import functools
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -153,30 +154,31 @@ class _MaskFeed:
 
 def _dropout_shapes(template: nn.Module, batch) -> list:
     """(shape, keep) of each mask one trial's train-mode forward on
-    ``batch`` draws, in call order, found on the meta device."""
+    ``batch`` draws, in call order, found on the meta device (each layer's
+    ``mask``, which its forward calls and the TCN block's kernels call
+    instead)."""
     shapes = []
 
-    def hook(mod, args):
-        x = args[0]
-        shape = x.shape[:-1] + (1,) if mod.spatial else x.shape
-        shapes.append((tuple(shape), 1.0 - mod.rate))
+    def probe(mod, x):
+        mask = layers.Dropout.mask(mod, x)
+        shapes.append((tuple(mask.shape), mod.keep))
+        return mask
 
     drops = [m for m in template.modules()
              if isinstance(m, layers.Dropout) and m.rate > 0]
-    handles = [m.register_forward_pre_hook(hook) for m in drops]
     meta = ({k: v.to("meta") for k, v in batch.items()}
             if isinstance(batch, dict) else batch.to("meta"))
     try:
         for m in drops:
             m.feed = _MaskFeed()
+            m.mask = functools.partial(probe, m)
         template.train()
         with torch.no_grad():
             template(meta)
     finally:
-        for h in handles:
-            h.remove()
         for m in drops:
             m.feed = None
+            del m.mask
     return shapes
 
 

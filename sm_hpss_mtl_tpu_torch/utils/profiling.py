@@ -21,10 +21,12 @@ The program's own spans and counters:
   in ns), so they line up with the trace's events.
 - :func:`request` groups the spans of one unit of work (a train step, a
   segmented broadcast) under one id; it annotates nothing.
-- :func:`count` and :func:`counters` keep named counts (the K1–K4 kernel
-  launches) under one lock, at all times; :func:`counted` also hands the
-  counts one thread adds inside it to that thread (what a CUDA graph's
-  capture launched, which its replays count again).
+- :func:`count` and :func:`counters` keep named counts (the K1–K4 and
+  TCN block kernel launches) under one lock, at all times; :func:`counted`
+  also hands the counts one thread adds inside it to that thread (what a
+  CUDA graph's capture launched, which its replays count again), and
+  :func:`counting` names that dict, so that a backward pass counts into
+  it from autograd's thread.
 """
 
 from __future__ import annotations
@@ -236,14 +238,19 @@ _counts: dict[str, int] = {}
 _counts_lock = threading.Lock()
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n: int = 1, sink: dict | None = None) -> None:
     """Add ``n`` to the counter ``name`` (counted at all times; the host
-    training pipeline counts from several worker threads)."""
+    training pipeline counts from several worker threads).  ``sink``, a
+    dict :func:`counted` handed some thread, receives the count too, from
+    whatever thread counts (a backward pass, which autograd runs on its
+    own thread, into what its forward's thread collects)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
     mine = _thread.counted
     if mine is not None:
         mine[name] = mine.get(name, 0) + n
+    if sink is not None and sink is not mine:
+        sink[name] = sink.get(name, 0) + n
 
 
 @contextlib.contextmanager
@@ -256,6 +263,12 @@ def counted():
         yield t.counted
     finally:
         t.counted = None
+
+
+def counting() -> dict | None:
+    """The dict :func:`counted` handed the calling thread, or None outside
+    one."""
+    return _thread.counted
 
 
 def counters() -> dict[str, int]:

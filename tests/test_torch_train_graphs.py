@@ -4,7 +4,8 @@ tests/test_torch_train_graphs.py -m card -s``, as ``tests/conftest.py``
 imports JAX, which the GPU machine lacks).  This file imports no JAX: the
 graphed step is held to the port's own eager step.
 
-Lemaire-MTL at full width through ``make_audio_train_step`` (K1 inside),
+Lemaire-MTL at full width through ``make_audio_train_step`` (K1 and the
+TCN block's kernels inside),
 at the benchmark's batch: 12 clips of 43760 samples, 3 patches a clip,
 the noise augmentation and dropout on, the L2 term.  The eager twin is the
 same step with a ``before_update`` that does nothing, which keeps it
@@ -30,9 +31,16 @@ pytestmark = pytest.mark.card
 
 CLIPS, SAMPLES, PATCHES = 12, 43760, 3
 PATCH_KW = dict(patch_size=68, patch_shift=68)
+#: The TCN block's kernels (``ops/tcn_block.py``), 24 blocks a step.
+TCN_KERNELS = tuple(f"tcn_block.launches_by_kernel.{k}"
+                    for k in ("forward_a", "forward_b", "backward_a"))
 COUNTED = ("train.eager_steps", "train.graph_captures", "train.graph_replays",
            "stft_hpss_mel.launches",
-           "stft_hpss_mel.launches_by_precision.highest")
+           "stft_hpss_mel.launches_by_precision.highest") + TCN_KERNELS
+
+
+def _tcn(steps: int) -> dict:
+    return {k: 24 * steps for k in TCN_KERNELS}
 
 
 def _batches(device, n, seed=0):
@@ -143,16 +151,21 @@ def test_graphed_steps_equal_the_eager_ones(weights, card, deterministic):
     g5, e5 = graphed(batches[:5]), eager(batches[:5])
     _compare(graphed, eager, g5, e5)
     # What ran: two eager warm-up steps, the capture (whose replay runs its
-    # batch), two replays; K1 once a step either way.
+    # batch), two replays; K1 once a step either way, and each TCN block
+    # kernel 24 times a step, the backward's among them (launched on
+    # autograd's thread, counted into the capture's launches).
     assert [c for _, _, c in g5][2]["train.graph_captures"] == 1
     assert _sums(g5) == {"train.eager_steps": 2, "train.graph_captures": 1,
                          "train.graph_replays": 3,
                          "stft_hpss_mel.launches": 5,
-                         "stft_hpss_mel.launches_by_precision.highest": 5}
+                         "stft_hpss_mel.launches_by_precision.highest": 5,
+                         **_tcn(5)}
+    assert all(c[k] == 24 for _, _, c in g5 for k in TCN_KERNELS)
     assert _sums(e5) == {"train.eager_steps": 5, "train.graph_captures": 0,
                          "train.graph_replays": 0,
                          "stft_hpss_mel.launches": 5,
-                         "stft_hpss_mel.launches_by_precision.highest": 5}
+                         "stft_hpss_mel.launches_by_precision.highest": 5,
+                         **_tcn(5)}
     # Each step's metrics are its own storage, and no later replay
     # overwrote them.
     ptrs = {m["loss"].untyped_storage().data_ptr() for m, _, _ in g5}
@@ -171,7 +184,8 @@ def test_graphed_steps_equal_the_eager_ones(weights, card, deterministic):
     assert _sums(g4) == {"train.eager_steps": 2, "train.graph_captures": 1,
                          "train.graph_replays": 2,
                          "stft_hpss_mel.launches": 4,
-                         "stft_hpss_mel.launches_by_precision.highest": 4}
+                         "stft_hpss_mel.launches_by_precision.highest": 4,
+                         **_tcn(4)}
     print(json.dumps({"graph_vs_eager": {
         "bitwise": True, "losses": [x for _, x, _ in g5 + g4],
         "card": torch.cuda.get_device_name(0)}}), flush=True)
