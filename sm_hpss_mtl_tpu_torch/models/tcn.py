@@ -52,15 +52,25 @@ class TCNResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The block's output and its skip branch (the 1x1 conv's).  The
-        kernels leave the branch out, as None, unless ``skip``; the chain
-        returns it always, as the JAX package's block does."""
-        if tcn_block.fusable(x):
-            conv, b = self.dilated_conv.parts(x)
-            y = tcn_block.forward_a(conv, b, self.dropout.mask(conv),
-                                    self.dropout.keep)
-            conv, b = self.conv_1x1.parts(y)
-            return tcn_block.forward_b(x, conv, b, skip)
+        """The block's output and its skip branch (the 1x1 conv's): the
+        block's one route decision, :meth:`fused` on CUDA and :meth:`chain`
+        on any other device."""
+        return (self.fused if x.is_cuda else self.chain)(x, skip)
+
+    def fused(self, x: torch.Tensor, skip: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The kernels' route (``ops/tcn_block.py``); the skip branch is
+        left out, as None, unless ``skip``."""
+        conv, b = self.dilated_conv.parts(x)
+        y = tcn_block.forward_a(conv, b, self.dropout.mask(conv),
+                                self.dropout.keep)
+        conv, b = self.conv_1x1.parts(y)
+        return tcn_block.forward_b(x, conv, b, skip)
+
+    def chain(self, x: torch.Tensor, skip: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The chain as written, each convolution with its bias: the skip
+        branch always, as the JAX package's block returns it."""
         y = channel_normalization(torch.relu(self.dilated_conv(x)))
         y = self.conv_1x1(self.dropout(y))
         return x + y, y

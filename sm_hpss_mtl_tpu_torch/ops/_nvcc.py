@@ -24,11 +24,22 @@ The median kernels (``frontend.cu``, ``hpss.cu``) are built once per
 Both precisions keep the same C interface, and the mask power is an
 argument of every kernel (2 squares, any other goes through ``powf``).
 
+This module is also the kernels' one seam to PyTorch: :func:`load` builds
+and loads a library and binds every function the source exports as the
+source declares it (:func:`signatures`); :func:`launch` calls a kernel on
+the current stream of its tensors' device and raises on a failed launch;
+:func:`occupancy` asks a library for blocks per SM; :func:`on_card` is the
+ops' route, the plain version for a CPU tensor and the kernel for a CUDA
+one.
+
 Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -36,6 +47,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 from . import median_networks
 
@@ -156,3 +169,126 @@ def build(source: str, pair: tuple[int, int] | None = None,
     Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Loading, binding and launching
+
+
+#: An exported function's declaration in a source's ``extern "C"`` block.
+_EXPORT = re.compile(r"^(int|const char\*) (\w+)\(([^)]*)\)", re.MULTILINE)
+
+
+@functools.lru_cache(maxsize=None)
+def signatures(source: Path) -> dict[str, tuple]:
+    """The functions ``source`` exports (its ``extern "C"`` block) by name:
+    ``(restype, ((parameter, ctypes type), ...))``; a pointer is
+    ``c_void_p``, a ``float`` ``c_float``, an ``int`` ``c_int``."""
+    exports = Path(source).read_text().split('extern "C" {', 1)[1]
+    out = {}
+    for ret, name, params in _EXPORT.findall(exports):
+        out[name] = (ctypes.c_int if ret == "int" else ctypes.c_char_p,
+                     tuple((p.split()[-1].lstrip("*"),
+                            ctypes.c_void_p if "*" in p
+                            else ctypes.c_float if p.split()[0] == "float"
+                            else ctypes.c_int) for p in params.split(",")))
+    return out
+
+
+def bind(library: Path, source: Path):
+    """The shared library at ``library``, loaded, every function that
+    ``source`` (the file it was built from) exports bound as declared."""
+    lib = ctypes.CDLL(str(library))
+    for name, (restype, params) in signatures(source).items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = [kind for _, kind in params]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str, pair: tuple[int, int] | None = None,
+         dft_precision: str = "highest"):
+    """``csrc/<source>``'s library for the median ``pair`` and
+    ``dft_precision`` (:func:`build`), loaded and bound (:func:`bind`), at
+    first use."""
+    return bind(build(source, pair, dft_precision), CSRC / source)
+
+
+def _error_string(lib, source: str, code: int) -> str:
+    """``code`` as the library's ``<prefix>_error_string`` spells it."""
+    name = next(n for n in signatures(CSRC / source)
+                if n.endswith("_error_string"))
+    return getattr(lib, name)(code).decode()
+
+
+def _made_current(device: torch.device):
+    """``device`` made current for a launch: a no-op context when it already
+    is, else ``torch.cuda.device``."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+#: PyTorch's private raw-stream getter (the one its generated kernels
+#: use), or None where this torch has none: a CPU-only build, or a release
+#: that dropped it, where a launch then fails with a message naming it.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: torch.device) -> int:
+    """``device``'s current stream as a ``cudaStream_t`` (inside a CUDA
+    graph's capture, the capture stream), by the raw getter: 0.4 us per
+    call on an H100 host, against 8.7 through the ``torch.cuda.Stream``
+    object."""
+    if _RAW_STREAM is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no "
+            "torch._C._cuda_getCurrentRawStream, which the kernels' launch "
+            "reads the current stream with")
+    return _RAW_STREAM(device.index)
+
+
+def launch(source: str, fn: str, device: torch.device, *args,
+           pair: tuple[int, int] | None = None,
+           dft_precision: str = "highest", name: str,
+           detail=None) -> None:
+    """Call the kernel ``fn`` of ``csrc/<source>``'s library for ``pair``
+    and ``dft_precision`` (:func:`load`) with ``args`` (tensors as their
+    data pointers, which the caller keeps alive) and the current stream of
+    ``device``, made current for the call.  A non-zero return raises
+    ``RuntimeError("<name> kernel launch failed<detail()>: <the library's
+    error string>")``; ``detail``, None or a callable giving the shape's
+    text, is called only then."""
+    lib = load(source, pair, dft_precision)
+    with _made_current(device):
+        err = getattr(lib, fn)(*args, _stream(device))
+    if err:
+        raise RuntimeError(
+            f"{name} kernel launch failed{detail() if detail else ''}: "
+            + _error_string(lib, source, err))
+
+
+def occupancy(source: str, fn: str, *args,
+              pair: tuple[int, int] | None = None,
+              dft_precision: str = "highest") -> int:
+    """Blocks per SM from the occupancy query ``fn`` of ``csrc/<source>``'s
+    library (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the
+    current card), which returns a negative error code on failure."""
+    lib = load(source, pair, dft_precision)
+    n = getattr(lib, fn)(*args)
+    if n < 0:
+        raise RuntimeError("occupancy query failed: "
+                           + _error_string(lib, source, -n))
+    return n
+
+
+def on_card(op: str, t: torch.Tensor) -> bool:
+    """The ops' route for ``t``: False on the CPU (the plain version), True
+    on CUDA (the kernel, which raises rather than fall back); any other
+    device raises ``ValueError`` naming ``op``."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"{op}: unsupported device {t.device}")

@@ -51,7 +51,6 @@ launch, not at import.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -71,31 +70,12 @@ _SOURCE = "frontend.cu"
 DFT_PRECISIONS = _nvcc.DFT_PRECISIONS
 
 
-@functools.lru_cache(maxsize=None)
-def _library(l_harm: int, l_perc: int, dft_precision: str = "highest"
-             ) -> ctypes.CDLL:
-    """The kernels' library for one median pair and DFT precision, built at
-    first use."""
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc),
-                                      dft_precision)))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k1_stft_hpss_mel.argtypes = [p, p, p, p, p, p] + [i] * 12 + [f, p]
-    lib.k1_stft_hpss_mel.restype = i
-    lib.k2_stft_hpss.argtypes = [p, p, p, p] + [i] * 11 + [f, p]
-    lib.k2_stft_hpss.restype = i
-    lib.k1_blocks_per_sm.argtypes = [i] * 5
-    lib.k1_blocks_per_sm.restype = i
-    lib.k1_error_string.argtypes = [i]
-    lib.k1_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def build() -> None:
     """Build and load the kernel library of every pair of
     ``KERNEL_MEDIANS`` now (each is otherwise built at its first
     launch)."""
     for pair in KERNEL_MEDIANS:
-        _library(*pair)
+        _nvcc.load(_SOURCE, pair)
 
 
 def blocks_per_sm(*, fullres: bool, n_fft: int, hop_length: int,
@@ -103,12 +83,9 @@ def blocks_per_sm(*, fullres: bool, n_fft: int, hop_length: int,
                   ) -> int:
     """Blocks of K2 (``fullres``) or K1 one SM of the current card holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _library(l_harm, l_perc, dft_precision)
-    n = lib.k1_blocks_per_sm(int(fullres), n_fft, hop_length, l_harm, l_perc)
-    if n < 0:
-        raise RuntimeError("occupancy query failed: "
-                           + lib.k1_error_string(-n).decode())
-    return n
+    return _nvcc.occupancy(_SOURCE, "k1_blocks_per_sm", int(fullres), n_fft,
+                           hop_length, l_harm, l_perc, pair=(l_harm, l_perc),
+                           dft_precision=dft_precision)
 
 
 def tf32_round(x: np.ndarray) -> np.ndarray:
@@ -390,27 +367,18 @@ def launch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft: int,
     shape = lead + (rows, T)
     if B == 0:
         return out_h.reshape(shape), out_p.reshape(shape)
-    lib = _library(l_harm, l_perc, dft_precision)
     basis = _fragments_on(n_fft, win_length, y.device, dft_precision)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        if M is None:
-            err = lib.k2_stft_hpss(
-                y2.data_ptr(), basis.data_ptr(), out_h.data_ptr(),
-                out_p.data_ptr(), B, N, T, n_fft, win_length, hop_length,
-                l_harm, l_perc, int(halo_in_audio), ml, mr, power, stream)
-        else:
-            M = M.contiguous()
-            bands = _band_ranges_of(M)
-            err = lib.k1_stft_hpss_mel(
-                y2.data_ptr(), basis.data_ptr(), M.data_ptr(),
-                bands.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), B, N,
-                T, n_fft, win_length, hop_length, l_harm, l_perc, rows,
-                int(halo_in_audio), ml, mr, power, stream)
-    name = "stft_hpss" if M is None else "stft_hpss_mel"
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.k1_error_string(err).decode())
+    if M is None:
+        name, fn, mel, n_mels = "stft_hpss", "k2_stft_hpss", (), ()
+    else:
+        M = M.contiguous()
+        name, fn = "stft_hpss_mel", "k1_stft_hpss_mel"
+        mel, n_mels = (M.data_ptr(), _band_ranges_of(M).data_ptr()), (rows,)
+    _nvcc.launch(_SOURCE, fn, y.device, y2.data_ptr(), basis.data_ptr(), *mel,
+                 out_h.data_ptr(), out_p.data_ptr(), B, N, T, n_fft,
+                 win_length, hop_length, l_harm, l_perc, *n_mels,
+                 int(halo_in_audio), ml, mr, power, pair=(l_harm, l_perc),
+                 dft_precision=dft_precision, name=name)
     count(f"{name}.launches")
     count(f"{name}.launches_by_precision.{dft_precision}")
     count(f"{name}.launches_by_pair.{l_harm},{l_perc}")
@@ -451,14 +419,20 @@ def _dispatch(y: torch.Tensor, M: torch.Tensor | None, *, n_fft,
                   halo_in_audio=halo_in_audio, edge_flags=edge_flags)
 
 
-def _cpu_precision(y: torch.Tensor, kw: dict) -> dict:
-    """The CPU route's arguments: the plain version of the CUDA route, so
-    a short clip takes ``'highest'`` (the float32 ``stft_mag``) as
-    :func:`_dispatch` does."""
+def _route(op: str, y: torch.Tensor, M: torch.Tensor | None, **kw):
+    """The route of :func:`stft_hpss_mel` (``M`` given) and
+    :func:`stft_hpss` (``M=None``): :func:`_dispatch` on CUDA; on the CPU
+    its plain version, where a short clip takes ``'highest'`` (the float32
+    ``stft_mag``) as :func:`_dispatch` does."""
+    _nvcc.check_precision(kw["dft_precision"])
+    if _nvcc.on_card(op, y):
+        return _dispatch(y, M, **kw)
     T = n_frames(y.shape[-1], kw["n_fft"], kw["hop_length"])
     if _short_clip(T, kw["l_harm"], kw["halo_in_audio"]):
-        return dict(kw, dft_precision="highest")
-    return kw
+        kw["dft_precision"] = "highest"
+    if M is None:
+        return stft_hpss_plain(y, **kw)
+    return stft_hpss_mel_plain(y, M, **kw)
 
 
 def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
@@ -481,16 +455,11 @@ def stft_hpss_mel(y: torch.Tensor, mel_basis: torch.Tensor, *,
     ``stft_hpss_mel.launches_halo`` of ``utils.profiling.counters()``), or
     for clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K4.
     Halo mode as in the module doc (always K1 on CUDA)."""
-    _nvcc.check_precision(dft_precision)
-    kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc, power=power,
-              dft_precision=dft_precision, halo_in_audio=halo_in_audio,
-              edge_flags=edge_flags)
-    if y.device.type == "cpu":
-        return stft_hpss_mel_plain(y, mel_basis, **_cpu_precision(y, kw))
-    if y.device.type == "cuda":
-        return _dispatch(y, mel_basis, **kw)
-    raise ValueError(f"stft_hpss_mel: unsupported device {y.device}")
+    return _route("stft_hpss_mel", y, mel_basis, n_fft=n_fft,
+                  win_length=win_length, hop_length=hop_length,
+                  l_harm=l_harm, l_perc=l_perc, power=power,
+                  dft_precision=dft_precision, halo_in_audio=halo_in_audio,
+                  edge_flags=edge_flags)
 
 
 def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
@@ -505,14 +474,8 @@ def stft_hpss(y: torch.Tensor, *, n_fft: int = 400, win_length: int = 400,
     CUDA tensors launch K2 (each launch adds one to K1's counters, named
     ``stft_hpss.*``), or for
     clips under ``2*(l_harm//2)`` frames the plain ``stft_mag`` and K3."""
-    _nvcc.check_precision(dft_precision)
-    kw = dict(n_fft=n_fft, win_length=win_length, hop_length=hop_length,
-              l_harm=l_harm, l_perc=l_perc, power=power,
-              dft_precision=dft_precision, halo_in_audio=halo_in_audio,
-              edge_flags=edge_flags)
-    if y.device.type == "cpu":
-        return stft_hpss_plain(y, **_cpu_precision(y, kw))
-    if y.device.type == "cuda":
-        return _dispatch(y, None, **kw)
-    raise ValueError(f"stft_hpss: unsupported device {y.device}")
+    return _route("stft_hpss", y, None, n_fft=n_fft, win_length=win_length,
+                  hop_length=hop_length, l_harm=l_harm, l_perc=l_perc,
+                  power=power, dft_precision=dft_precision,
+                  halo_in_audio=halo_in_audio, edge_flags=edge_flags)
 

@@ -22,8 +22,6 @@ built with ``nvcc`` at their first launch, not at import.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import functools
 
 import numpy as np
@@ -132,69 +130,21 @@ def hpss_mel_plain(S: torch.Tensor, mel_basis: torch.Tensor, *,
     return torch.matmul(M, H), torch.matmul(M, P)
 
 
-@functools.lru_cache(maxsize=None)
-def _library(l_harm: int, l_perc: int) -> ctypes.CDLL:
-    """The kernels' library for one median pair, built at first use."""
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE, (l_harm, l_perc))))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k3_hpss.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
-    lib.k3_hpss.restype = i
-    lib.k4_hpss_mel.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
-    lib.k4_hpss_mel.restype = i
-    for name in ("k3_blocks_per_sm", "k4_blocks_per_sm"):
-        getattr(lib, name).argtypes = [i, i]
-        getattr(lib, name).restype = i
-    lib.k3_error_string.argtypes = [i]
-    lib.k3_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def build() -> None:
     """Build and load the kernel library of every pair of
     ``KERNEL_MEDIANS`` now (each is otherwise built at its first
     launch)."""
     for pair in KERNEL_MEDIANS:
-        _library(*pair)
+        _nvcc.load(_SOURCE, pair)
 
 
 def blocks_per_sm(*, mel: bool, l_harm: int = 21, l_perc: int = 11) -> int:
     """Blocks of K4 (``mel``) or K3 (at its largest tile) one SM of the
     current card holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _library(l_harm, l_perc)
-    n = (lib.k4_blocks_per_sm if mel else lib.k3_blocks_per_sm)(l_harm,
-                                                                l_perc)
-    if n < 0:
-        raise RuntimeError("occupancy query failed: "
-                           + lib.k3_error_string(-n).decode())
-    return n
-
-
-def _device_context(device: torch.device):
-    """``device`` made current for the launch: a no-op context when it
-    already is, else ``torch.cuda.device``."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-#: PyTorch's private raw-stream getter (the one its generated kernels
-#: use), or None where this torch has none: a CPU-only build, or a release
-#: that dropped it, where a launch then fails with a message naming it.
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(device: torch.device) -> int:
-    """``device``'s current stream as a ``cudaStream_t``, by the raw
-    getter: 0.4 us per call against 8.7 for
-    ``torch.cuda.current_stream().cuda_stream`` on an H100 host
-    (``tools/hpss_ab.py``, ``host_us``)."""
-    if _RAW_STREAM is None:
-        raise RuntimeError(
-            f"torch {torch.__version__} has no "
-            "torch._C._cuda_getCurrentRawStream, which the hpss kernels' "
-            "launch reads the current stream with")
-    return _RAW_STREAM(device.index)
+    return _nvcc.occupancy(_SOURCE, "k4_blocks_per_sm" if mel
+                           else "k3_blocks_per_sm", l_harm, l_perc,
+                           pair=(l_harm, l_perc))
 
 
 def _as_3d(S: torch.Tensor) -> torch.Tensor:
@@ -222,9 +172,11 @@ def _count(name: str, l_harm: int, l_perc: int, power: float) -> None:
     count(f"{name}.launches_by_power.{float(power)}")
 
 
-def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
-            power: float = 2.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3 on ``(..., F, T)`` magnitudes.  The host path is kept short (the
+def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int,
+            power: float = 2.0, mask_only: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on ``(..., F, T)`` magnitudes (the masks alone with
+    ``mask_only``).  The host path is kept short (the
     kernel takes a few microseconds at the short-clip shapes): no reshape
     of a 3-D input or of its outputs, and two ``empty_like`` (cheaper than
     one allocation split in two)."""
@@ -232,15 +184,10 @@ def _launch(S: torch.Tensor, *, l_harm: int, l_perc: int, mask_only: bool,
     S3 = _as_3d(S)
     out_h, out_p = torch.empty_like(S3), torch.empty_like(S3)
     if S3.numel():
-        B, F, T = S3.shape
-        lib = _library(l_harm, l_perc)
-        with _device_context(S.device):
-            err = lib.k3_hpss(S3.data_ptr(), out_h.data_ptr(),
-                              out_p.data_ptr(), B, F, T, l_harm, l_perc,
-                              int(mask_only), power, _stream(S.device))
-        if err != 0:
-            raise RuntimeError("hpss kernel launch failed: "
-                               + lib.k3_error_string(err).decode())
+        _nvcc.launch(_SOURCE, "k3_hpss", S.device, S3.data_ptr(),
+                     out_h.data_ptr(), out_p.data_ptr(), *S3.shape, l_harm,
+                     l_perc, int(mask_only), power, pair=(l_harm, l_perc),
+                     name="hpss")
         _count("hpss_masks" if mask_only else "hpss", l_harm, l_perc, power)
     if S3 is S:
         return out_h, out_p
@@ -268,18 +215,12 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
     out_p = S3.new_empty((S3.shape[0], n_mels, T))
     if S3.numel() and n_mels:
         M = M.contiguous()
-        bands = _band_ranges_of(M)
-        lib = _library(l_harm, l_perc)
-        with _device_context(S.device):
-            err = lib.k4_hpss_mel(S3.data_ptr(), M.data_ptr(),
-                                  bands.data_ptr(), out_h.data_ptr(),
-                                  out_p.data_ptr(), S3.shape[0], F, T,
-                                  l_harm, l_perc, n_mels, power,
-                                  _stream(S.device))
-        if err != 0:
-            raise RuntimeError("hpss_mel kernel launch failed: "
-                               + lib.k3_error_string(err).decode()
-                               + f" (F={F}, l_harm={l_harm}, l_perc={l_perc})")
+        _nvcc.launch(_SOURCE, "k4_hpss_mel", S.device, S3.data_ptr(),
+                     M.data_ptr(), _band_ranges_of(M).data_ptr(),
+                     out_h.data_ptr(), out_p.data_ptr(), S3.shape[0], F, T,
+                     l_harm, l_perc, n_mels, power, pair=(l_harm, l_perc),
+                     name="hpss_mel", detail=lambda: (
+                         f" (F={F}, l_harm={l_harm}, l_perc={l_perc})"))
         _count("hpss_mel", l_harm, l_perc, power)
     if S3 is S:
         return out_h, out_p
@@ -287,14 +228,7 @@ def _launch_mel(S: torch.Tensor, M: torch.Tensor, *, l_harm: int,
     return out_h.reshape(shape), out_p.reshape(shape)
 
 
-def _dispatch(S, *, l_harm, l_perc, power, mask_only):
-    if S.device.type == "cpu":
-        plain = hpss_masks_plain if mask_only else hpss_plain
-        return plain(S, l_harm=l_harm, l_perc=l_perc, power=power)
-    if S.device.type != "cuda":
-        raise ValueError(f"hpss: unsupported device {S.device}")
-    return _launch(S, l_harm=l_harm, l_perc=l_perc, mask_only=mask_only,
-                   power=power)
+_launch_masks = functools.partial(_launch, mask_only=True)
 
 
 def hpss(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
@@ -304,8 +238,8 @@ def hpss(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     launch the kernel at ``power`` (each launch adds one to the counters
     ``hpss.launches`` and ``hpss.launches_by_*`` of
     ``utils.profiling.counters()``, as :func:`_count` names them)."""
-    return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
-                     mask_only=False)
+    run = _launch if _nvcc.on_card("hpss", S) else hpss_plain
+    return run(S, l_harm=l_harm, l_perc=l_perc, power=power)
 
 
 def hpss_masks(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
@@ -315,8 +249,8 @@ def hpss_masks(S: torch.Tensor, *, l_harm: int = 21, l_perc: int = 11,
     tensors launch the kernel in its mask-only mode (each launch adds one
     to the counters ``hpss_masks.launches`` and
     ``hpss_masks.launches_by_*``)."""
-    return _dispatch(S, l_harm=l_harm, l_perc=l_perc, power=power,
-                     mask_only=True)
+    run = _launch_masks if _nvcc.on_card("hpss", S) else hpss_masks_plain
+    return run(S, l_harm=l_harm, l_perc=l_perc, power=power)
 
 
 def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
@@ -327,11 +261,6 @@ def hpss_mel(S: torch.Tensor, mel_basis: torch.Tensor, *, l_harm: int = 21,
     take :func:`hpss_mel_plain`; CUDA tensors launch kernel K4 at ``power``
     (each launch adds one to the counters ``hpss_mel.launches`` and
     ``hpss_mel.launches_by_*``)."""
-    if S.device.type == "cpu":
-        return hpss_mel_plain(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
-                              power=power)
-    if S.device.type != "cuda":
-        raise ValueError(f"hpss_mel: unsupported device {S.device}")
-    return _launch_mel(S, mel_basis, l_harm=l_harm, l_perc=l_perc,
-                       power=power)
+    run = _launch_mel if _nvcc.on_card("hpss_mel", S) else hpss_mel_plain
+    return run(S, mel_basis, l_harm=l_harm, l_perc=l_perc, power=power)
 

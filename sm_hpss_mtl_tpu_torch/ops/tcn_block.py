@@ -22,17 +22,19 @@ forward kernels give the chain's bits (the same float operations in the
 same order, rounded where PyTorch rounds them in bfloat16); the backward
 computes in float32 and rounds once.
 
-Route: :func:`fusable` sends every CUDA block to the kernels, which raise
-on what they do not take (a dtype other than float32 and bfloat16, or
-operands of mixed dtypes); the CPU keeps the chain.  The Functions have
-``vmap`` rules, so ``torch.func`` transforms reach the kernels too: the
-vmapped multi-trial step (``train/multitrial.py``, ``vmap`` over ``grad``)
-folds its trial axis into the items, and each trial's items read their own
-bias row (a ``(G, C)`` bias, G rows for the items in order).  The chain
-(``channel_normalization`` and the layers' own forwards) is the plain
-version; :func:`forward_a_plain`, :func:`forward_b_plain` and
-:func:`backward_a_plain` write it out per kernel, and the CPU tests and
-``chip_smoke.py`` hold the kernels to them.
+Route: the block decides it (``TCNResidualBlock.forward``): a CUDA block
+takes :func:`forward_a` and :func:`forward_b`, which launch the kernels
+and raise on what they do not take (a dtype other than float32 and
+bfloat16, or operands of mixed dtypes); any other keeps the chain.  The
+Functions have ``vmap`` rules, so ``torch.func`` transforms reach the
+kernels too: the vmapped multi-trial step (``train/multitrial.py``,
+``vmap`` over ``grad``) folds its trial axis into the items, and each
+trial's items read their own bias row (a ``(G, C)`` bias, G rows for the
+items in order).  The chain (``channel_normalization`` and the layers' own
+forwards) is the plain version; :func:`forward_a_plain`,
+:func:`forward_b_plain` and :func:`backward_a_plain` write it out per
+kernel, and the CPU tests and ``chip_smoke.py`` hold the kernels to
+them.
 
 Counters (``utils.profiling.counters()``): ``tcn_block.launches`` and
 ``tcn_block.launches_by_kernel.<forward_a|forward_b|backward_a>``, counted
@@ -45,14 +47,12 @@ The kernels are built with ``nvcc`` at their first launch, not at import.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from . import _nvcc
-from .hpss import _device_context, _stream
 from ..utils import profiling
 
 _SOURCE = "tcn_block.cu"
@@ -62,34 +62,9 @@ _BF16_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 NORM_EPS = 1e-5
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernels' library, built at first use."""
-    lib = ctypes.CDLL(str(_nvcc.build(_SOURCE)))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tcn_forward_a.argtypes = [p] * 4 + [i] * 5 + [f, p]
-    lib.tcn_forward_b.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.tcn_backward_a.argtypes = [p] * 5 + [i] * 5 + [f, p]
-    for fn in (lib.tcn_forward_a, lib.tcn_forward_b, lib.tcn_backward_a):
-        fn.restype = i
-    lib.tcn_error_string.argtypes = [i]
-    lib.tcn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def build() -> None:
     """Build and load the kernels' library now (else at first launch)."""
-    _library()
-
-
-def _functorch_active() -> bool:
-    return torch._C._functorch.peek_interpreter_stack() is not None
-
-
-def fusable(x: torch.Tensor) -> bool:
-    """Whether a block whose input is ``x`` takes the kernels: on CUDA,
-    always (module doc)."""
-    return x.is_cuda
+    _nvcc.load(_SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,21 +173,16 @@ def _inv_keep(mask: torch.Tensor | None, keep: float) -> float:
 
 def _run(kernel: str, conv: torch.Tensor, bias: torch.Tensor,
          tensors: tuple, numbers: tuple, sink: dict | None = None) -> None:
-    """Launch ``tcn_<kernel>`` over ``conv``'s shape on the current stream:
-    its tensors' pointers (None for null), the shape, ``bias``'s rows and
-    the storage flag, then ``numbers``; raise if the launch failed; count
-    it (and into ``sink``, :func:`utils.profiling.count`)."""
-    lib = _library()
+    """Launch ``tcn_<kernel>`` over ``conv``'s shape: its tensors'
+    pointers (None for null), the shape, ``bias``'s rows and the storage
+    flag, then ``numbers``; count it (and into ``sink``,
+    :func:`utils.profiling.count`)."""
     B, C, T = conv.shape
-    with _device_context(conv.device):
-        err = getattr(lib, f"tcn_{kernel}")(
-            *(None if t is None else t.data_ptr() for t in tensors),
-            B, C, T, bias.numel() // C, _BF16_FLAG[conv.dtype], *numbers,
-            _stream(conv.device))
-    if err != 0:
-        raise RuntimeError(
-            f"tcn_block {kernel} kernel launch failed at {tuple(conv.shape)}: "
-            + lib.tcn_error_string(err).decode())
+    _nvcc.launch(_SOURCE, f"tcn_{kernel}", conv.device,
+                 *(None if t is None else t.data_ptr() for t in tensors),
+                 B, C, T, bias.numel() // C, _BF16_FLAG[conv.dtype],
+                 *numbers, name=f"tcn_block {kernel}",
+                 detail=lambda: f" at {(B, C, T)}")
     profiling.count("tcn_block.launches", sink=sink)
     profiling.count(f"tcn_block.launches_by_kernel.{kernel}", sink=sink)
 
@@ -242,25 +212,6 @@ def _launch_backward_a(grad, conv, bias, mask, keep, sink) -> torch.Tensor:
         _run("backward_a", conv, bias, (grad, conv, bias, mask, out),
              (_inv_keep(mask, keep),), sink)
     return out
-
-
-def _forward_a(conv, bias, mask, keep) -> torch.Tensor:
-    if conv.is_cuda:
-        return _launch_a(conv, bias, mask, keep)
-    return forward_a_plain(conv, bias, mask, keep)
-
-
-def _backward_a(grad, conv, bias, mask, keep, sink) -> torch.Tensor:
-    if grad.is_cuda:
-        return _launch_backward_a(grad, conv, bias, mask, keep, sink)
-    return backward_a_plain(grad, conv, bias, mask, keep)
-
-
-def _forward_b(x, conv, bias, skip: bool):
-    if conv.is_cuda:
-        return _launch_b(x, conv, bias, skip)
-    out, t = forward_b_plain(x, conv, bias)
-    return out, (t if skip else None)
 
 
 def _bias_grad(g: torch.Tensor, shape: torch.Size) -> torch.Tensor:
@@ -301,7 +252,7 @@ def _unfold(t: torch.Tensor | None, n: int):
 class _ForwardA(torch.autograd.Function):
     @staticmethod
     def forward(conv, bias, mask, keep):
-        return _forward_a(conv, bias, mask, keep)
+        return _launch_a(conv, bias, mask, keep)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -333,7 +284,7 @@ class _BackwardA(torch.autograd.Function):
 
     @staticmethod
     def forward(grad, conv, bias, mask, keep, sink):
-        return _backward_a(grad, conv, bias, mask, keep, sink)
+        return _launch_backward_a(grad, conv, bias, mask, keep, sink)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -357,7 +308,7 @@ class _BackwardA(torch.autograd.Function):
 class _ForwardB(torch.autograd.Function):
     @staticmethod
     def forward(x, conv, bias, skip):
-        out, t = _forward_b(x, conv, bias, skip)
+        out, t = _launch_b(x, conv, bias, skip)
         return (out, t) if skip else out
 
     @staticmethod
@@ -392,28 +343,28 @@ def _through_function(*tensors) -> bool:
     ``torch.func`` transform (whose ``vmap`` reaches the Function's rule)."""
     return (torch.is_grad_enabled() and any(t.requires_grad
                                             for t in tensors)) \
-        or _functorch_active()
+        or torch._C._functorch.peek_interpreter_stack() is not None
 
 
 def forward_a(conv: torch.Tensor, bias: torch.Tensor,
               mask: torch.Tensor | None, keep: float) -> torch.Tensor:
-    """:func:`forward_a_plain`'s function: the kernel for CUDA tensors
-    (under autograd its Function, whose backward is the backward kernel),
-    the plain version on the CPU.  ``conv`` ``(B, C, T)``, ``bias`` ``(C,)``
-    or ``(G, C)`` and ``mask`` ``(B, C, 1)`` (or None) of one dtype."""
+    """:func:`forward_a_plain`'s function by the kernel (under autograd
+    its Function, whose backward is the backward kernel), on CUDA tensors.
+    ``conv`` ``(B, C, T)``, ``bias`` ``(C,)`` or ``(G, C)`` and ``mask``
+    ``(B, C, 1)`` (or None) of one dtype."""
     conv = conv.contiguous()
     mask = None if mask is None else mask.contiguous()
     if _through_function(conv, bias):
         return _ForwardA.apply(conv, bias, mask, keep)
-    return _forward_a(conv, bias, mask, keep)
+    return _launch_a(conv, bias, mask, keep)
 
 
 def forward_b(x: torch.Tensor, conv: torch.Tensor, bias: torch.Tensor,
               skip: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """:func:`forward_b_plain`'s ``(x + t, t)``, with ``t`` None unless
-    ``skip``: the kernel for CUDA tensors, the plain version on the CPU."""
+    """:func:`forward_b_plain`'s ``(x + t, t)`` by the kernel, on CUDA
+    tensors, with ``t`` None unless ``skip``."""
     x, conv = x.contiguous(), conv.contiguous()
     if _through_function(x, conv, bias):
         res = _ForwardB.apply(x, conv, bias, skip)
         return res if skip else (res, None)
-    return _forward_b(x, conv, bias, skip)
+    return _launch_b(x, conv, bias, skip)

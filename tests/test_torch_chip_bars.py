@@ -70,3 +70,29 @@ def test_bars_refuse_a_degenerate_update(cs, scale, refused):
     # rounding floor), which a halved or zeroed update passes: only the
     # norm ratio and the cosine refuse them.
     assert share == pytest.approx((1 - scale) / 1.2, rel=1e-3, abs=1e-12)
+
+
+def test_kernel_bounds_are_the_benchmarks(cs):
+    """``chip_smoke.py`` prices K1, K3 and K4 by ``benchmark/counts.py``
+    (in ms), at the shapes of ``PERF.md``'s kernel table: K1 at 1 x 16404
+    frames, K3 at 1 x 201 x 5998, K4 at T = 13 and 5998, (21, 11), with the
+    shared-core comparators and the 120-band bank's nonzeros."""
+    from benchmark import counts
+    from sm_hpss_mtl_tpu_torch.ops.mel import mel_filterbank
+    card = "NVIDIA H100 80GB HBM3"
+    cmp = cs.median_comparators()[1][(21, 11)]
+    nnz = int((mel_filterbank(22050, 400, 120) != 0).sum())
+    N = 400 + 16403 * 160
+    k1, by, _ = cs.frontend_bound_ms(16404, N, 400, cmp, card, n_mels=120,
+                                     mel_nnz=nnz)
+    assert k1 == 1e3 * counts.frontend_bound_s(16404, N, 400, cmp, card,
+                                               n_mels=120, mel_nnz=nnz)
+    assert by == "bytes"
+    k3 = cs.k3_bound_ms(1, 201, 5998, cmp, card)
+    assert k3 == 1e3 * counts.k3_bound_s(1, 201, 5998, cmp, card)
+    k4 = {T: cs.k4_bound_ms(1, 201, T, 120, nnz, cmp, card)
+          for T in (13, 5998)}
+    for T, ms in k4.items():
+        assert ms == 1e3 * counts.k4_bound_s(1, 201, T, 120, nnz, cmp, card)
+    assert [float(f"{v:.4g}") for v in (k1, k3, k4[13], k4[5998])] == [
+        0.007864, 0.004319, 3.565e-5, 0.003187]

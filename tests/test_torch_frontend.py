@@ -135,7 +135,7 @@ def test_import_needs_no_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     code = ("import sm_hpss_mtl_tpu_torch.ops.frontend as f, "
             "sm_hpss_mtl_tpu_torch.ops.featuregram; "
-            "assert f._library.cache_info().currsize == 0")
+            "assert f._nvcc.load.cache_info().currsize == 0")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
 
@@ -193,7 +193,8 @@ def test_plain_versions_never_route_into_k3(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("plain version reached the K3 dispatcher")
 
-    monkeypatch.setattr(thpss, "_dispatch", refuse)
+    for name in ("hpss", "hpss_masks", "_launch", "_launch_masks"):
+        monkeypatch.setattr(thpss, name, refuse)
     rng = np.random.default_rng(7)
     y = torch.from_numpy(rng.standard_normal((1, 4_000)).astype(np.float32))
     M = torch.from_numpy(_mel(16, 400))
@@ -456,7 +457,7 @@ def test_launch_refuses_geometry_the_kernel_does_not_tile():
                    l_harm=21, l_perc=11)
     with pytest.raises(ValueError, match="symmetric"):
         tfe.dft_fragments(512, 399)
-    assert tfe._library.cache_info().currsize == 0
+    assert tfe._nvcc.load.cache_info().currsize == 0
 
 
 def test_plain_versions_run_in_float64_for_float64_audio():

@@ -208,69 +208,22 @@ def test_hpss_mel_plain_never_reaches_a_kernel(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("plain version reached a kernel launcher")
 
-    for name in ("_dispatch", "_launch", "_launch_mel"):
+    for name in ("_launch", "_launch_masks", "_launch_mel"):
         monkeypatch.setattr(thpss, name, refuse)
     S = torch.from_numpy(_mags((1, 201, 5), 7))
     thpss.hpss_mel_plain(S, torch.from_numpy(_bank(16)))
 
 
-def _c_params(src, fn):
-    """Kinds of the parameters of C function ``fn`` in ``src``: 'p' for a
-    pointer, 'f' for a float, 'i' for an int."""
-    sig = re.search(rf"\bint {fn}\((.*?)\)\s*\{{", src, re.S).group(1)
-    return ["p" if "*" in a else "f" if a.split()[0] == "float" else "i"
-            for a in sig.split(",")]
-
-
-@pytest.mark.parametrize("module,source,functions", [
-    ("hpss", "hpss.cu", ("k3_hpss", "k4_hpss_mel", "k3_blocks_per_sm",
-                         "k4_blocks_per_sm")),
-    ("frontend", "frontend.cu", ("k1_stft_hpss_mel", "k2_stft_hpss",
-                                 "k1_blocks_per_sm")),
-])
-def test_ctypes_bindings_match_c_signatures(monkeypatch, module, source,
-                                            functions):
-    # A binding with a wrong argument count or kind passes pointers as
-    # 32-bit ints or shifts every argument; only the card would show it.
-    import ctypes
-    import importlib
-    import types
-    mod = importlib.import_module(f"sm_hpss_mtl_tpu_torch.ops.{module}")
-    libs = []
-
-    def fake_cdll(path):
-        lib = types.SimpleNamespace(**{
-            n: types.SimpleNamespace() for n in functions + (
-                "k1_error_string", "k3_error_string")})
-        libs.append(lib)
-        return lib
-
-    monkeypatch.setattr(_nvcc, "build", lambda source, pair, *a, **kw:
-                        "unbuilt.so")
-    monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
-    mod._library.cache_clear()
-    try:
-        mod._library(21, 11)
-    finally:
-        mod._library.cache_clear()
-    src = (_nvcc.CSRC / source).read_text()
-    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
-    for fn in functions:
-        bound = getattr(libs[0], fn)
-        assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn), fn
-        assert bound.restype is ctypes.c_int
-
-
 def test_launch_stream_getter_fails_loudly_when_missing(monkeypatch):
-    # K3's and K4's wrappers read the current stream through torch's
-    # private raw getter: a torch without it must fail at the launch with a
-    # message that names it.
+    # Every kernel's launch (ops/_nvcc.py::launch) reads the current stream
+    # through torch's private raw getter: a torch without it must fail at
+    # the launch with a message that names it.
     dev = torch.device("cuda", 0)
-    monkeypatch.setattr(thpss, "_RAW_STREAM", None)
+    monkeypatch.setattr(_nvcc, "_RAW_STREAM", None)
     with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
-        thpss._stream(dev)
-    monkeypatch.setattr(thpss, "_RAW_STREAM", lambda index: 1000 + index)
-    assert thpss._stream(dev) == 1000
+        _nvcc._stream(dev)
+    monkeypatch.setattr(_nvcc, "_RAW_STREAM", lambda index: 1000 + index)
+    assert _nvcc._stream(dev) == 1000
     if torch.version.cuda is not None:   # a torch built for CUDA has it
         assert hasattr(torch._C, "_cuda_getCurrentRawStream")
 
@@ -594,26 +547,6 @@ def test_k4_block_plan_covers_each_band_once(n_fft, T):
         rows, union = sum(map(len, spans)), set().union(*spans)
         assert (rows, len(union)) == ((223, 199) if n_fft == 400
                                       else (282, 255))
-
-
-def _hpss_ab():
-    spec = importlib.util.spec_from_file_location(
-        "hpss_ab", _nvcc.CSRC.parents[1] / "tools" / "hpss_ab.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.mark.parametrize("variant", sorted(_hpss_ab().VARIANTS))
-def test_hpss_ab_variants_follow_the_source(variant):
-    # tools/hpss_ab.py patches hpss.cu by exact text; each pattern must be
-    # in the source once, or the GPU run stops (or times another kernel).
-    ab = _hpss_ab()
-    src = (_nvcc.CSRC / "hpss.cu").read_text()
-    for old, new in ab.VARIANTS[variant]:
-        assert src.count(old) == 1, (variant, old)
-        src = src.replace(old, new)
-    assert set(ab.ABLATIONS) <= set(ab.VARIANTS)
 
 
 @pytest.mark.parametrize("shape,l_harm,l_perc,mask_only", [

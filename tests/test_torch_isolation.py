@@ -147,8 +147,7 @@ def test_lemaire_variant_clis_without_device_cpu_raise_when_no_gpu(
         mod.main(["--data", str(tmp_path), *argv])
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/frontend_ab.py",
-                                    "tools/hpss_ab.py",
+@pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/bf16_step_bars.py",
                                     "tools/bf16_probe.py",
                                     "tools/multi_gpu_check.py",

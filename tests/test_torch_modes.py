@@ -489,8 +489,7 @@ def test_pairs_outside_the_range_are_refused_before_a_build(l_harm, l_perc,
         thpss._launch(S, l_harm=l_harm, l_perc=l_perc, mask_only=True)
     with pytest.raises(ValueError, match=match):
         _nvcc.build("hpss.cu", (l_harm, l_perc))
-    assert tfe._library.cache_info().currsize == 0
-    assert thpss._library.cache_info().currsize == 0
+    assert _nvcc.load.cache_info().currsize == 0
 
 
 @pytest.mark.parametrize("l_harm,l_perc", [(3, 3), (15, 7), (61, 61)])

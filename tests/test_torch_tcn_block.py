@@ -1,8 +1,9 @@
 """The TCN block's fused pointwise chain (``ops/tcn_block.py``,
 ``csrc/tcn_block.cu``) on the CPU.
 
-The model's CPU route is the chain itself; these tests force the fused
-route (the autograd Functions over the plain versions) on CPU tensors and
+The model's CPU route is the chain itself; these tests force the block's
+fused route (``TCNResidualBlock.fused``) on CPU tensors, the autograd
+Functions over the plain versions in place of the kernels' launchers, and
 hold it to the chain: the forward bit for bit, the closed-form backward
 to autograd of the chain, the dropout draws and the generator they leave.
 The kernels' source is also built for the host with g++ (a stand-in for
@@ -12,7 +13,6 @@ them.  ``chip_smoke.py`` holds the kernels on the card.
 """
 
 import contextlib
-import ctypes
 import re
 import shutil
 import subprocess
@@ -24,6 +24,7 @@ import torch
 
 from sm_hpss_mtl_tpu_torch.models import layers
 from sm_hpss_mtl_tpu_torch.models.lemaire import LemaireMTL
+from sm_hpss_mtl_tpu_torch.models.tcn import TCNResidualBlock
 from sm_hpss_mtl_tpu_torch.ops import _nvcc
 from sm_hpss_mtl_tpu_torch.ops import tcn_block as tb
 from sm_hpss_mtl_tpu_torch.utils import profiling
@@ -61,13 +62,29 @@ def _mask(B, C, dtype, seed=1) -> torch.Tensor:
     return torch.empty(B, C, 1, dtype=dtype).bernoulli_(KEEP, generator=g)
 
 
+def _plain_b(x, conv, bias, skip):
+    out, t = tb.forward_b_plain(x, conv, bias)
+    return out, (t if skip else None)
+
+
 @pytest.fixture
-def fused(monkeypatch):
-    """The model's fused route on CPU tensors (the Functions over the
+def plain_kernels(monkeypatch):
+    """The kernels' launchers replaced by their plain versions, so the
+    ops' autograd Functions and ``vmap`` rules run on CPU tensors."""
+    monkeypatch.setattr(tb, "_launch_a", tb.forward_a_plain)
+    monkeypatch.setattr(tb, "_launch_b", _plain_b)
+    monkeypatch.setattr(tb, "_launch_backward_a",
+                        lambda grad, conv, bias, mask, keep, sink:
+                        tb.backward_a_plain(grad, conv, bias, mask, keep))
+
+
+@pytest.fixture
+def fused(plain_kernels, monkeypatch):
+    """The blocks' fused route on CPU tensors (the Functions over the
     plain versions), and the chain with each convolution's bias added
     after its product, as PyTorch adds a cuDNN convolution's on the card
     (oneDNN adds it inside the product, which differs in the last bit)."""
-    monkeypatch.setattr(tb, "fusable", lambda x: True)
+    monkeypatch.setattr(TCNResidualBlock, "forward", TCNResidualBlock.fused)
 
     def bias_after(self, x):
         y, b = self.parts(x)
@@ -87,7 +104,7 @@ def _step(model, batch, fuse: bool, train: bool, monkeypatch):
     the parameters after and the generator's state."""
     with monkeypatch.context() as m:
         if not fuse:
-            m.setattr(tb, "fusable", lambda x: False)
+            m.setattr(TCNResidualBlock, "forward", TCNResidualBlock.chain)
         gen = torch.Generator().manual_seed(5)
         layers.use_generator(model, gen)
         model.train(train)
@@ -167,7 +184,7 @@ def test_closed_form_backward_is_autograd_of_the_chain(dtype, with_mask,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_function_backward_is_the_closed_form(dtype):
+def test_function_backward_is_the_closed_form(plain_kernels, dtype):
     """The Function's backward on a CPU tensor is the closed form, and its
     bias gradient the sum over items and time."""
     conv, bias = _activation(3, 16, 7, dtype)
@@ -185,7 +202,7 @@ def test_function_backward_is_the_closed_form(dtype):
 
 
 @pytest.mark.parametrize("skip", [False, True])
-def test_forward_b_function(skip):
+def test_forward_b_function(plain_kernels, skip):
     g = torch.Generator().manual_seed(6)
     x, conv = (torch.randn(2, 8, 5, generator=g).requires_grad_()
                for _ in range(2))
@@ -204,7 +221,7 @@ def test_forward_b_function(skip):
     torch.testing.assert_close(bias.grad, g_conv.sum(dim=(0, 2)))
 
 
-def test_unused_block_output_takes_no_gradient():
+def test_unused_block_output_takes_no_gradient(plain_kernels):
     """With skip connections the last block's output is unused: its
     gradient stays None and the skip branch alone flows back."""
     x = torch.randn(2, 4, 3).requires_grad_()
@@ -299,7 +316,7 @@ def test_vmapped_multi_trial_step_takes_the_fused_route(fused, monkeypatch,
     def run(fuse: bool):
         with monkeypatch.context() as m:
             if not fuse:
-                m.setattr(tb, "fusable", lambda x: False)
+                m.setattr(TCNResidualBlock, "forward", TCNResidualBlock.chain)
             state = tmulti.init_trials(net, [3, 4], sgd)
             step = tmulti.make_multi_train_step(net, mtl=True, l2_reg=0.01)
             losses = [step(state, batch, labels, hyper)["loss"]
@@ -359,32 +376,6 @@ def test_a_backward_counts_into_its_forwards_collection():
     assert profiling.counters()["t.sink"] == before + 3
 
 
-def _c_params(src, fn):
-    sig = re.search(rf"\bint {fn}\((.*?)\)\s*\{{", src, re.S).group(1)
-    return ["p" if "*" in a else "f" if a.split()[0] == "float" else "i"
-            for a in sig.split(",")]
-
-
-def test_ctypes_bindings_match_c_signatures(monkeypatch):
-    import types
-    fns = ("tcn_forward_a", "tcn_forward_b", "tcn_backward_a")
-    lib = types.SimpleNamespace(**{n: types.SimpleNamespace()
-                                   for n in fns + ("tcn_error_string",)})
-    monkeypatch.setattr(_nvcc, "build", lambda source: "unbuilt.so")
-    monkeypatch.setattr(ctypes, "CDLL", lambda path: lib)
-    tb._library.cache_clear()
-    try:
-        tb._library()
-    finally:
-        tb._library.cache_clear()
-    src = (_nvcc.CSRC / "tcn_block.cu").read_text()
-    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
-    for fn in fns:
-        bound = getattr(lib, fn)
-        assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn), fn
-        assert bound.restype is ctypes.c_int
-
-
 def test_library_has_no_median_pair_in_its_name():
     path = _nvcc.library_path("tcn_block.cu")
     assert re.fullmatch(r"libtcn_block_[0-9a-f]{12}\.so", path.name)
@@ -415,12 +406,13 @@ def host_kernels(tmp_path_factory):
                     str(d / "tcn_block.cpp")], check=True,
                    capture_output=True)
     mp = pytest.MonkeyPatch()
-    mp.setattr(_nvcc, "build", lambda source: out)
-    mp.setattr(tb, "_device_context", lambda device: contextlib.nullcontext())
-    mp.setattr(tb, "_stream", lambda device: 0)
-    tb._library.cache_clear()
+    mp.setattr(_nvcc, "build", lambda source, *a: out)
+    mp.setattr(_nvcc, "_made_current",
+               lambda device: contextlib.nullcontext())
+    mp.setattr(_nvcc, "_stream", lambda device: 0)
+    _nvcc.load.cache_clear()
     yield tb
-    tb._library.cache_clear()
+    _nvcc.load.cache_clear()
     mp.undo()
 
 
@@ -535,12 +527,12 @@ def test_vmapped_multi_trial_step_on_the_kernel_source(host_kernels,
         run_(kernel, conv, bias, *a))[1])
 
     def run(fuse: bool):
+        def route(block, x, skip=True):
+            on = fuse and x.device.type == "cpu"
+            return (block.fused if on else block.chain)(x, skip)
+
         with monkeypatch.context() as m:
-            m.setattr(tb, "fusable", lambda x: fuse and x.device.type == "cpu")
-            for name, fn in (("_forward_a", tb._launch_a),
-                             ("_backward_a", tb._launch_backward_a),
-                             ("_forward_b", tb._launch_b)):
-                m.setattr(tb, name, fn)
+            m.setattr(TCNResidualBlock, "forward", route)
             state = tmulti.init_trials(net, [3, 4], lambda p: (
                 toptim.lemaire_optimizer(p, 50, trial_axis=True)[0]))
             step = tmulti.make_multi_train_step(net, mtl=True)

@@ -26,7 +26,7 @@ build/other``.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import json
 import subprocess
 import sys
@@ -74,58 +74,41 @@ def without_power(fn):
 
 
 def build_other(csrc: Path, tmp: str) -> dict:
-    """The other build's libraries, bound with their own C interface and
-    called as this checkout's wrappers call theirs (``without_power``)."""
+    """The other build's libraries by source, each bound as its own source
+    declares it (``_nvcc.bind``) and called as this checkout's wrappers
+    call theirs (``without_power``)."""
     libs = {}
-    for source, module in (("frontend.cu", frontend), ("hpss.cu", hpss)):
+    for source in ("frontend.cu", "hpss.cu"):
         out = Path(tmp) / f"lib{Path(source).stem}_other.so"
         subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS,
                         *_nvcc.pair_defines(PAIR), "-o", str(out),
                         str(csrc / source)], check=True, capture_output=True)
-        lib = ctypes.CDLL(str(out))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        if module is frontend:
-            lib.k1_stft_hpss_mel.argtypes = [p] * 6 + [i] * 12 + [p]
-            lib.k2_stft_hpss.argtypes = [p] * 4 + [i] * 11 + [p]
-            lib.k1_error_string.argtypes = [i]
-            lib.k1_error_string.restype = ctypes.c_char_p
-            names = ("k1_stft_hpss_mel", "k2_stft_hpss")
-        else:
-            lib.k3_hpss.argtypes = [p, p, p] + [i] * 6 + [p]
-            lib.k4_hpss_mel.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.k3_error_string.argtypes = [i]
-            lib.k3_error_string.restype = ctypes.c_char_p
-            names = ("k3_hpss", "k4_hpss_mel")
-        for name in names:
-            getattr(lib, name).restype = i
-        errors = ("k1_error_string" if module is frontend
-                  else "k3_error_string")
-        libs[module] = types.SimpleNamespace(
-            **{name: without_power(getattr(lib, name)) for name in names},
-            **{errors: getattr(lib, errors)})
+        lib = _nvcc.bind(out, csrc / source)
+        libs[source] = types.SimpleNamespace(**{
+            name: getattr(lib, name) if name.endswith("_error_string")
+            else without_power(getattr(lib, name))
+            for name in _nvcc.signatures(csrc / source)
+            if not name.endswith("_blocks_per_sm")})
     return libs
 
 
-class Using:
-    """The wrappers of ``module`` launch ``lib`` inside the block."""
-
-    def __init__(self, module, lib):
-        self.module, self.lib = module, lib
-
-    def __enter__(self):
-        self.saved = self.module._library
-        self.module._library = lambda *a, **kw: self.lib
-
-    def __exit__(self, *exc):
-        self.module._library = self.saved
+@contextlib.contextmanager
+def using(libs: dict, which: str):
+    """The wrappers launch the other build's libraries inside
+    (``which='other'``), or this checkout's."""
+    load = _nvcc.load
+    if which == "other":
+        _nvcc.load = lambda source, *a, **kw: libs[source]
+    try:
+        yield
+    finally:
+        _nvcc.load = load
 
 
 def run(libs: dict, which: str, fn):
     """``fn()`` with the other build's libraries (``which='other'``) or
     this checkout's."""
-    if which == "this":
-        return fn()
-    with Using(frontend, libs[frontend]), Using(hpss, libs[hpss]):
+    with using(libs, which):
         return fn()
 
 
