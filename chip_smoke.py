@@ -38,7 +38,13 @@ Phases, each of which must pass:
    bf16 (the forwards bit for bit, the backward within a float32
    tolerance), with times beside their bytes bounds, then in Lemaire-MTL:
    an eval call and a train step against the chain, the patch step graphed
-   against eager, 24 launches of each kernel a step or call;
+   against eager, 24 launches of each kernel a step or call; Jang's conv
+   block kernel (``ops/conv_block.py``, ``phase_conv_block``) against its
+   plain version at Jang-MTL's three block shapes of a 1024-window call, in
+   float32 and bf16, pooling 'SAME' and 'VALID', with times beside the
+   bytes bound and the eager chain's, then a Jang-MTL call (float32, bf16),
+   a single-task Jang call and Jang-MTL's vmapped multi-trial evaluation
+   step against the chain, three launches a call;
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -680,7 +686,7 @@ def phase_kernels(card: str, eval_frames: dict) -> tuple[list[dict], dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checked = {"K1": set(), "K2": set(), "K3": set(), "K4": set(),
-               "tcn": set()}
+               "tcn": set(), "conv_block": set()}
 
     def audio(n_fft, B, T):
         return torch.randn((B, n_fft + (T - 1) * 160), generator=gen,
@@ -1197,16 +1203,19 @@ def recorded():
     ``"l_harm,l_perc"``), per mask power (``by_power``, keyed by the float
     power), in halo mode (``halo``), and K1's and K2's per DFT precision
     (``launches_by_precision``); the TCN block's kernels' launches per
-    kernel (``tcn``).  The shapes are the calls' (a TCN kernel's: kernel,
+    kernel (``tcn``); Jang's conv block kernel's per pooling mode
+    (``conv_block``).  The shapes are the calls' (a TCN kernel's: kernel,
     dtype, B, C, T, bias rows, and whether a dropout mask was given, None
-    for forward_b, which takes none)."""
+    for forward_b, which takes none; the conv block's: dtype, B, C, H, W,
+    Ho, Wo, parameter rows)."""
     from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend
     from sm_hpss_mtl_tpu_torch.utils.profiling import counters
     rec = {"shapes": {"K1": set(), "K2": set(), "K3": set(), "K4": set(),
-                      "tcn": set()}}
+                      "tcn": set(), "conv_block": set()}}
     launch = _nvcc.launch
     kernel_of = {"k1_stft_hpss_mel": "K1", "k2_stft_hpss": "K2",
-                 "k3_hpss": "K3", "k4_hpss_mel": "K4"}
+                 "k3_hpss": "K3", "k4_hpss_mel": "K4",
+                 "conv_block_forward": "conv_block"}
 
     def rec_launch(source, fn, device, *args, **kw):
         a = dict(zip((n for n, _ in _nvcc.signatures(_nvcc.CSRC / source)[
@@ -1227,6 +1236,9 @@ def recorded():
                    a["F"], a["T"])
         elif k == "K4":
             key = (a["l_harm"], a["l_perc"], a["B"], a["F"], a["T"])
+        elif k == "conv_block":
+            key = ("bfloat16" if a["bf16"] else "float32", a["B"], a["C"],
+                   a["H"], a["W"], a["Ho"], a["Wo"], a["rows"])
         else:
             key = (fn[len("tcn_"):], "bfloat16" if a["bf16"] else "float32",
                    a["B"], a["C"], a["T"], a["bias_rows"],
@@ -1265,6 +1277,8 @@ def recorded():
             for k in ("K1", "K2")}
         rec["tcn"] = {k: launches(f"tcn_block.launches_by_kernel.{k}")
                       for k in TCN_KERNELS}
+        rec["conv_block"] = {p: launches(f"conv_block.launches_by_pool.{p}")
+                             for p in CONV_BLOCK_POOLS}
     finally:
         _nvcc.launch = launch
 
@@ -1301,7 +1315,9 @@ def serve(model: str, wav: str, weights: str, out: str, device: str,
         check(bool(np.isfinite(tracks[k]).all()), f"{k} not finite")
 
     return {"tracks": tracks, "launches": rec["launches"], "frames": T,
-            "tcn": rec["tcn"], "total_s": total_s, "shapes": rec["shapes"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"],
+            "total_s": total_s, "shapes": rec["shapes"],
             "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "halo": rec["halo"]}
 
@@ -1395,7 +1411,8 @@ def resynth(wav: str, out_dir: str, device: str) -> dict:
     for k in ("yh", "yp"):
         check(bool(np.isfinite(kept[k]).all()), f"resynthesis {k} not finite")
     return {**kept, "launches": rec["launches"], "shapes": rec["shapes"],
-            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s}
 
@@ -1543,7 +1560,7 @@ def evaluate(model: str, corpus: dict, weights: str, device: str,
           f"{model}: featurized frames {sorted(seen['frames'])}, planned "
           f"{sorted(want)}")
     return {"result": res, "sweep": swept, "launches": rec["launches"],
-            "tcn": rec["tcn"],
+            "tcn": rec["tcn"], "conv_block": rec["conv_block"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "test_model_s": t1 - t0,
@@ -1569,6 +1586,7 @@ def fuse_late(corpus: dict, ckpts: tuple, out: str, device: str) -> dict:
                                       "Performance.csv")),
           "fuse_late wrote no Performance.csv")
     return {"result": res, "launches": rec["launches"], "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"],
             "shapes": rec["shapes"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s,
@@ -1608,7 +1626,8 @@ def classify(wav: str, weights: str, device: str) -> dict:
           and bool(np.isfinite(out["probabilities"]).all()),
           "classifier probabilities")
     return {"out": out, "launches": rec["launches"], "shapes": rec["shapes"],
-            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "total_s": total_s}
 
@@ -1736,7 +1755,8 @@ def train_cli(corpus: dict, out: str, pipeline: str,
     check(rec["launches"] == want, f"{tag}: launches {rec['launches']}, "
           f"want {want} ({computes} featurized files)")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"],
             "launches_by_precision": rec["launches_by_precision"],
             "total_s": total_s, "featurized_files": computes,
@@ -2255,6 +2275,7 @@ def bf16_step_checks(corpus: dict) -> dict:
         f"{m} {r['features_max_abs_delta']:.3e}" for m, r in out.items())
         + "): " + "; ".join(bad))
     return {"models": out, "launches": rec["launches"], "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"],
             "shapes": rec["shapes"]}
 
 
@@ -2307,7 +2328,8 @@ def scope_checks(wav: str, weights: str) -> dict:
                 seg.standardize = scope
                 tracks[dev, scope] = seg.frame_probabilities(fv)
     out = {"launches": rec["launches"], "shapes": rec["shapes"],
-           "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+           "tcn": rec["tcn"],
+           "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
            "by_power": rec["by_power"]}
     for scope in ("featuregram", "none"):
         d = max(float(np.abs(tracks["cuda", scope][k]
@@ -2499,7 +2521,8 @@ def tune_cli(corpus: dict, out: str, name: str, argv: tuple,
                   for lh, lp in pairs}
         check(all(widths.values()), f"{name}: K1 launches per pair {widths}")
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "total_s": total_s, "rows": rows,
             "k1_launches_per_pair": widths}
 
@@ -2640,7 +2663,9 @@ def featurize_checks(corpus: dict, out: str) -> dict:
                                    os.path.join(out, dev), "--device", dev])
             total_s = time.perf_counter() - t0
         runs[dev] = {"launches": rec["launches"], "shapes": rec["shapes"],
-                     "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+                     "tcn": rec["tcn"],
+                     "conv_block": rec["conv_block"],
+                     "by_pair": rec["by_pair"],
                      "by_power": rec["by_power"], "total_s": total_s,
                      "computed": done,
                      "features": _cached_features(os.path.join(out, dev))}
@@ -2718,7 +2743,8 @@ def tsne_checks(corpus: dict) -> dict:
     # A bar under the skewness's range, 2 (n - 2) / sqrt(n - 1), holds.
     holds = bar < 2 * 66 / np.sqrt(67)
     return {"launches": rec["launches"], "shapes": rec["shapes"],
-            "tcn": rec["tcn"], "by_pair": rec["by_pair"],
+            "tcn": rec["tcn"],
+            "conv_block": rec["conv_block"], "by_pair": rec["by_pair"],
             "by_power": rec["by_power"], "total_s": total_s,
             "features_shape": list(gx.shape),
             "featuregram_max_abs_db_vs_cpu": db,
@@ -3638,11 +3664,306 @@ def phase_tcn_block(card: str, checked: dict) -> dict:
             "s": time.perf_counter() - t0}
 
 
+#: phase_conv_block: Jang-MTL's three conv blocks at a segmenter's model
+#: call (1024 windows of two towers of 120 mel rows by 68 frames), each
+#: product's (items, C, H, W).
+CONV_BLOCK_SHAPES = {"b1": (1024, 32, 240, 68), "b2": (1024, 64, 120, 34),
+                     "b3": (1024, 128, 60, 17)}
+#: The pooling modes as the counters name them: Jang-MTL pools 'SAME', the
+#: single-task Jang 'VALID'.
+CONV_BLOCK_POOLS = ("same", "valid")
+#: The kernel against the eager chain on the card, relative to the largest
+#: output (the chain's own float operations, so bit for bit where they are
+#: the same; this bar is what a different rounding of BatchNorm may cost).
+CONV_BLOCK_RTOL = 1e-6
+#: Jang's paths in phase 12 that run a model call in eval mode with no
+#: gradient on the card (serving and evaluation: each launches the kernel;
+#: the training runs' validation may).
+CONV_BLOCK_SERVING = ("jang_60", "jang_600", "jang_10", "eval_jang")
+CONV_BLOCK_PATHS = CONV_BLOCK_SERVING + ("train_jang_device",
+                                         "train_jang_host",
+                                         "train_Jang_et_al")
+
+
+def _conv_block_inputs(B: int, C: int, H: int, W: int, dtype, gen,
+                       rows: int = 1) -> tuple:
+    """A conv product and its bias in ``dtype``, and BatchNorm's running
+    mean and variance, weight and shift in the seeded weights' ranges (one
+    channel's weight negative, one's variance near 0), ``(C,)`` or
+    ``(rows, C)``, on the card."""
+    import torch
+    dev = gen.device
+    shape = (rows, C) if rows > 1 else (C,)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    conv = torch.randn((B, C, H, W), generator=gen, device=dev) * 2
+    weight = u(0.9, 1.1)
+    weight[..., 1] *= -1
+    var = u(0.9, 1.1)
+    var[..., 2] = 1e-4
+    params = {"running_mean": u(-0.05, 0.05), "running_var": var,
+              "weight": weight, "bias": u(-0.05, 0.05)}
+    return conv.to(dtype), u(-0.05, 0.05).to(dtype), params
+
+
+def _conv_block_plain_rows(conv, bias, params: dict, padding: str):
+    """``conv_block_plain`` for each row of ``(rows, C)`` parameters over its
+    share of the items (one call for ``(C,)`` ones)."""
+    import types
+
+    import torch
+    from sm_hpss_mtl_tpu_torch.models.heads import BN_KW
+    from sm_hpss_mtl_tpu_torch.ops.conv_block import conv_block_plain
+    if bias.ndim == 1:
+        return conv_block_plain(conv, bias, types.SimpleNamespace(
+            **params, eps=BN_KW["eps"]), padding)
+    rows = len(bias)
+    return torch.cat([conv_block_plain(
+        part, bias[g], types.SimpleNamespace(
+            **{k: v[g] for k, v in params.items()}, eps=BN_KW["eps"]),
+        padding) for g, part in enumerate(conv.chunk(rows))])
+
+
+def _gap(got, want) -> dict:
+    """The kernel's output against the chain's: bit for bit or not, the
+    values that differ, the largest gap relative to the largest output."""
+    import torch
+    torch.cuda.synchronize()
+    same_shape = got.shape == want.shape and got.dtype == want.dtype
+    return {"bitwise": bool(same_shape and torch.equal(
+                got.view(torch.int32), want.view(torch.int32))),
+            "values_differing": int((got != want).sum()) if same_shape
+            else -1,
+            "rel_gap": _rel_err(got, want) if same_shape else float("inf")}
+
+
+def _conv_block_key(B: int, C: int, H: int, W: int, dtype: str,
+                    padding: str, rows: int = 1) -> tuple:
+    """A launch shape as ``recorded`` keys it."""
+    from sm_hpss_mtl_tpu_torch.ops.conv_block import pooled_size
+    return (dtype, B, C, H, W, pooled_size(H, padding),
+            pooled_size(W, padding), rows)
+
+
+def _conv_block_hold(B: int, C: int, H: int, W: int, dtype, padding: str,
+                     gen, rows: int = 1) -> tuple[dict, tuple]:
+    """The kernel against the plain version at one shape, within
+    ``CONV_BLOCK_RTOL`` of the largest output; its readings, and the
+    kernel's arguments and the plain call for timing."""
+    from sm_hpss_mtl_tpu_torch.models.heads import BN_KW
+    from sm_hpss_mtl_tpu_torch.ops import conv_block as cb
+    conv, bias, params = _conv_block_inputs(B, C, H, W, dtype, gen, rows)
+    args = (conv, bias, params["running_mean"], params["running_var"],
+            params["weight"], params["bias"], BN_KW["eps"], padding)
+    rec = _gap(cb._launch(*args),
+               _conv_block_plain_rows(conv, bias, params, padding))
+    check(rec["rel_gap"] <= CONV_BLOCK_RTOL,
+          f"conv_block {dtype} {padding} {(B, C, H, W)} rows {rows}: "
+          f"{rec['values_differing']} values differ, the largest by "
+          f"{rec['rel_gap']:.3e} of the largest output")
+    return rec, (args, functools.partial(_conv_block_plain_rows, conv, bias,
+                                         params, padding))
+
+
+def _hold_conv_block_shapes(keys: set, checked: dict) -> list:
+    """``_conv_block_hold`` at each launch shape of ``keys`` (``recorded``'s
+    ``shapes["conv_block"]``) that ``checked["conv_block"]`` lacks, each
+    then added to it; the shapes held here."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    held = []
+    for key in sorted(keys - checked["conv_block"], key=str):
+        dtype, B, C, H, W, Ho, Wo, rows = key
+        padding = "SAME" if (Ho, Wo) == (-(-H // 2), -(-W // 2)) else "VALID"
+        _conv_block_hold(B, C, H, W, getattr(torch, dtype), padding, gen,
+                         rows)
+        checked["conv_block"].add(key)
+        held.append(list(key))
+    return held
+
+
+def _conv_block_registers() -> dict:
+    """Per instance of ``csrc/conv_block.cu``'s kernel (its storage type
+    and columns a thread), registers and spill bytes (the ptxas report)."""
+    import re
+    from sm_hpss_mtl_tpu_torch.ops import _nvcc
+    log = Path(str(_nvcc.library_path("conv_block.cu")) + ".log").read_text()
+    out = {}
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        kind = "bf16" if "BF16" in name else "f32"
+        vec = re.search(r"Li(\d+)E", name)
+        spill = sum(map(int, re.search(r"(\d+) bytes spill stores, (\d+) "
+                                       r"bytes spill loads", part).groups()))
+        out[f"{kind} vec {vec.group(1) if vec else name}"] = {
+            "registers": int(re.search(r"Used (\d+) registers",
+                                       part).group(1)),
+            "spill_bytes": spill}
+    return out
+
+
+def _conv_block_counts(before: dict) -> dict:
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
+    now = counters()
+    return {p: now.get(f"conv_block.launches_by_pool.{p}", 0)
+            - before.get(f"conv_block.launches_by_pool.{p}", 0)
+            for p in CONV_BLOCK_POOLS}
+
+
+@contextlib.contextmanager
+def _conv_chain():
+    """Jang's conv blocks on the chain (the plain version) inside."""
+    from sm_hpss_mtl_tpu_torch.models.jang import _ConvBlock
+    forward = _ConvBlock.forward
+    _ConvBlock.forward = _ConvBlock.chain
+    try:
+        yield
+    finally:
+        _ConvBlock.forward = forward
+
+
+def _conv_block_kernel_checks(checked: dict) -> dict:
+    """The kernel against its plain version at Jang-MTL's three block shapes
+    (``CONV_BLOCK_SHAPES``), in float32 and bf16, pooling 'SAME' and
+    'VALID', each shape added to ``checked["conv_block"]``; the times of
+    kernel (CUDA events, and the profiler's device time) and eager chain
+    beside the bytes bound (the product read once, the pooled float32
+    result written once)."""
+    import torch
+    from benchmark import counts
+    from sm_hpss_mtl_tpu_torch.ops import conv_block as cb
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    out = {}
+    for blk, (B, C, H, W) in CONV_BLOCK_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            for padding in ("SAME", "VALID"):
+                rec, (args, plain) = _conv_block_hold(B, C, H, W, dtype,
+                                                      padding, gen)
+                checked["conv_block"].add(
+                    _conv_block_key(B, C, H, W, name, padding))
+                Ho, Wo = cb.pooled_size(H, padding), cb.pooled_size(W,
+                                                                    padding)
+                nbytes = B * C * (H * W * args[0].element_size()
+                                  + Ho * Wo * 4)
+                ms, lo, hi = cuda_ms(lambda a=args: cb._launch(*a), reps=10,
+                                     batches=5)
+                dev_ms = device_ms(lambda a=args: cb._launch(*a),
+                                   "conv_block", reps=20)
+                bound = 1e3 * nbytes / counts.HBM_BYTES_PER_S
+                rec.update({"ms": ms, "ms_spread": [lo, hi],
+                            "device_ms": dev_ms, "bound_ms": bound,
+                            "roofline": bound / (dev_ms or ms),
+                            "library_ms": cuda_ms(plain, reps=5,
+                                                  batches=3)[0]})
+                out[f"{blk} {name} {padding} {B}x{C}x{H}x{W}"] = rec
+                del args, plain
+    return out
+
+
+def _conv_block_model_checks() -> dict:
+    """Jang-MTL (pooling 'SAME'; float32 and bf16 compute) and the
+    single-task Jang ('VALID') at full width on the card, a segmenter's
+    model call of 1024 windows, fused against the chain: every output
+    within ``CONV_BLOCK_RTOL`` of the chain's largest (bit for bit where
+    the kernel is), three launches a call in the model's mode, and the
+    call's time either way; then Jang-MTL's vmapped multi-trial evaluation
+    step (``_multi_trials``' four trials) fused against the chain, the
+    kernel launched once a block over the four trials' items with a
+    parameter row each."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.train import multitrial
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    B = CONV_BLOCK_SHAPES["b1"][0]
+    x = torch.randn((B, 514, 68, 1), generator=gen, device="cuda")
+    res = {}
+    for model, dtype, pool in (("Jang_et_al_MTL", None, "same"),
+                               ("Jang_et_al_MTL", torch.bfloat16, "same"),
+                               ("Jang_et_al", None, "valid")):
+        net = _seeded(model, dtype=dtype).cuda().eval()
+        xin = x if model.endswith("MTL") else x[:, :257]
+        with torch.inference_mode():
+            before = counters()
+            fused = net(xin)
+            counts = _conv_block_counts(before)
+            with _conv_chain():
+                chain = net(xin)
+            if not isinstance(fused, dict):
+                fused, chain = {"out": fused}, {"out": chain}
+            gaps = {k: _gap(fused[k], chain[k]) for k in chain}
+            fused_ms = cuda_ms(lambda: net(xin), reps=3, batches=5)[0]
+            with _conv_chain():
+                chain_ms = cuda_ms(lambda: net(xin), reps=3, batches=5)[0]
+        tag = f"{model} {'bf16' if dtype else 'float32'}"
+        worst = max(g["rel_gap"] for g in gaps.values())
+        check(worst <= CONV_BLOCK_RTOL,
+              f"{tag} eval call: outputs {worst:.3e} from the chain's")
+        check(counts == {p: 3 if p == pool else 0 for p in CONV_BLOCK_POOLS},
+              f"{tag} eval call launches {counts}")
+        res[tag] = {"launches": counts, "gaps": gaps, "fused_ms": fused_ms,
+                    "chain_ms": chain_ms}
+        del net
+
+    net = _seeded("Jang_et_al_MTL")
+    trials = _multi_trials()
+    hyper = multitrial.stack_hyperparams(trials, ("3C", "M", "R", "S"),
+                                         "cuda")
+    step = multitrial.make_multi_eval_step(net, mtl=True)
+    Bt = 36
+    patches = torch.randn((Bt, 514, 68, 1), generator=gen, device="cuda")
+    cls = torch.arange(Bt, device="cuda") % 3
+    labels = {"S": (cls == 1).float(), "M": (cls == 0).float(),
+              "R": torch.stack([(cls != 1).float(), (cls != 0).float()], -1),
+              "3C": torch.nn.functional.one_hot(cls, 3).float()}
+    got = {}
+    for chain in (False, True):
+        state, _ = _multi_setup(net, len(trials), "cuda")
+        with _conv_chain() if chain else contextlib.nullcontext():
+            with recorded() as rec:
+                metrics = step(state, patches, labels, hyper)
+        got[chain] = (metrics["loss"], rec["conv_block"],
+                      rec["shapes"]["conv_block"])
+    (loss_f, n_f, shapes_f), (loss_c, n_c, _) = got[False], got[True]
+    n = len(trials)
+    check(n_f == {"same": 3, "valid": 0} and not any(n_c.values()),
+          f"multi-trial evaluation launches {n_f}, on the chain {n_c}")
+    want = {_conv_block_key(n * Bt, C, H, W, "float32", "SAME", n)
+            for _, C, H, W in CONV_BLOCK_SHAPES.values()}
+    check(shapes_f == want, f"multi-trial evaluation launch shapes "
+          f"{sorted(shapes_f)}")
+    loss_gap = _rel_err(loss_f, loss_c)
+    check(loss_gap <= CONV_BLOCK_RTOL,
+          f"multi-trial evaluation losses {loss_f.tolist()} against the "
+          f"chain's {loss_c.tolist()}")
+    res["multi_trial_eval"] = {
+        "launches": n_f, "shapes": sorted(shapes_f),
+        "losses": loss_f.tolist(), "loss_rel_gap_vs_chain": loss_gap,
+        "losses_bitwise": bool(torch.equal(loss_f, loss_c))}
+    return res
+
+
+def phase_conv_block(card: str, checked: dict) -> dict:
+    """Jang's conv block kernel (``ops/conv_block.py``): against its plain
+    version at the main path's shapes (which go into
+    ``checked["conv_block"]``), then in the Jang models
+    (``_conv_block_kernel_checks``, ``_conv_block_model_checks``);
+    registers and spills from the ptxas report."""
+    from sm_hpss_mtl_tpu_torch.ops import conv_block
+    t0 = time.perf_counter()
+    conv_block.build()
+    return {"card": card, "registers": _conv_block_registers(),
+            "kernels": _conv_block_kernel_checks(checked),
+            "model": _conv_block_model_checks(),
+            "s": time.perf_counter() - t0}
+
+
 def _run_of(rec: dict) -> dict:
     """A ``recorded`` block's launches, shapes, per-pair, per-power and halo
     counts, as the phase-12 checks read a path's run."""
     return {k: rec[k] for k in ("launches", "shapes", "by_pair", "by_power",
-                                "halo", "tcn")}
+                                "halo", "tcn", "conv_block")}
 
 
 def _period_ms(fn, steps: int = 20) -> tuple[float, list]:
@@ -4138,11 +4459,12 @@ def build_all() -> tuple[float, list[str]]:
     process each (``ops/_nvcc.py``: one library per source, pair and DFT
     precision), with phase_modes' libraries; load the libraries.  Returns
     the wall time and the ptxas reports."""
-    from sm_hpss_mtl_tpu_torch.ops import _nvcc, frontend, hpss, tcn_block
+    from sm_hpss_mtl_tpu_torch.ops import (_nvcc, conv_block, frontend, hpss,
+                                           tcn_block)
     from sm_hpss_mtl_tpu_torch.ops.hpss import KERNEL_MEDIANS
     jobs = [(src, pair) for src in ("frontend.cu", "hpss.cu")
             for pair in KERNEL_MEDIANS]
-    jobs += [("tcn_block.cu",)]
+    jobs += [("tcn_block.cu",), ("conv_block.cu",)]
     # phase_modes' libraries: K1/K2 in bf16x3 and the pairs outside
     # KERNEL_MEDIANS, built with the rest (the powers are arguments).
     jobs += [("frontend.cu", (21, 11), "bf16x3")]
@@ -4154,6 +4476,7 @@ def build_all() -> tuple[float, list[str]]:
     frontend.build()
     hpss.build()
     tcn_block.build()
+    conv_block.build()
     logs = [f"{lib.name}:\n" + lib.with_suffix(".so.log").read_text().strip()
             for lib in libs if lib.with_suffix(".so.log").exists()]
     return time.perf_counter() - t0, logs
@@ -4165,6 +4488,7 @@ def _shapes_checked(tag: str, shapes: dict, checked: dict) -> None:
     phase 3 did not check is held to its plain version here
     (``_hold_tcn_shapes``)."""
     _hold_tcn_shapes(shapes.get("tcn", set()), checked)
+    _hold_conv_block_shapes(shapes.get("conv_block", set()), checked)
     unchecked = {k: sorted(v - checked[k]) for k, v in shapes.items()
                  if v - checked[k]}
     check(not unchecked, f"{tag}: launch shapes phase 3 did not check: "
@@ -4266,6 +4590,17 @@ def run() -> None:
             tcn["kernels"]["eval float32 10000x32x68"].items()
             if isinstance(v, dict)), flush=True)
         print(json.dumps({"tcn_block": tcn}, default=str), flush=True)
+
+        cb = phase_conv_block(card, checked)
+        print("[3 conv_block] ok, {:.1f} s; ".format(cb["s"]) + "; ".join(
+            f"{k} {v['device_ms']} ms device (bound {v['bound_ms']:.4f}, "
+            f"chain {v['library_ms']:.4f}, bit for bit {v['bitwise']})"
+            for k, v in cb["kernels"].items() if "float32 SAME" in k)
+            + "; " + "; ".join(f"{k} call {v['fused_ms']:.2f} ms (chain "
+                               f"{v['chain_ms']:.2f})"
+                               for k, v in cb["model"].items()
+                               if "fused_ms" in v), flush=True)
+        print(json.dumps({"conv_block": cb}, default=str), flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",
@@ -4846,6 +5181,44 @@ def run() -> None:
             **tcn["registers"][kernel]})
     check(tcn_shapes <= checked["tcn"], "TCN launch shapes left unheld: "
           f"{sorted(tcn_shapes - checked['tcn'], key=str)}")
+    # Jang's conv block kernel on the Jang models' paths: on each serving and
+    # evaluation path (a model call in eval mode with no gradient on the
+    # card), three launches a call, 'SAME' for Jang-MTL and 'VALID' for the
+    # single-task model; every launch shape held to the plain version; no
+    # launch on another path.
+    cb_shapes = set().union(*(runs[n]["shapes"]["conv_block"]
+                              for n in CONV_BLOCK_PATHS))
+    cb_held = _hold_conv_block_shapes(cb_shapes, checked)
+    cb_by_path = {n: runs[n]["conv_block"] for n in CONV_BLOCK_PATHS}
+    for n, by in cb_by_path.items():
+        pool = "valid" if n == "train_Jang_et_al" else "same"
+        check(sum(by.values()) % 3 == 0 and not any(
+            v for p, v in by.items() if p != pool)
+            and (by[pool] > 0 or n not in CONV_BLOCK_SERVING),
+            f"conv_block launches on {n}: {by}")
+    others = [n for n in runs if n not in CONV_BLOCK_PATHS
+              and any(runs[n]["conv_block"].values())]
+    check(not others, f"conv_block launched on another path: {others}")
+    cb_reading = cb["kernels"]["b1 float32 SAME {}x{}x{}x{}".format(
+        *CONV_BLOCK_SHAPES["b1"])]
+    entries.append({
+        "name": "conv_block",
+        "launches": sum(sum(v.values()) for v in cb_by_path.values()),
+        "launches_by_pool": {p: sum(v[p] for v in cb_by_path.values())
+                             for p in CONV_BLOCK_POOLS},
+        "launches_by_path": {n: v for n, v in cb_by_path.items()
+                             if any(v.values())},
+        "shapes": sorted(cb_shapes), "shapes_held_in_phase_12": cb_held,
+        **{k: cb_reading[k] for k in ("ms", "ms_spread", "device_ms",
+                                      "bound_ms", "roofline", "library_ms",
+                                      "bitwise", "rel_gap")},
+        "timed_shape": list(CONV_BLOCK_SHAPES["b1"]),
+        "registers": cb["registers"]})
+    check(cb_shapes <= checked["conv_block"], "conv block launch shapes "
+          f"left unheld: {sorted(cb_shapes - checked['conv_block'])}")
+    print(f"[12 conv_block] {len(cb_shapes)} launch shapes on "
+          f"{len(CONV_BLOCK_PATHS)} paths, {len(cb_held)} held here; "
+          f"launches {entries[-1]['launches_by_path']}", flush=True)
     print(f"[12 tcn_block] {len(tcn_shapes)} launch shapes on "
           f"{len(tcn_paths)} paths, {len(tcn_held)} held here; launches "
           + ", ".join(f"{e['name']} {e['launches']}" for e in entries

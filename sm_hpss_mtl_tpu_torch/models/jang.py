@@ -7,7 +7,8 @@ channels are the F spectrogram rows and whose weight
 mel filter's support and initialised from the sr=16000, n_fft=512 mel
 filterbank.  Three conv blocks (Conv 3x3 -> BatchNorm -> ReLU -> Dropout
 -> max pool 2x2/2) follow; the MTL model adds a 2048/1024 dense stack and
-the S/M/R/3C heads.
+the S/M/R/3C heads.  At inference on CUDA a block's tail after the
+convolution's product runs as one kernel (``ops/conv_block.py``).
 
 Layout: input ``(B, F, T)`` or ``(B, F, T, 1)`` as in JAX; inside, the
 tower runs NCHW (channels, mel rows, time).  Before the first dense layer
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _nvcc, conv_block
 from ..ops import reference as ref
 from .heads import BN_KW, MTLHeads, dense_with_bn
 from .layers import BatchNorm2d, Conv2d, Dropout, Linear
@@ -74,13 +76,10 @@ class MelScaleLayer(nn.Module):
         return out.reshape(B, n_mels, C, T).transpose(1, 2)
 
 
-def _pooled(size: int, padding: str) -> int:
-    """Length after a 2/2 max pool."""
-    return -(-size // 2) if padding == "SAME" else size // 2
-
-
 class _ConvBlock(nn.Module):
-    """Conv 3x3 'same' -> BatchNorm -> ReLU -> Dropout -> max pool 2x2/2."""
+    """Conv 3x3 'same' -> BatchNorm -> ReLU -> Dropout -> max pool 2x2/2.
+    At inference on CUDA all after the product is one kernel
+    (``ops/conv_block.py``)."""
 
     def __init__(self, in_channels: int, features: int, dropout: float = 0.4,
                  pool_padding: str = "SAME", dtype: torch.dtype | None = None):
@@ -92,6 +91,22 @@ class _ConvBlock(nn.Module):
         self.pool_padding = pool_padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's one route decision: :meth:`fused` in eval mode with
+        no gradient recorded on CUDA, :meth:`chain` otherwise (batch
+        statistics and dropout masks in train mode, autograd, the CPU)."""
+        if self.training or torch.is_grad_enabled() \
+                or not _nvcc.on_card("conv_block", x):
+            return self.chain(x)
+        return self.fused(x)
+
+    def fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel's route: the product without its bias, then the bias,
+        BatchNorm, ReLU and the pool in one pass."""
+        conv, b = self.conv.parts(x)
+        return conv_block.conv_block(conv, b, self.bn, self.pool_padding)
+
+    def chain(self, x: torch.Tensor) -> torch.Tensor:
+        """The chain as written, the convolution with its bias."""
         x = self.dropout(torch.relu(self.bn(self.conv(x))))
         return max_pool(x, (2, 2), (2, 2), padding=self.pool_padding)
 
@@ -121,7 +136,8 @@ class JangCNN(nn.Module):
         self.b3 = _ConvBlock(64, 128, pool_padding=pool, dtype=dtype)
         H, W = (2 if mtl else 1) * n_mels, patch_size
         for _ in range(3):
-            H, W = _pooled(H, pool), _pooled(W, pool)
+            H = conv_block.pooled_size(H, pool)
+            W = conv_block.pooled_size(W, pool)
         flat = H * W * 128
         if mtl:
             self.fc1, self.fc1_bn = dense_with_bn(flat, 2048, dtype)

@@ -21,8 +21,10 @@ The program's own spans and counters:
   in ns), so they line up with the trace's events.
 - :func:`request` groups the spans of one unit of work (a train step, a
   segmented broadcast) under one id; it annotates nothing.
-- :func:`count` and :func:`counters` keep named counts (the K1–K4 and
-  TCN block kernel launches) under one lock, at all times; :func:`counted`
+- :func:`count` and :func:`counters` keep named counts (the K1–K4, TCN
+  block and conv block kernel launches: ``conv_block.launches`` and
+  ``conv_block.launches_by_pool.<same|valid>``, three a Jang model call
+  at inference on CUDA) under one lock, at all times; :func:`counted`
   also hands the counts one thread adds inside it to that thread (what a
   CUDA graph's capture launched, which its replays count again), and
   :func:`counting` names that dict, so that a backward pass counts into

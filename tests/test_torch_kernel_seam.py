@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sm_hpss_mtl_tpu_torch.ops import _nvcc
+from sm_hpss_mtl_tpu_torch.ops import conv_block as cb
 from sm_hpss_mtl_tpu_torch.ops import frontend as tfe
 from sm_hpss_mtl_tpu_torch.ops import hpss as thpss
 from sm_hpss_mtl_tpu_torch.ops import tcn_block as tb
@@ -26,7 +27,7 @@ from sm_hpss_mtl_tpu_torch.utils.profiling import counters
 
 REPO = Path(__file__).resolve().parents[1]
 
-#: Every function the three sources export, (source, name).
+#: Every function the four sources export, (source, name).
 EXPORTS = [
     ("frontend.cu", "k1_stft_hpss_mel"), ("frontend.cu", "k2_stft_hpss"),
     ("frontend.cu", "k1_blocks_per_sm"), ("frontend.cu", "k1_error_string"),
@@ -35,7 +36,11 @@ EXPORTS = [
     ("hpss.cu", "k3_error_string"),
     ("tcn_block.cu", "tcn_forward_a"), ("tcn_block.cu", "tcn_forward_b"),
     ("tcn_block.cu", "tcn_backward_a"), ("tcn_block.cu", "tcn_error_string"),
+    ("conv_block.cu", "conv_block_forward"),
+    ("conv_block.cu", "conv_block_error_string"),
 ]
+#: The sources with no median pair.
+UNPAIRED = ("tcn_block.cu", "conv_block.cu")
 
 
 def _c_params(src, fn):
@@ -65,7 +70,7 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, source, fn):
     # 32-bit ints or shifts every argument; only the card would show it.
     monkeypatch.setattr(_nvcc, "build", lambda *a: "unbuilt.so")
     monkeypatch.setattr(ctypes, "CDLL", _FakeCDLL)
-    pair = None if source == "tcn_block.cu" else (21, 11)
+    pair = None if source in UNPAIRED else (21, 11)
     _nvcc.load.cache_clear()
     try:
         lib = _nvcc.load(source, pair)
@@ -79,6 +84,12 @@ def test_ctypes_bindings_match_c_signatures(monkeypatch, source, fn):
     assert [kinds[a] for a in bound.argtypes] == _c_params(src, fn)
     assert bound.restype is (ctypes.c_char_p if fn.endswith("_error_string")
                              else ctypes.c_int)
+
+
+def _conv_block_operands():
+    conv = torch.zeros(2, 8, 5, 6)
+    return (conv, torch.zeros(8), *(torch.ones(8) for _ in range(4)), 1e-3,
+            "SAME")
 
 
 def _tcn_operands():
@@ -122,6 +133,9 @@ LAUNCHES = {
                    lambda: tb._launch_backward_a(
                        _tcn_operands()[4], *_tcn_operands()[:3], 0.725,
                        None)),
+    "conv_block": ("conv_block.cu", "conv_block_forward", "conv_block "
+                   "kernel launch failed at (2, 8, 5, 6)",
+                   lambda: cb._launch(*_conv_block_operands())),
 }
 
 
@@ -139,7 +153,7 @@ def _stand_in(monkeypatch, returns: int = 0) -> list:
         name: (lambda code: f"fake error {code}".encode())
         if name.endswith("_error_string") else kernel_fn
         for name in _nvcc.signatures(_nvcc.CSRC / source)})
-        for source in ("frontend.cu", "hpss.cu", "tcn_block.cu")}
+        for source in ("frontend.cu", "hpss.cu", *UNPAIRED)}
     monkeypatch.setattr(_nvcc, "load", lambda source, *a, **kw: libs[source])
     monkeypatch.setattr(_nvcc, "_made_current",
                         lambda device: contextlib.nullcontext())
@@ -173,7 +187,8 @@ def test_chip_smoke_tally_reads_every_launch_at_the_seam(monkeypatch):
     """``chip_smoke.py::recorded`` counts each kernel's launches and keys
     its shapes from ``_nvcc.launch`` alone: K1/K2 by geometry, halo flags,
     DFT precision and power; K3 by mode; the TCN kernels by dtype, shape,
-    bias rows and mask."""
+    bias rows and mask; the conv block kernel by dtype, shape, pooled
+    shape and parameter rows, and per pooling mode."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -188,6 +203,7 @@ def test_chip_smoke_tally_reads_every_launch_at_the_seam(monkeypatch):
                    power=1.5, dft_precision="bf16x3")
     assert rec["launches"] == {"K1": 2, "K2": 1, "K3": 2, "K4": 1}
     assert rec["tcn"] == {"forward_a": 1, "forward_b": 1, "backward_a": 1}
+    assert rec["conv_block"] == {"same": 1, "valid": 0}
     assert rec["halo"] == {"K1": 0, "K2": 1}
     assert rec["launches_by_precision"]["K1"] == {"highest": 1, "bf16x3": 1}
     assert rec["shapes"] == {
@@ -198,4 +214,5 @@ def test_chip_smoke_tally_reads_every_launch_at_the_seam(monkeypatch):
         "K4": {(21, 11, 1, 201, 13)},
         "tcn": {("forward_a", "float32", 2, 8, 5, 1, True),
                 ("forward_b", "float32", 2, 8, 5, 1, None),
-                ("backward_a", "float32", 2, 8, 5, 1, True)}}
+                ("backward_a", "float32", 2, 8, 5, 1, True)},
+        "conv_block": {("float32", 2, 8, 5, 6, 3, 3, 1)}}
