@@ -44,7 +44,11 @@ Phases, each of which must pass:
    float32 and bf16, pooling 'SAME' and 'VALID', with times beside the
    bytes bound and the eager chain's, then a Jang-MTL call (float32, bf16),
    a single-task Jang call and Jang-MTL's vmapped multi-trial evaluation
-   step against the chain, three launches a call;
+   step against the chain, three launches a call; the SSD scan kernel
+   (``ops/ssd_scan.py``, ``phase_ssd_scan``) against its plain version at
+   Granite-4.0-H's head shapes (64 heads of 64, states of 128) for 1-4
+   slots, with and without a start state, a short last scan chunk, one
+   launch a call, timed beside its bound at the stream cell's 4 x 1500;
 4. Lemaire-MTL whole-signal serving: ``cli.segment.main`` on a synthetic
    60 s broadcast with full-width weights from a seeded init, and the same
    run on the CPU as its reference;
@@ -3959,6 +3963,100 @@ def phase_conv_block(card: str, checked: dict) -> dict:
             "s": time.perf_counter() - t0}
 
 
+#: phase_ssd_scan: (slots, positions, start state) against the plain
+#: version: the stream cell's call (4 x 1500: chunks 5 x 256 + 220), 1-3
+#: slots, a whole chunk, a chunk and a bit, and a call shorter than a chunk.
+SSD_SHAPES = ((4, 1500, True), (1, 1500, False), (2, 256, True),
+              (3, 257, False), (4, 37, True))
+
+
+def _ssd_inputs(slots: int, L: int, seed: int):
+    """The mixer's operands at Granite-4.0-H's widths: x, B and C as rows of
+    the conv output (4352 floats), dt in Mamba-2's range, A in [-16, -1],
+    D, and a start state."""
+    import torch
+    from sm_hpss_mtl_tpu_torch.ops import ssd_scan
+    H, P, N = 64, ssd_scan.HEAD_DIM, ssd_scan.STATE_DIM
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = 0.5 * torch.randn(slots, L, H * P + 2 * N, generator=g,
+                             device="cuda")
+    x = rows[..., :H * P].view(slots, L, H, P)
+    B, C = rows[..., H * P:H * P + N], rows[..., H * P + N:]
+    dt = torch.exp(np.log(1e-3) + np.log(100.0) * torch.rand(
+        slots, L, H, generator=g, device="cuda"))
+    A = -(1 + 15 * torch.rand(H, generator=g, device="cuda"))
+    D = 0.5 + torch.rand(H, generator=g, device="cuda")
+    state = 0.3 * torch.randn(slots, H, P, N, generator=g, device="cuda")
+    return x, dt, A, B, C, D, state
+
+
+def phase_ssd_scan(card: str, checked: dict) -> dict:
+    """The SSD scan kernel (``ops/ssd_scan.py``) against its plain version
+    (the recurrence, in float64) at :data:`SSD_SHAPES`, a launch counted at
+    each call; then timed at the stream cell's call (CUDA events, profiler
+    device time of its two kernels) beside its bound (``benchmark/flops/
+    granite_hybrid_mtl.py``'s operations and bytes at the float32 peak and
+    HBM) and the plain version's time; registers and spills from the ptxas
+    report."""
+    import torch
+    from benchmark import counts, harness
+    from benchmark.flops import granite_hybrid_mtl as gflops
+    from sm_hpss_mtl_tpu_torch.ops import ssd_scan
+    from sm_hpss_mtl_tpu_torch.utils.profiling import counters
+    t0 = time.perf_counter()
+    ssd_scan.build()
+    out = {"card": card, "shapes": {}}
+    for i, (slots, L, start) in enumerate(SSD_SHAPES):
+        x, dt, A, B, C, D, state = _ssd_inputs(slots, L, 100 + i)
+        state = state if start else None
+        before = counters().get("ssd_scan.launches", 0)
+        y, s = ssd_scan.ssd_scan(x, dt, A, B, C, D, state)
+        torch.cuda.synchronize()
+        launches = counters()["ssd_scan.launches"] - before
+        want_y, want_s = ssd_scan.ssd_scan_plain(
+            *(t.double() for t in (x, dt, A, B, C, D)),
+            None if state is None else state.double())
+        gap_y = float((y.double() - want_y).abs().max()
+                      / want_y.abs().max())
+        gap_s = float((s.double() - want_s).abs().max()
+                      / want_s.abs().max())
+        key = f"{slots}x{L}" + (" from a state" if start else "")
+        out["shapes"][key] = {"y_gap_of_max": gap_y, "state_gap_of_max":
+                              gap_s, "launches": launches}
+        # float32 decays from differences of a cumulative sum over a chunk
+        # (down to ~-400): ~3e-5 of the largest output at most.
+        check(gap_y < 1e-4 and gap_s < 1e-4 and launches == 1,
+              f"ssd_scan {key}: y {gap_y:.2e}, state {gap_s:.2e} of the "
+              f"largest, {launches} launches")
+        checked.setdefault("ssd_scan", set()).add(key)
+    x, dt, A, B, C, D, state = _ssd_inputs(4, 1500, 7)
+    fn = lambda: ssd_scan.ssd_scan(x, dt, A, B, C, D, state)  # noqa: E731
+    ms, lo, hi = cuda_ms(fn)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+              if "ssd_scan" in e.key) / 20 / 1e3
+    cfg = harness.read_json(harness.BENCH_DIR / "configs"
+                            / "granite_hybrid_mtl.json")
+    bound = 1e3 * 4 * counts.bound_s(gflops.scan_bytes(cfg, 1500),
+                                     gflops.scan_flops(cfg, 1500), card)
+    plain_ms = _host_ms(lambda: ssd_scan.ssd_scan_plain(
+        x, dt, A, B, C, D, state), reps=1)
+    out["4x1500"] = {"ms": ms, "spread": [lo, hi], "device_ms": dev,
+                     "bound_ms": bound, "roofline_pct": 100 * bound / dev
+                     if dev else None, "plain_ms": plain_ms}
+    log = ssd_scan._nvcc.library_path("ssd_scan.cu")
+    out["registers"] = {k: parse_ptxas(Path(str(log) + ".log").read_text(), k)
+                        for k in ("ssd_scan_cb", "ssd_scan_chunks")}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def _run_of(rec: dict) -> dict:
     """A ``recorded`` block's launches, shapes, per-pair, per-power and halo
     counts, as the phase-12 checks read a path's run."""
@@ -4601,6 +4699,15 @@ def run() -> None:
                                for k, v in cb["model"].items()
                                if "fused_ms" in v), flush=True)
         print(json.dumps({"conv_block": cb}, default=str), flush=True)
+
+        ssd = phase_ssd_scan(card, checked)
+        print("[3 ssd_scan] ok, {:.1f} s; 4x1500 {:.3f} ms, device {:.3f} "
+              "(bound {:.3f}); ".format(ssd["s"], ssd["4x1500"]["ms"],
+                                        ssd["4x1500"]["device_ms"],
+                                        ssd["4x1500"]["bound_ms"])
+              + ", ".join(f"{k} {v['y_gap_of_max']:.1e}"
+                          for k, v in ssd["shapes"].items()), flush=True)
+        print(json.dumps({"ssd_scan": ssd}, default=str), flush=True)
 
         wpath = {}
         for model in ("Lemaire_et_al_MTL", "Jang_et_al_MTL",

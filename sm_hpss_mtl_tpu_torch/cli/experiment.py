@@ -56,7 +56,7 @@ from ..parallel.distributed import (initialize_from_env, per_process_seed,
                                     process_file_shard)
 from ..train.checkpoint import (checkpoint_exists, restore_checkpoint,
                                 update_metadata)
-from ..train.config import ExperimentConfig
+from ..train.config import SERVED_KINDS, ExperimentConfig
 from ..train.endtoend import make_audio_eval_step, make_audio_train_step
 from ..train.loop import (EARLY_STOP_MIN_DELTA, EARLY_STOP_PATIENCE,
                           FitResult, evaluate_generator, fit)
@@ -148,7 +148,7 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 def _check_ported(config: ExperimentConfig) -> None:
     if config.model not in MTL:
         raise ValueError(f"unknown model {config.model!r}")
-    if INPUT_KIND[config.model] == "sequence":
+    if INPUT_KIND[config.model] in SERVED_KINDS:
         raise ValueError(
             f"{config.model} is served (cli.segment), not trained: a fold "
             "cuts 68-frame patches with one label each, and its 30-s "

@@ -4,7 +4,9 @@ Counterpart of ``python -m sm_hpss_mtl_tpu.cli.segment``: featurize a
 broadcast on the GPU (kernel K1 for the Mel-HPSS features of the Lemaire
 MTL models and Doukhan-MTL, kernel K2 for the full-resolution ones of
 Jang-MTL and Papakostas-MTL), run shift-1 windows of the model over it in
-chunks (Whisper-MTL: consecutive 30-s contexts, labelled per frame),
+chunks (Whisper-MTL: consecutive 30-s contexts, labelled per frame;
+Granite-Hybrid-MTL: the same chunks streamed through one slot of a causal
+model whose state carries from one chunk to the next),
 median-smooth the S or M track, optionally score against an interval CSV,
 and write per-frame labels.
 
@@ -48,14 +50,15 @@ from ..ops.featuregram import _parse, featuregram, featuregram_slabbed
 from ..ops.stft import n_frames
 from ..parallel import Mesh, featuregram_time_sharded
 from ..train.checkpoint import model_npz
-from ..train.config import MODEL_PRESETS, preset_n_mels
+from ..train.config import MODEL_PRESETS, SERVED_KINDS, preset_n_mels
 from ..utils.profiling import request, span
 
 #: Models this entry point serves: the MTL models with S and M heads that
 #: take one featuregram.
 MODELS = ("Lemaire_et_al_MTL", "Lemaire_et_al_Cascaded_MTL",
           "Lemaire_et_al_MTL_5class", "Jang_et_al_MTL",
-          "Papakostas_et_al_MTL", "Doukhan_et_al_MTL", "Whisper_MTL")
+          "Papakostas_et_al_MTL", "Doukhan_et_al_MTL", "Whisper_MTL",
+          "Granite_Hybrid_MTL")
 
 #: Broadcasts longer than this many frames featurize through
 #: ``featuregram_slabbed``, as in the JAX CLI.
@@ -140,8 +143,15 @@ def segmenter(model: str, predict_fn, *, patch_size: int = 68,
     preset's feature name, and model calls of at most
     ``IMAGE_BATCH_WINDOWS`` windows for 'image' models; for a 'sequence'
     model, contexts of the model's ``context_frames`` in calls of at most
-    ``SEQUENCE_BATCH_CONTEXTS``."""
+    ``SEQUENCE_BATCH_CONTEXTS``; for a 'stream' model, chunks of its
+    ``context_frames`` (a file streams through one slot; several streams
+    side by side through the segmenter's ``slots``)."""
     kind = INPUT_KIND[model]
+    if kind == "stream":
+        return StreamingSegmenter(
+            predict_fn=predict_fn, input_kind=kind,
+            feat_name=MODEL_PRESETS[model]["feat_name"],
+            context_frames=predict_fn.context_frames)
     if kind == "sequence":
         return StreamingSegmenter(
             predict_fn=predict_fn, input_kind=kind,
@@ -184,7 +194,7 @@ def main(argv=None, *, devices=None):
     args = p.parse_args(argv)
 
     check_model(args.model)
-    if INPUT_KIND[args.model] == "sequence":
+    if INPUT_KIND[args.model] in SERVED_KINDS:
         for flag, value in (("--patch-size", args.patch_size),
                             ("--chunk-frames", args.chunk_frames)):
             if value != p.get_default(flag[2:].replace("-", "_")):

@@ -9,7 +9,9 @@ its plain Python loop over chunks:
 - :class:`StreamingSegmenter`: dense inference over a featuregram of any
   length, in fixed chunks of shift-1 windows, giving per-window S and M
   probability tracks from the MTL heads; or, for a sequence model
-  (Whisper-MTL), in consecutive contexts labelled per frame.
+  (Whisper-MTL), in consecutive contexts labelled per frame; or, for a
+  stream model (Granite-Hybrid-MTL), chunk by chunk through slots whose
+  state the model carries (:class:`StreamSlots`).
 - :func:`smooth_predictions`: median smoothing of a probability track;
   :func:`mode_filtering`: sliding-mode smoothing of a label track.
 
@@ -132,7 +134,14 @@ class StreamingSegmenter:
     tracks are cut to the featuregram's ``T`` frames.  There the spans
     count contexts, ``segment.assemble`` covers cutting, padding and
     stacking them, and the counters ``segment.contexts`` and
-    ``segment.padded_frames`` count the contexts and their padding."""
+    ``segment.padded_frames`` count the contexts and their padding.
+
+    ``input_kind='stream'`` (Granite-Hybrid-MTL, a causal model whose state
+    carries from one call to the next) cuts the featuregram as the
+    'sequence' mode does, but feeds the contexts (chunks) one model call
+    after another through a slot of :class:`StreamSlots`
+    (:meth:`slots`), each chunk after the one before it; a stream's labels
+    at any time are those of the audio it has read so far."""
     predict_fn: Callable[[torch.Tensor], dict]
     patch_size: int = 68
     chunk_frames: int = 10000
@@ -164,6 +173,14 @@ class StreamingSegmenter:
         arrays."""
         if self.input_kind == "sequence":
             return self._sequence_probabilities(fv)
+        if self.input_kind == "stream":
+            with request():
+                stream = self.slots(1, fv.device)
+                stream.assign(0, None, fv)
+                while True:
+                    done = stream.step()["finished"]
+                    if done:
+                        return done[0]["tracks"]
         W = self.patch_size
         n_windows = fv.shape[1] - W + 1
         if n_windows <= 0:
@@ -236,6 +253,35 @@ class StreamingSegmenter:
                                L // v.shape[1], axis=0)[:T]
         return out
 
+    def _standardized_contexts(self, parts: list) -> torch.Tensor:
+        """``(n, D, context_frames)`` from featuregram pieces of at most
+        ``context_frames`` frames, each standardized over its own frames
+        (the 'chunk' scope) and zero-padded after that."""
+        L = self.context_frames
+        D = parts[0].shape[0]
+        batch = parts[0].new_zeros((len(parts), D, L))
+        for i, seg in enumerate(parts):
+            batch[i, :, :seg.shape[1]] = seg
+        if self._scope() != "chunk":
+            return batch
+        if all(seg.shape[1] == L for seg in parts):
+            return self._standardize_parts(batch)
+        for i, seg in enumerate(parts):
+            batch[i, :, :seg.shape[1]] = self._standardize_parts(
+                batch[i, :, :seg.shape[1]])
+        return batch
+
+    def slots(self, n: int, device) -> "StreamSlots":
+        """``n`` streams of a 'stream' model side by side, on
+        ``device``."""
+        if self.input_kind != "stream":
+            raise ValueError(f"slots are for 'stream' models, not "
+                             f"{self.input_kind!r}")
+        if self._scope() == "featuregram":
+            raise ValueError("a stream is standardized per chunk: it has no "
+                             "whole featuregram to standardize over")
+        return StreamSlots(self, n, device)
+
     def _model_calls(self, batch: torch.Tensor, tracks: dict) -> None:
         """A chunk's windows through the model in calls of at most
         ``batch_windows``; each head's tracks go to ``tracks`` on the
@@ -262,3 +308,125 @@ class StreamingSegmenter:
             with span("segment.smooth", n=len(prob)):
                 sm, labels = smooth_predictions(prob, smooth_win)
         return sm, labels, tracks
+
+
+@dataclass
+class _Slot:
+    key: object
+    fv: torch.Tensor
+    tracks: dict
+    fed: int = 0
+
+
+class StreamSlots:
+    """``n`` streams of a 'stream' model (:class:`StreamingSegmenter` in
+    its 'stream' mode) through one model call after another.
+
+    :meth:`assign` gives a slot a broadcast's ``(D, T)`` featuregram and
+    resets the slot's carried state (``predict_fn.new_state``'s
+    ``reset``).  :meth:`step` is
+    one model call that advances every busy slot by one chunk of
+    ``context_frames`` frames: each chunk standardized over its real
+    frames, the last of a broadcast zero-padded after that, all stacked
+    ``(n, D, context_frames)``; an idle slot reads zeros, its state reset
+    before the call, and its outputs are dropped.  Each head's output per
+    position goes to the host and is appended to its broadcast's tracks,
+    position ``p`` labelling the chunk's frames ``f p`` to ``f p + f - 1``
+    (``f = context_frames / P``), cut to its real frames.  A broadcast
+    whose last chunk went through leaves its slot, with its tracks and,
+    where :meth:`step` is given a ``head``, that head's track smoothed over
+    ``smooth_win`` (:func:`smooth_predictions`) and its labels.
+
+    Each :meth:`step` is one ``utils.profiling.request``; its spans, each
+    counting the busy slots: ``segment.assemble``,
+    ``segment.standardize``, ``segment.model_call``, ``segment.to_host``,
+    and per finished broadcast ``segment.smooth`` (frames); the state's
+    resets and key and value appends are ``segment.carry``.  Counters:
+    ``segment.stream_chunks`` (chunks of broadcasts fed),
+    ``segment.stream_positions`` (their real positions),
+    ``segment.padded_frames``, ``segment.state_resets`` (slots given a
+    broadcast) and ``segment.kv_positions`` (over the busy slots, the key
+    positions each chunk's queries attend: the slot's carried positions
+    and the chunk's)."""
+
+    def __init__(self, seg: StreamingSegmenter, n: int, device):
+        self.seg = seg
+        self.state = seg.predict_fn.new_state(n, device)
+        self.slots: list[_Slot | None] = [None] * n
+
+    def free(self) -> list[int]:
+        """The slots that hold no broadcast."""
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def assign(self, slot: int, key, fv: torch.Tensor) -> None:
+        """Give ``slot`` the broadcast ``key`` with featuregram ``fv``
+        ``(D, T)``, its stream started anew."""
+        if fv.shape[1] <= 0:
+            raise ValueError("empty featuregram")
+        self.state.reset(slot)
+        profiling.count("segment.state_resets")
+        self.slots[slot] = _Slot(key, fv, {})
+
+    def partial(self, slot: int) -> dict[str, np.ndarray]:
+        """The tracks of the chunks ``slot``'s broadcast has had so far."""
+        s = self.slots[slot]
+        return {k: np.concatenate(v, axis=0) for k, v in s.tracks.items()}
+
+    def step(self, head: str | None = None, smooth_win: int = 501) -> dict:
+        """One model call.  Returns ``{"finished": [...], "frames": n}``:
+        the broadcasts that ended, each ``{"key", "tracks"}`` (and with a
+        ``head``, ``"smoothed"`` and ``"labels"``), and the real frames the
+        call read."""
+        L = self.seg.context_frames
+        busy = [i for i, s in enumerate(self.slots) if s is not None]
+        if not busy:
+            raise ValueError("no slot holds a broadcast")
+        finished = []
+        with request():
+            for i in self.free():
+                self.state.reset(i)
+            with span("segment.assemble", n=len(busy)):
+                parts = []
+                for i in range(len(self.slots)):
+                    s = self.slots[i]
+                    parts.append(s.fv[:, s.fed:s.fed + L] if s is not None
+                                 else None)
+                real = [0 if p is None else p.shape[1] for p in parts]
+                D = self.slots[busy[0]].fv.shape[0]
+                fill = self.slots[busy[0]].fv.new_zeros((D, 1))
+                parts = [fill if p is None else p for p in parts]
+            with span("segment.standardize", n=len(busy)):
+                batch = self.seg._standardized_contexts(parts)
+            for i in self.free():
+                batch[i].zero_()
+            frames = sum(real)
+            profiling.count("segment.stream_chunks", len(busy))
+            profiling.count("segment.stream_positions",
+                            sum(-(-real[i] // 2) for i in busy))
+            profiling.count("segment.padded_frames",
+                            len(busy) * L - frames)
+            with span("segment.model_call", n=len(busy)), \
+                    torch.inference_mode():
+                out = self.seg.predict_fn(batch, self.state)
+            profiling.count("segment.kv_positions",
+                            sum(self.state.lengths[i] for i in busy))
+            with span("segment.to_host", n=len(busy)):
+                host = {k: v.float().cpu().numpy() for k, v in out.items()}
+            for i in busy:
+                s = self.slots[i]
+                for k, v in host.items():
+                    per = np.repeat(v[i], L // v.shape[1], axis=0)
+                    s.tracks.setdefault(k, []).append(per[:real[i]])
+                s.fed += real[i]
+                if s.fed < s.fv.shape[1]:
+                    continue
+                done = {"key": s.key, "tracks": self.partial(i)}
+                if head is not None:
+                    prob = done["tracks"][head]
+                    prob = prob[:, 0] if prob.ndim > 1 else prob
+                    with span("segment.smooth", n=len(prob)):
+                        done["smoothed"], done["labels"] = \
+                            smooth_predictions(prob, smooth_win)
+                finished.append(done)
+                self.slots[i] = None
+        return {"finished": finished, "frames": frames}

@@ -22,7 +22,7 @@ from .data.featurize import FeatureConfig, Featurizer
 from .device import resolve_device
 from .eval.tester import FileWiseTester
 from .models.zoo import INPUT_KIND, load_model
-from .train.config import MODEL_PRESETS
+from .train.config import MODEL_PRESETS, SERVED_KINDS
 
 CLASS_NAMES = ("music", "speech", "speech_music", "noise", "speech_noise")
 
@@ -43,7 +43,7 @@ class Classifier:
         if INPUT_KIND[model] == "dual":
             raise ValueError(f"model {model!r} takes two inputs; the "
                              "Classifier feeds one featuregram's patches")
-        if INPUT_KIND[model] == "sequence":
+        if INPUT_KIND[model] in SERVED_KINDS:
             raise ValueError(f"model {model!r} labels 30-s contexts; the "
                              "Classifier feeds one featuregram's patches")
         device = resolve_device(device)

@@ -5,7 +5,11 @@ towers), and the image family: Doukhan's and Papakostas's CNNs and Jang's
 mel-scale CNN, each single-task and MTL.  Beside them the port's own
 ``Whisper_MTL`` (``models/whisper.py``): Whisper large-v3's encoder with
 the MTL heads at every position, a 'sequence' model that labels 30-s
-contexts; it is served (``cli.segment``), not trained."""
+contexts; and ``Granite_Hybrid_MTL`` (``models/granite.py``, imported
+only where it is built): Granite-4.0-H-Micro's hybrid Mamba-2 / attention
+trunk with the heads at every position, a 'stream' model that reads a
+broadcast causally, chunk by chunk, its state carried between calls.  Both
+are served (``cli.segment``), not trained."""
 
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import torch
 from torch import nn
 
 from ..ops.featuregram import feature_dim
-from ..train.config import MODEL_PRESETS, input_kind_of, preset_n_mels
+from ..train.config import (MODEL_PRESETS, SERVED_KINDS, input_kind_of,
+                            preset_n_mels)
 from ..weights import load_state_npz
 from .cnn import DoukhanCNN, PapakostasCNN
 from .jang import JangCNN
@@ -29,12 +34,12 @@ MTL = {"Lemaire_et_al": False, "Lemaire_et_al_MTL": True,
        "Doukhan_et_al": False, "Doukhan_et_al_MTL": True,
        "Papakostas_et_al": False, "Papakostas_et_al_MTL": True,
        "Jang_et_al": False, "Jang_et_al_MTL": True,
-       "Whisper_MTL": True}
+       "Whisper_MTL": True, "Granite_Hybrid_MTL": True}
 
 #: ``input_kind`` of each model, as the JAX ``ModelSpec`` has it: the
-#: layout of ``train.config.input_kind_of`` ('sequence' for Whisper-MTL),
-#: but 'dual' (a dict of two 'time_mel' inputs) for the intermediate-fusion
-#: model.
+#: layout of ``train.config.input_kind_of`` ('sequence' for Whisper-MTL,
+#: 'stream' for Granite-Hybrid-MTL), but 'dual' (a dict of two 'time_mel'
+#: inputs) for the intermediate-fusion model.
 INPUT_KIND = {name: input_kind_of(name) for name in MTL}
 INPUT_KIND["Lemaire_et_al_MTL_IF"] = "dual"
 
@@ -82,14 +87,18 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     (``d_model``, ``encoder_layers``, ``encoder_attention_heads``,
     ``encoder_ffn_dim``, ``max_source_positions``, ``head_width``),
     ignores ``patch_size`` and ``dropout_rate`` (it takes whole contexts;
-    its heads keep their 0.4) and computes in float32 only.
+    its heads keep their 0.4) and computes in float32 only;
+    ``Granite_Hybrid_MTL`` likewise (granite-4.0-h-micro's by default:
+    ``hidden_size``, ``layer_types``, ``num_attention_heads``,
+    ``num_key_value_heads``, ``mamba_n_heads``, ``mamba_d_head``,
+    ``mamba_d_state``, ``shared_intermediate_size``, ``head_width``, ...).
     ``dtype=torch.bfloat16``: mixed-precision compute with float32
     parameters and outputs, layer by layer as flax's ``dtype=``
     (``models.layers``); None (default) computes in float32."""
     if name not in MTL:
         raise ValueError(f"unknown model {name!r}")
-    sequence = INPUT_KIND[name] == "sequence"
-    if arch_kwargs and not (name.startswith("Lemaire") or sequence):
+    served = INPUT_KIND[name] in SERVED_KINDS
+    if arch_kwargs and not (name.startswith("Lemaire") or served):
         raise ValueError(f"arch_kwargs not supported for {name!r}")
     # The float32 layers compute in float32 in either mode (a bfloat16 model
     # keeps its BatchNorms, output layers and Jang's mel-scale layers in
@@ -111,9 +120,14 @@ def get_model(name: str, *, n_classes: int = 3, n_mels: int | None = None,
     if in_dim is None:
         in_dim = feature_dim(preset["feat_name"], n_fft=preset["n_fft"],
                              n_mels=n_mels)
-    if sequence:
+    if served:
         if dtype not in (None, torch.float32):
             raise ValueError(f"{name} computes in float32 only, got {dtype}")
+        if INPUT_KIND[name] == "stream":
+            # Imported here: no other model's build loads it or its kernel.
+            from .granite import GraniteHybridMTL
+            return GraniteHybridMTL(in_dim, n_classes=n_classes,
+                                    **arch_kwargs)
         return WhisperMTL(in_dim, n_classes=n_classes, **arch_kwargs)
     cnn = {"Doukhan": DoukhanCNN, "Papakostas": PapakostasCNN}.get(
         name.split("_")[0])

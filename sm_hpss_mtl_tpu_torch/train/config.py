@@ -2,8 +2,9 @@
 ``sm_hpss_mtl_tpu/train/config.py``).
 
 ``MODEL_PRESETS`` holds the feature settings each model of the zoo is
-trained and served with: the JAX table, and ``Whisper_MTL`` (the port's
-own, served only: Whisper large-v3's STFT geometry at 128 bands).
+trained and served with: the JAX table, and the port's own, served only:
+``Whisper_MTL`` (Whisper large-v3's STFT geometry at 128 bands) and
+``Granite_Hybrid_MTL`` (the same features).
 ``n_mels = -1`` marks a full-resolution feature family; the mel-scale
 layer of Jang's models is then built with 120 bands, as the JAX CLI
 does.  :class:`ExperimentConfig`
@@ -41,6 +42,8 @@ MODEL_PRESETS = {
     "Jang_et_al": dict(feat_name="LogSpec", n_fft=512, n_mels=-1),
     "Jang_et_al_MTL": dict(feat_name="LogHarmPercSpec", n_fft=512, n_mels=-1),
     "Whisper_MTL": dict(feat_name="LogMelHarmPercSpec", n_fft=400, n_mels=128),
+    "Granite_Hybrid_MTL": dict(feat_name="LogMelHarmPercSpec", n_fft=400,
+                               n_mels=128),
 }
 
 #: Models (name prefixes) that take time-major ``(B, T, D)`` patches,
@@ -49,13 +52,20 @@ TIME_MAJOR_MODELS = ("Lemaire_et_al",)
 #: Models (name prefixes) that label every position of a whole context,
 #: ``(B, D, L)``, 'sequence'.
 SEQUENCE_MODELS = ("Whisper",)
+#: Models (name prefixes) that read a stream causally, chunk by chunk,
+#: carrying their state from one chunk to the next, 'stream'.
+STREAM_MODELS = ("Granite",)
+#: The input kinds of the port's served-only models.
+SERVED_KINDS = ("sequence", "stream")
 
 
 def input_kind_of(model: str) -> str:
     """A model's input layout, as the JAX ``ModelSpec`` names the patch
-    layouts ('time_mel', 'image'), or 'sequence'."""
+    layouts ('time_mel', 'image'), or 'sequence' or 'stream'."""
     if model.startswith(SEQUENCE_MODELS):
         return "sequence"
+    if model.startswith(STREAM_MODELS):
+        return "stream"
     return "time_mel" if model.startswith(TIME_MAJOR_MODELS) else "image"
 
 

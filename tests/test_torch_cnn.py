@@ -129,9 +129,11 @@ def test_lemaire_single_task_matches_flax():
 
 def test_zoo_holds_the_jax_specs():
     from sm_hpss_mtl_tpu.models.zoo import MODEL_NAMES
-    # Every model of the JAX zoo, and the port's own sequence models.
-    sequence = {n for n, kind in INPUT_KIND.items() if kind == "sequence"}
-    assert set(MTL) == set(MODEL_NAMES) | sequence
+    # Every model of the JAX zoo, and the port's own sequence and stream
+    # models.
+    served = {n for n, kind in INPUT_KIND.items()
+              if kind in ("sequence", "stream")}
+    assert set(MTL) == set(MODEL_NAMES) | served
     for name in MODEL_NAMES:
         kw = {"n_mels": 20} if name == "Doukhan_et_al_MTL" else {}
         want = jget_model(name, **kw)
